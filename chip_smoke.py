@@ -1,34 +1,59 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # Graph500 R-MAT, scale 22, edgefactor 16
+    python3 chip_smoke.py
 
-What it does, in order, and fails on the first thing that is wrong:
+Three paths of the port at real size: the Palgol main path on a Graph500
+R-MAT of scale 22 (edgefactor 16), LM serving of h2o-danube-1.8b at its
+published widths (4 requests, 6144-token prompts, 32 greedy decode steps),
+and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
+at the ``RECSYS_SHAPES`` serve shapes. What it does, in order, and fails
+on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of ``src/repro_torch/csrc`` from the checkout (one ``nvcc``
    per source, all at once) into the ignored ``src/repro_torch/build/``;
 2. holds each kernel against its plain PyTorch version on the card over a
-   sweep of dtypes, widths, negative/sentinel indices, empty segments,
-   masks and every combiner (exact, float sums/products within the f32 /
-   bf16 tolerances of tests/test_kernels.py);
-3. drives the main path — ``compile_program`` → ``run_bsp`` — on a
-   Graph500 R-MAT of scale 22 (4.19 M vertices, 67 M directed edges; about
-   twice that once symmetrised, the soc-LiveJournal1 class of graph that
-   Pregel systems are evaluated on): Shiloach-Vishkin (pull and push
-   schedules) and WCC on the symmetric graph, SSSP and PageRank on the
-   directed weighted one, plus ``cp.run()`` for WCC. Each result is held
-   against an independent host oracle (scipy connected components, scipy
-   Dijkstra, a float64 numpy PageRank), each superstep count against the
-   plan's cost model, and both kernels' launch counters must be non-zero;
-4. times each kernel at the main path's shapes beside its bound, its plain
-   version and the one PyTorch call that computes the same function, and
-   measures the device's busy share over one program run.
+   sweep: ``gather_rows``/``segment_reduce`` over dtypes, widths,
+   negative/sentinel indices, empty segments, masks and every combiner;
+   ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
+   shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
+   32/8 heads, window 4096); ``embedding_bag`` over ``TestEmbeddingBag``'s
+   shapes with weights, masks and out-of-range ids (exact where the
+   arithmetic is, else the f32/bf16 ``TOL`` of tests/test_kernels.py;
+   flash besides row by row, ``FLASH_ROW``, relative to each row's norm);
+3. drives the graph main path — ``compile_program`` → ``run_bsp`` — on the
+   R-MAT (4.19 M vertices, 67 M directed edges; about twice that once
+   symmetrised, the soc-LiveJournal1 class of graph): Shiloach-Vishkin
+   (pull and push) and WCC on the symmetric graph, SSSP and PageRank on
+   the directed weighted one, plus ``cp.run()`` for WCC, each against an
+   independent host oracle (scipy components, Dijkstra, a float64 numpy
+   PageRank) and each superstep count against the plan's cost model; then
+   times ``gather_rows``/``segment_reduce`` at its shapes and measures the
+   card's busy share over one program run;
+4. serves h2o-danube-1.8b (24 layers, d 2560, bf16, random weights from
+   the seed) through ``repro_torch.launch.serve``: prefill then greedy
+   decode over the ring-buffer cache (6144 > the 4096 window, so the window
+   binds and the ring wraps). Checks: one layer's real q/k/v through the
+   flash kernel against its plain version, row by row relative to each
+   row's norm (and that this check fails the plain version with the window
+   cut by one 64-key tile); each decode step's logits
+   against one prefill over prompt + decoded tokens (teacher-forced), and
+   the greedy tokens wherever that reference's top-2 margin exceeds the
+   tolerance; exactly 24 flash launches per prefill;
+5. serves AutoInt (random tables from the seed): ``serve_p99`` (batch 512)
+   logits against an independent float64 numpy forward, ``serve_bulk``
+   (batch 262,144), and ``retrieval_cand`` (one query, 10⁶ candidates)
+   against a float64 numpy top-100; ``embedding_bag`` must have launched;
+6. times ``flash_attention`` and ``embedding_bag`` at those paths' shapes
+   beside their bounds, their plain versions and the one PyTorch call
+   that computes the same function.
 
-Every number is printed beside the card's name and power limit. The line
-before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Without a card, or without the package
-beside it, the script exits non-zero and prints no result.
+Each path's launch counters are set to 0 just before it is driven and read
+just after. Every number is printed beside the card's name and power
+limit. The line before the last is the kernel table as JSON; the last line
+is ``{"ok": true, "device": {...}}``. Without a card, or without the
+package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -46,12 +71,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM data sheet: HBM3 rate and the non-tensor-core f32 rate (also
-#: used for int32 ops, the same units)
+#: H100 SXM data sheet: HBM3 rate, the non-tensor-core f32 rate (also
+#: used for int32 ops, the same units) and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 #: tests/test_kernels.py TOL
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: flash_attention per query row: ‖got − want‖ ≤ REL·‖want‖ + FLOOR·√D.
+#: An attention row's norm shrinks as 1/√(keys kept), so at the prefill's
+#: window an absolute TOL is the size of the output itself; the relative
+#: bound is a few bf16 roundings (2⁻⁸ each), the floor a few ulps of the
+#: smallest rows, for the rows that keep no key (exactly 0)
+FLASH_ROW = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (1e-2, 1e-4)}
 
 
 def card_line() -> str:
@@ -69,9 +101,32 @@ def say(kind: str, card: str, **fields):
 # -- 2. kernels against their plain versions ---------------------------------
 
 
+def flash_rows(got, want):
+    """Over every query row of ``[B, H, Sq, D]`` outputs: the largest
+    ‖got − want‖ over its ``FLASH_ROW`` limit (above 1 fails), and the
+    largest ‖got − want‖ / ‖want‖ over rows that keep a key."""
+    rel, floor = FLASH_ROW[want.dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).norm(dim=-1)
+    ref = w.norm(dim=-1)
+    worst = float((err / (rel * ref + floor * want.shape[-1] ** 0.5)).max())
+    live = ref > 0
+    return worst, float((err[live] / ref[live]).max()) if bool(live.any()) else 0.0
+
+
+def flash_row_check(got, want, what: str) -> float:
+    """Fails unless every row is within ``FLASH_ROW``; returns the largest
+    row ratio ‖got − want‖ / ‖want‖."""
+    worst, ratio = flash_rows(got, want)
+    if not worst <= 1.0:
+        raise AssertionError(f"flash_attention {what}: a row differs by {worst} of its "
+                             f"limit (largest row ratio {ratio})")
+    return ratio
+
+
 def check_kernels(device, gen):
     """Each kernel against its plain version over a sweep; returns the
-    number of cases per kernel."""
+    number of cases per kernel and flash's largest row ratio per dtype."""
     from repro_torch.graph.structure import segment_offsets
     from repro_torch.kernels import (
         gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
@@ -128,9 +183,72 @@ def check_kernels(device, gen):
                     elif not torch.equal(got, want):
                         raise AssertionError(f"segment_reduce {dt} {op} width={width}")
                     cases["segment_reduce"] += 1
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    return cases
+    model_cases, row_ratio = check_model_kernels(device, gen)
+    cases.update(model_cases)
+    sync(device)
+    return cases, row_ratio
+
+
+#: tests/test_kernels.py TestFlashAttention's shapes (b, h, hkv, sq, sk, d,
+#: causal, window), rows with no key (window past the last key), and the
+#: h2o-danube prefill's head shape (D = 80, 32/8 heads, window 4096)
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None),
+    (1, 2, 2, 48, 80, 16, True, 16),
+    (2, 8, 4, 33, 57, 64, False, None),
+    (1, 4, 1, 128, 128, 128, True, 32),
+    (1, 1, 1, 8, 256, 64, True, None),
+    (1, 2, 1, 100, 10, 8, False, 5),
+    (1, 2, 1, 100, 10, 8, True, 5),
+    (1, 32, 8, 4500, 4500, 80, True, 4096),
+]
+#: tests/test_kernels.py TestEmbeddingBag's shapes (v, d, b, h)
+BAG_CASES = [(100, 16, 8, 4), (1000, 64, 16, 1), (50, 128, 4, 10)]
+
+
+def check_model_kernels(device, gen):
+    """``flash_attention`` and ``embedding_bag`` against their plain
+    versions over their sweeps, at the f32 / bf16 ``TOL`` (flash also row
+    by row, ``FLASH_ROW``). Returns the cases per kernel and flash's
+    largest row ratio per dtype."""
+    from repro_torch.kernels import (
+        embedding_bag, embedding_bag_plain, flash_attention, flash_attention_plain,
+    )
+
+    cases = {"flash_attention": 0, "embedding_bag": 0}
+    row_ratio = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for b, h, hkv, sq, sk, d, causal, window in FLASH_CASES:
+            q = torch.randn((b, h, sq, d), generator=gen).to(dt).to(device)
+            k = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
+            v = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
+            for scale in (1.0, d**-0.5):
+                got = flash_attention(q, k, v, causal, window, scale)
+                want = flash_attention_plain(q, k, v, causal, window, scale)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=TOL[dt], atol=TOL[dt])
+                what = f"{dt} {(b, h, hkv, sq, sk, d, causal, window)} scale {scale}"
+                ratio = flash_row_check(got, want, what)
+                row_ratio[str(dt)] = max(row_ratio.get(str(dt), 0.0), ratio)
+                cases["flash_attention"] += 1
+        for v_rows, d, b, h in BAG_CASES:
+            table = torch.randn((v_rows, d), generator=gen).to(dt)
+            idx = torch.randint(0, v_rows, (b, h), generator=gen, dtype=torch.int32)
+            idx.view(-1)[:3] = torch.tensor([-1, v_rows, 2**31 - 1])[: idx.numel()]
+            w = torch.randn((b, h), generator=gen).to(dt)
+            mask = torch.rand((b, h), generator=gen) < 0.8
+            for weights, m in ((None, None), (w, None), (None, mask), (w, mask)):
+                on = [None if x is None else x.to(device) for x in (weights, m)]
+                got = embedding_bag(table.to(device), idx.to(device), *on).cpu()
+                want = embedding_bag_plain(table, idx, weights, m)
+                if h == 1 and weights is None:  # a copy of one row (or 0): exact
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"embedding_bag {dt} {(v_rows, d, b, h)}")
+                else:
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               rtol=TOL[dt], atol=TOL[dt])
+                cases["embedding_bag"] += 1
+    return cases, row_ratio
 
 
 # -- 3. the main path and its oracles ------------------------------------------
@@ -344,9 +462,9 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, nops: int):
+def bound(nbytes: int, nops: int, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -429,29 +547,25 @@ def kernel_rows(graphs, launches):
     return rows
 
 
-def busy_share(graph, card):
-    """Device busy share over one WCC run under torch.profiler: the union
-    of the card's activity intervals over the host wall time."""
+def device_busy(fn, what: str, card: str, **fields):
+    """Device busy share of ``fn()`` under torch.profiler: the union of the
+    card's activity intervals over the host wall time to its last kernel.
+    Prints one ``device_busy`` line and returns ``fn``'s result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import algorithms as alg
-    from repro_torch.core import compile_program
-    from repro_torch.pregel import run_bsp
-
-    cp = compile_program(alg.WCC, graph)
-    f0 = cp.init_fields()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_bsp(cp.prog, graph, f0)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted(
-        (ev.time_range.start, ev.time_range.end)
-        for ev in prof.events()
-        if ev.device_type == DeviceType.CUDA
-    )
+    device_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in device_events)
+    by_name = {}
+    for ev in device_events:
+        by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ev.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -463,23 +577,351 @@ def busy_share(graph, card):
         busy += cur_e - cur_s
     share = busy / wall_us if spans else None
     say(
-        "device_busy", card, program="wcc", supersteps=res.supersteps,
+        "device_busy", card, what=what, **fields,
         wall_ms_profiled=wall_us / 1e3, device_busy_ms=busy / 1e3,
         busy_share=share, idle_share=None if share is None else 1 - share,
         device_events=len(spans),
+        top_device_ms=[[name, us / 1e3] for name, us in top],
     )
+    return out
+
+
+def busy_share(graph, supersteps: int, card):
+    """Device busy share over one WCC run of ``supersteps`` supersteps."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import compile_program
+    from repro_torch.pregel import run_bsp
+
+    cp = compile_program(alg.WCC, graph)
+    f0 = cp.init_fields()
+    res = device_busy(lambda: run_bsp(cp.prog, graph, f0), "wcc run_bsp", card,
+                      program="wcc", supersteps=supersteps)
+    if res.supersteps != supersteps:
+        raise AssertionError(f"wcc: the profiled run took {res.supersteps} supersteps")
+
+
+# -- 4. LM serving: h2o-danube-1.8b --------------------------------------------
+
+
+def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
+    """Serve ``batch`` random prompts through ``repro_torch.launch.serve``,
+    check the flash kernel on one layer's real q/k/v and every decode step
+    against a teacher-forced prefill. Returns what the kernel row needs."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import common
+    from repro_torch.models.transformer import model as tm
+
+    sync(device)
+    t0 = time.perf_counter()
+    params = tm.init(cfg, seed=seed, device=device)
+    prompts = srv.random_prompts(cfg, batch, prompt_len, seed + 1, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    flash_attention.launches = 0
+    res = srv.serve(params, cfg, prompts, steps)
+    launches = flash_attention.launches
+    if device.type == "cuda" and launches != cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches for one prefill of "
+                             f"{cfg.n_layers} layers")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    warm = srv.serve(params, cfg, prompts, steps)  # every kernel loaded
+    if not torch.equal(warm.tokens, res.tokens):
+        raise AssertionError("a second greedy run gave other tokens")
+    n_prompt, n_dec = batch * prompt_len, batch * steps
+    say(
+        "lm_serve", card, arch=cfg.name, batch=batch, prompt_len=prompt_len,
+        decode_steps=steps, cache_capacity=res.capacity, params_init_s=init_s,
+        n_params=cfg.n_params(), flash_launches=launches,
+        prefill_s=[res.prefill_s, warm.prefill_s],
+        prefill_tok_s=[n_prompt / res.prefill_s, n_prompt / warm.prefill_s],
+        decode_s=[res.decode_s, warm.decode_s],
+        decode_tok_s=[n_dec / res.decode_s, n_dec / warm.decode_s],
+        peak_allocated_gb=peak_gb, first_stream=res.tokens[0, :12].tolist(),
+    )
+
+    if device.type == "cuda":  # where a prefill's and a decode step's time goes
+        _, cache = device_busy(
+            lambda: tm.prefill(params, prompts, cfg, capacity=res.capacity,
+                               full_logits=False), "lm prefill", card)
+        device_busy(lambda: tm.decode_step_(params, cache, res.tokens[:, :1], cfg),
+                    "lm decode step", card)
+        del cache
+
+    # (a) one layer's real q/k/v through the kernel and its plain version
+    lp = params.layer(0)
+    x = params.embed[prompts.long()].to(cfg.cdtype)
+    pos = torch.arange(prompt_len, dtype=torch.int32, device=device)
+    q, k, v = tm.project_qkv(lp, common.rms_norm(x, lp["ln1"]), pos, cfg)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    scale = cfg.head_dim**-0.5
+    got = flash_attention(q, k, v, True, cfg.swa_window, scale)
+    want = flash_attention_plain(q, k, v, True, cfg.swa_window, scale)
+    tol = TOL[cfg.cdtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    err = (got.float() - want.float()).abs().max().item()
+    row_ratio = flash_row_check(got, want, "at the prefill's layer 0")
+    # the row check must see one 64-key tile at the window's edge: the plain
+    # version with the window cut by 64 keys has to fail it
+    cut = flash_attention_plain(q, k, v, True, cfg.swa_window - 64, scale)
+    cut_worst, cut_ratio = flash_rows(cut, want)
+    if not cut_worst > 1.0:
+        raise AssertionError("the flash row check passes a window cut by 64 keys")
+    del got, want, cut
+
+    # (b) teacher-forced: each step's logits against one prefill over the
+    # prompt and the tokens fed to the decode steps
+    fed = torch.cat([prompts, res.tokens[:, :steps]], dim=1)
+    ref = tm.prefill(params, fed, cfg, full_logits=True)[0]
+    ref = ref[:, prompt_len - 1:].float()  # [B, steps + 1, V]
+    got_l = torch.stack([lg.float() for lg in res.logits], dim=1)
+    scale_l = ref.abs().max().item()
+    atol = tol * scale_l
+    diff = (got_l - ref).abs()
+    if not diff.max().item() <= atol:
+        raise AssertionError(f"decode logits differ from the teacher-forced prefill by "
+                             f"{diff.max().item()} > {atol}")
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > atol
+    agree = ref.argmax(-1).to(torch.int32) == res.tokens
+    if not bool(agree[decided].all()):
+        raise AssertionError("a greedy token differs where the reference's margin is decided")
+    say(
+        "lm_checks", card, ok=True, flash_max_abs_err=err, flash_tol=tol,
+        flash_max_row_ratio=row_ratio, flash_row_limit=list(FLASH_ROW[cfg.cdtype]),
+        window_cut_64_row_ratio=cut_ratio, window_cut_64_worst_over_limit=cut_worst,
+        logits_max_abs_diff=diff.max().item(), logits_tol=atol,
+        logits_max_abs=scale_l, positions=int(decided.numel()),
+        greedy_checked=int(decided.sum().item()),
+        greedy_agree_all=int(agree.sum().item()),
+    )
+    del ref, got_l, diff, params
+    return {"launches": launches, "q": q, "k": k, "v": v, "window": cfg.swa_window,
+            "scale": scale, "max_abs_err": err}
+
+
+# -- 5. AutoInt serving --------------------------------------------------------
+
+
+def numpy_autoint(params, fields, cfg, pooled=False):
+    """Independent float64 forward of AutoInt over the rows ``fields`` read
+    (clipped flat indices into the stacked table, as the JAX package)."""
+    f, v, d = params["tables"].shape
+    flat = np.clip(fields.astype(np.int64) + np.arange(f) * v, 0, f * v - 1)
+    rows = params["tables"].reshape(f * v, d)[
+        torch.from_numpy(flat.reshape(-1)).to(params["tables"].device)
+    ]
+    x = rows.cpu().numpy().astype(np.float64).reshape(fields.shape + (d,))
+    np64 = lambda t: t.detach().cpu().numpy().astype(np.float64)  # noqa: E731
+    for lp in params["attn"]:
+        b = x.shape[0]
+        heads = lambda w: (x @ np64(w)).reshape(b, f, cfg.n_heads, cfg.d_head)  # noqa: E731
+        q, k, vv = heads(lp["wq"]), heads(lp["wk"]), heads(lp["wv"])
+        s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(cfg.d_head)
+        a = np.exp(s - s.max(-1, keepdims=True))
+        a /= a.sum(-1, keepdims=True)
+        o = np.einsum("bhqk,bkhd->bqhd", a, vv).reshape(b, f, -1)
+        x = np.maximum(o + x @ np64(lp["w_res"]), 0.0)
+    if pooled:
+        return x.mean(axis=1)
+    h = x.reshape(x.shape[0], -1)
+    for lp in params["mlp"]:
+        h = np.maximum(h @ np64(lp["w"]) + np64(lp["b"]), 0.0)
+    return (h @ np64(params["head"]))[:, 0]
+
+
+def host_ms(fn, device, reps):
+    """Host-clock time of ``fn`` to its last kernel, after one warm call."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def autoint_path(cfg, shapes, seed, device, card):
+    """``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` through
+    ``repro_torch.models.recsys.autoint`` with float64 numpy oracles."""
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.models.recsys import autoint as ai
+
+    sync(device)
+    t0 = time.perf_counter()
+    params = ai.init(cfg, seed=seed, device=device)
+    batches = {
+        name: next(recsys_batches(shapes[name]["batch"], cfg.n_fields,
+                                  cfg.vocab_per_field, seed=seed + i, device=device))
+        for i, name in enumerate(("serve_p99", "serve_bulk", "retrieval_cand"))
+    }
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    cands = torch.randn((n_cand, cfg.d_attn), generator=gen, device=device)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    embedding_bag.launches = 0
+    p99 = ai.forward(params, batches["serve_p99"], cfg)
+    bulk = ai.forward(params, batches["serve_bulk"], cfg)
+    retr = {"fields": batches["retrieval_cand"]["fields"], "candidates": cands}
+    scores, ids = ai.retrieval_score(params, retr, cfg, top_k=100)
+    sync(device)
+    launches = embedding_bag.launches
+    if device.type == "cuda" and launches <= 0:
+        raise AssertionError("the AutoInt path never launched embedding_bag")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+
+    t0 = time.perf_counter()
+    for name, got in (("serve_p99", p99), ("serve_bulk", bulk)):
+        if tuple(got.shape) != (shapes[name]["batch"],) or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: logits of shape {tuple(got.shape)} or not finite")
+    fields = batches["serve_p99"]["fields"].cpu().numpy()
+    want = numpy_autoint(params, fields, cfg)
+    np.testing.assert_allclose(p99.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    bulk_head = batches["serve_bulk"]["fields"][:512].cpu().numpy()
+    np.testing.assert_allclose(bulk[:512].cpu().numpy(), numpy_autoint(params, bulk_head, cfg),
+                               rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    query = numpy_autoint(params, retr["fields"].cpu().numpy(), cfg, pooled=True)
+    all_scores = (cands.cpu().numpy().astype(np.float64) @ query[0])
+    order = np.argsort(-all_scores, kind="stable")[:101]
+    got_ids = ids[0].cpu().numpy()
+    span = np.abs(all_scores[order[0]])
+    # the same 100 candidates, in the oracle's order, up to f32 rounding
+    np.testing.assert_allclose(all_scores[got_ids], all_scores[order[:100]],
+                               rtol=0, atol=1e-5 * span)
+    np.testing.assert_allclose(scores[0].cpu().numpy(), all_scores[order[:100]],
+                               rtol=1e-4, atol=1e-5 * span)
+    if len(set(got_ids.tolist())) != 100:
+        raise AssertionError("retrieval returned a candidate twice")
+    check_s = time.perf_counter() - t0
+
+    b99, bbulk = shapes["serve_p99"]["batch"], shapes["serve_bulk"]["batch"]
+    p99_ms = host_ms(lambda: ai.forward(params, batches["serve_p99"], cfg), device, 20)
+    bulk_ms = host_ms(lambda: ai.forward(params, batches["serve_bulk"], cfg), device, 3)
+    retr_ms = host_ms(lambda: ai.retrieval_score(params, retr, cfg, top_k=100), device, 5)
+    if device.type == "cuda":
+        for name in ("serve_p99", "serve_bulk"):
+            device_busy(lambda: ai.forward(params, batches[name], cfg),
+                        f"autoint {name}", card)
+    say(
+        "autoint_serve", card, arch=cfg.name, embedding_bag_launches=launches,
+        setup_s=setup_s, check_s=check_s, peak_allocated_gb=peak_gb,
+        serve_p99_ms=p99_ms, serve_p99_rows_s=b99 / p99_ms * 1e3,
+        serve_bulk_ms=bulk_ms, serve_bulk_rows_s=bbulk / bulk_ms * 1e3,
+        retrieval_ms=retr_ms, n_candidates=n_cand,
+        retrieval_exact_ids=bool(np.array_equal(got_ids, order[:100])),
+        top100_min_gap=float(np.min(-np.diff(all_scores[order]))),
+    )
+    f, v, d = params["tables"].shape
+    flat_idx = (batches["serve_bulk"]["fields"]
+                + torch.arange(f, dtype=torch.int32, device=device) * v).reshape(-1, 1)
+    return {"launches": launches, "table": params["tables"].reshape(f * v, d),
+            "idx": flat_idx.contiguous()}
+
+
+# -- 6. kernel times of the model paths ------------------------------------------
+
+
+def model_kernel_rows(lm, rec):
+    """``flash_attention`` at the prefill's first layer and ``embedding_bag``
+    at ``serve_bulk``'s lookup: time, plain time, library time, bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        embedding_bag, embedding_bag_plain, flash_attention, flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import keep_mask
+
+    q, k, v, window, scale = lm["q"], lm["k"], lm["v"], lm["window"], lm["scale"]
+    b, h, sq, d = q.shape
+    keep = keep_mask(torch.arange(sq, device="cuda"), torch.arange(k.shape[2], device="cuda"),
+                     True, window)
+    pairs = int(keep.sum())  # the (query, key) pairs kept, per head
+    f_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+    f_bound, f_by = bound(f_bytes, pairs * b * h * 4 * d, BF16_TENSOR_OPS_PER_S)
+    n_rep = h // k.shape[1]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=keep, scale=scale,
+                                              enable_gqa=True)
+
+    lib = sdpa()
+    lib_err = (lib.float() - flash_attention(q, k, v, True, window, scale).float()).abs().max()
+    kx, vx = k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1)
+    expanded_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=keep, scale=scale), reps=10)
+    del kx, vx
+    rows = [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "launches": lm["launches"],
+        "max_abs_err": lm["max_abs_err"],
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, True, window, scale), reps=10),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True, window, scale), reps=3),
+        "bound_ms": f_bound,
+        "bound_by": f_by,
+        "library_ms": cuda_ms(sdpa, reps=10),
+        "shape": f"q bf16[{b},{h},{sq},{d}], kv [{b},{k.shape[1]},{k.shape[2]},{d}], "
+                 f"causal, window {window}, {pairs} live pairs/head",
+        "library": "scaled_dot_product_attention(enable_gqa, bool mask)",
+        "library_max_abs_diff": float(lib_err),
+        "library_expanded_kv_ms": expanded_ms,
+    }]
+    del lib
+
+    table, idx = rec["table"], rec["idx"]
+    got = embedding_bag(table, idx)
+    want = embedding_bag_plain(table, idx)
+    if not torch.equal(got, want):
+        raise AssertionError("embedding_bag disagrees with its plain version at serve_bulk")
+    n, d = idx.shape[0], table.shape[1]
+    e_bytes = n * d * table.element_size() * 2 + idx.numel() * 4
+    e_bound, e_by = bound(e_bytes, n * d, SCALAR_OPS_PER_S)
+    rows.append({
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:42",
+        "launches": rec["launches"],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(lambda: embedding_bag(table, idx)),
+        "plain_ms": cuda_ms(lambda: embedding_bag_plain(table, idx)),
+        "bound_ms": e_bound,
+        "bound_by": e_by,
+        "library_ms": cuda_ms(lambda: F.embedding_bag(idx, table, mode="sum")),
+        "shape": f"table f32[{table.shape[0]},{d}], {n} one-slot bags (serve_bulk lookup)",
+        "library": "embedding_bag(mode='sum')",
+    })
+    return rows
 
 
 def main() -> int:
     scale, edgefactor, seed = 22, 16.0, 0  # Graph500 R-MAT at scale 22
+    lm_batch, prompt_len, decode_steps = 4, 6144, 32
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     from repro_torch.kernels import build  # fails beside no checkout: no result
 
+    from repro_torch import configs
+
     card = card_line()
     print(card, flush=True)
     device = torch.device("cuda")
+    # f32 results are compared with f32/f64 references: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     reports = build.build()
     say("build", card, seconds=time.perf_counter() - t0, built=sorted(reports))
@@ -492,13 +934,23 @@ def main() -> int:
         )
 
     gen = torch.Generator().manual_seed(seed)
-    cases = check_kernels(device, gen)
-    say("kernel_check", card, ok=True, cases=cases, versus="plain PyTorch versions")
+    cases, row_ratio = check_kernels(device, gen)
+    say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
+        versus="plain PyTorch versions")
 
-    launches, graphs, _ = main_path(scale, edgefactor, seed, device, card)
+    launches, graphs, results = main_path(scale, edgefactor, seed, device, card)
     rows = kernel_rows(graphs, launches)
-    busy_share(graphs[0], card)
-    say("memory", card, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    busy_share(graphs[0], results[2].supersteps, card)
+    say("memory", card, path="graph",
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del graphs, results
+
+    lm = lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len,
+                 decode_steps, seed, device, card)
+    spec = configs.get_spec("autoint")
+    rec = autoint_path(spec.config, spec.shapes, seed, device, card)
+    rows += model_kernel_rows(lm, rec)
+    say("total", card, seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

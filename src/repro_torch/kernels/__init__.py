@@ -14,9 +14,22 @@ Kernels (``build.KERNELS``):
                     ``repro/kernels/gather_rows``);
   segment_reduce  — sorted segmented reduction with the six Palgol
                     combiners, the message combiner (replaces
-                    ``repro/kernels/segment_reduce``).
+                    ``repro/kernels/segment_reduce``);
+  flash_attention — forward online-softmax attention (GQA, causal,
+                    window), the LM's prefill attention (replaces
+                    ``repro/kernels/flash_attention``);
+  embedding_bag   — fixed-width weighted bag sums, AutoInt's lookup
+                    (replaces ``repro/kernels/embedding_bag``).
 """
 
+from repro_torch.kernels.embedding_bag.ops import (
+    embedding_bag,
+    embedding_bag_plain,
+)
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.gather_rows.ops import gather_rows, gather_rows_plain
 from repro_torch.kernels.segment_reduce.ops import (
     segment_reduce,
@@ -24,6 +37,10 @@ from repro_torch.kernels.segment_reduce.ops import (
 )
 
 __all__ = [
+    "embedding_bag",
+    "embedding_bag_plain",
+    "flash_attention",
+    "flash_attention_plain",
     "gather_rows",
     "gather_rows_plain",
     "segment_reduce",

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 #: every kernel source of the package (``csrc/<name>.cu``)
-KERNELS = ("gather_rows", "segment_reduce")
+KERNELS = ("gather_rows", "segment_reduce", "flash_attention", "embedding_bag")
 
 
 def _nvcc() -> str:

@@ -1,0 +1,7 @@
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_plain,
+    keep_mask,
+)
+
+__all__ = ["flash_attention", "flash_attention_plain", "keep_mask"]

@@ -1,0 +1,127 @@
+"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its plain
+version.
+
+``flash_attention(q, k, v, causal=True, window=None, scale=1.0)`` takes the
+layout of the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``:
+q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Sk, D]``, float32 or bfloat16, D ≤ 128,
+H a multiple of Hkv (query head ``h`` reads kv head ``h // (H / Hkv)``).
+Positions are the row indices: key ``j`` is kept for query ``i`` iff
+``j <= i`` under ``causal`` and ``i - j < window`` under a window. Scores
+are ``scale · q·k`` in float32 (``scale=1`` is the TPU kernel, which has
+none); a row with no key kept gives 0; the output is in q's dtype.
+
+On a CUDA tensor the wrapper launches the kernel or raises; the plain
+version is taken only for tensors on the CPU or the meta device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's query tile and the grid's limit on tiles
+_BLOCK_Q, _MAX_Q_TILES = 64, 65535
+
+
+def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
+    """bool ``[..., Sq, Sk]`` from position vectors ``[..., Sq]`` and
+    ``[..., Sk]``: key ``k`` is kept for query ``q`` iff ``k <= q`` under
+    ``causal`` and ``q - k < window`` under a window. The one statement of
+    the rule, shared by the plain version and the dense attention."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    keep = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        keep &= diff >= 0
+    if window is not None:
+        keep &= diff < window
+    return keep
+
+
+def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0):
+    """The plain PyTorch version, one (batch, kv-head group) at a time so
+    that no ``[B, H, Sq, Sk]`` score tensor is ever held: f32 scores,
+    ``-inf`` where masked, softmax, NaN rows (no key kept) to 0, p rounded
+    to q's dtype, f32 product with v."""
+    b, h, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    keep = keep_mask(torch.arange(sq, device=q.device),
+                     torch.arange(sk, device=q.device), causal, window)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for g in range(hkv):
+            heads = slice(g * rep, (g + 1) * rep)
+            s = (q[bi, heads].float() @ k[bi, g].float().T) * scale
+            p = torch.softmax(s.masked_fill(~keep, -torch.inf), dim=-1)
+            p = torch.where(torch.isnan(p), 0.0, p).to(q.dtype).float()
+            out[bi, heads] = (p @ v[bi, g].float()).to(q.dtype)
+    return out
+
+
+@functools.cache
+def _entry():
+    """The C entry point of the kernel's library, typed."""
+    fn = build.library("flash_attention").flash_attention_launch
+    fn.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise TypeError(
+            f"flash_attention needs q [B,H,Sq,D], k = v [B,Hkv,Sk,D]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise TypeError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if k.shape[1] < 1 or h % k.shape[1]:
+        raise TypeError(f"{h} query heads are not a multiple of {k.shape[1]} kv heads")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes one of float32/bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= d <= 128:
+        raise ValueError(f"head dim {d} outside 1..128")
+    if -(-sq // _BLOCK_Q) > _MAX_Q_TILES:
+        raise ValueError(f"Sq = {sq} exceeds the kernel's grid")
+    if not (k.device == v.device == q.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention needs contiguous q, k and v")
+
+
+def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
+    """Attention on the card by ``csrc/flash_attention.cu``; see module."""
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, causal, window, scale)
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    rc = _entry()(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
+        _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
+        0 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,16 @@
+"""Model zoo of the port: the dense LM transformers and AutoInt.
+
+The JAX package's functional contract, on torch tensors:
+
+* ``init(cfg, seed, device)`` — parameters from a ``torch.Generator``
+  (the same distributions as the JAX initialisers, not the same bits);
+  ``params_from_arrays(cfg, tree, device)`` carries a JAX parameter tree,
+  as numpy arrays, across;
+* ``forward``/``prefill``/``decode_step_``/``retrieval_score`` as the
+  family dictates, forward only (training is a later slice); the LM's
+  decode step updates its cache in place (``model.decode_step_``).
+
+Hot paths go through the port's CUDA kernels on the card: prefill
+attention through ``kernels.flash_attention``, AutoInt's lookup through
+``kernels.embedding_bag``.
+"""

@@ -1,0 +1,63 @@
+"""Shared NN building blocks (functional, on torch tensors).
+
+The forward half of ``repro.models.common``. The JAX package's
+``optimization_barrier`` (an XLA scheduling hint, the identity) and
+``dist.sharding.constrain`` (a no-op without a mesh) have no counterpart
+here: PyTorch runs eagerly and the port has no mesh yet (ROADMAP A8).
+Random initialisers draw from an explicit ``torch.Generator``, whose device
+is where the parameters are made.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(
+    gen: torch.Generator, d_in: int, d_out: int, dtype, scale: Optional[float] = None
+) -> torch.Tensor:
+    """``normal(d_in, d_out) * scale`` in float32, cast to ``dtype``;
+    ``scale`` defaults to ``1 / sqrt(d_in)``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    x = torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def stack_init(n: int, init_fn: Callable[[], Dict[str, torch.Tensor]]):
+    """Call ``init_fn`` ``n`` times and stack each leaf along a new axis 0
+    (the layer-stacked layout of the JAX package's ``stack_init``)."""
+    layers = [init_fn() for _ in range(n)]
+    return {name: torch.stack([lp[name] for lp in layers]) for name in layers[0]}
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Normalise in float32, cast back to ``x``'s dtype, then scale by
+    ``gamma`` — the JAX package's order of rounding."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def swiglu(x, w1, w3, w2):
+    """SwiGLU FFN: (silu(x@w1) * (x@w3)) @ w2."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy; logits ``[..., V]`` taken in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    labels = labels.float()
+    return (
+        logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    ).mean()

@@ -6,7 +6,10 @@
 importing ``repro.core`` imports the JAX compiler. These tests hold each
 copy to its original: the same source apart from the package name, and for
 every program × schedule × fuse the same superstep plan and the same STM
-cost models. They also check that the port imports without JAX.
+cost models. The same holds for the framework-free modules of the model
+slices (``configs/common.py``, ``models/recsys/config.py`` and the config
+modules of the ported architectures). They also check that the port
+imports without JAX.
 """
 
 import dataclasses
@@ -38,6 +41,29 @@ def test_copy_matches_original_source(module):
     port = (SRC / "repro_torch" / "core" / f"{module}.py").read_text()
     orig = (SRC / "repro" / "core" / f"{module}.py").read_text()
     assert port.replace("repro_torch.", "repro.") == orig
+
+
+#: model-slice modules copied from the JAX package, by path under the package
+COPIED_MODELS = (
+    "configs/common.py",
+    "configs/h2o_danube_1_8b.py",
+    "configs/qwen3_32b.py",
+    "configs/qwen2_5_32b.py",
+    "configs/autoint.py",
+    "models/recsys/config.py",
+)
+
+
+@pytest.mark.parametrize("path", COPIED_MODELS)
+def test_model_copy_matches_original_source(path):
+    """A copied config module differs from the JAX package's only in the
+    package name (``configs/common.py`` and ``models/recsys/config.py``
+    import nothing of it and are byte copies)."""
+    port = (SRC / "repro_torch" / path).read_text()
+    orig = (SRC / "repro" / path).read_text()
+    assert port.replace("repro_torch.", "repro.") == orig
+    if "repro." not in orig:
+        assert port == orig
 
 
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
@@ -78,11 +104,24 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.graph, "
-        "repro_torch.pregel, repro_torch.kernels\n"
+        "repro_torch.pregel, repro_torch.kernels, repro_torch.configs, "
+        "repro_torch.models, repro_torch.models.transformer, "
+        "repro_torch.models.recsys, repro_torch.launch.serve, repro_torch.data\n"
         "from repro_torch.graph import generators\n"
         "from repro_torch.core import compile_program, algorithms\n"
         "g = generators.chain(8, device='cpu')\n"
         "compile_program(algorithms.SSSP, g).run()\n"
+        "from repro_torch import configs\n"
+        "for arch in configs.all_arch_ids():\n"
+        "    configs.get_spec(arch)\n"
+        "repro_torch.launch.serve.main(['--reduced', '--device', 'cpu', "
+        "'--batch', '1', '--prompt-len', '8', '--decode-steps', '2'])\n"
+        "from repro_torch.models.recsys import autoint\n"
+        "cfg = configs.get_spec('autoint').reduced\n"
+        "p = autoint.init(cfg, device='cpu')\n"
+        "b = next(repro_torch.data.recsys_batches(4, cfg.n_fields, "
+        "cfg.vocab_per_field, device='cpu'))\n"
+        "autoint.forward(p, b, cfg)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

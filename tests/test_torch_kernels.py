@@ -5,8 +5,8 @@ kernels run only on the card, where ``chip_smoke.py`` holds each one
 against this same plain version). Here each plain version is held against
 the JAX functions it stands for: the Pallas kernels in interpret mode,
 their ``ref.py`` oracles, and ``repro.graph.ops``. The shape sweeps of
-``TestGatherRows``/``TestSegmentSumEll`` in tests/test_kernels.py are
-reused by value.
+``TestGatherRows``/``TestSegmentSumEll``/``TestFlashAttention``/
+``TestEmbeddingBag`` in tests/test_kernels.py are reused by value.
 
 Tolerances: gathers and int/bool/min/max reductions are exact. Float sums
 and products use ``TOL`` of tests/test_kernels.py (f32 rtol = atol = 2e-5,
@@ -21,13 +21,22 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.graph import ops as jops  # noqa: E402
+from repro.kernels.embedding_bag import embedding_bag_pallas  # noqa: E402
+from repro.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.gather_rows import gather_rows_pallas  # noqa: E402
 from repro.kernels.gather_rows.ref import gather_rows_ref  # noqa: E402
 from repro.kernels.segment_reduce import segment_sum_ell  # noqa: E402
 from repro.kernels.segment_reduce.ref import segment_sum_ref  # noqa: E402
 from repro_torch.graph import ops as tops  # noqa: E402
 from repro_torch.graph.structure import segment_offsets  # noqa: E402
-from repro_torch.kernels import gather_rows, segment_reduce  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    embedding_bag,
+    flash_attention,
+    gather_rows,
+    segment_reduce,
+)
 from repro_torch.kernels.segment_reduce import identity  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -242,3 +251,140 @@ def test_segment_sum_vs_ell_kernel(dtype, e, n, d, nb, eb, cap):
     assert got.dtype == TORCH[dtype]
     np.testing.assert_allclose(_np(got), _np(ell), **TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
+# -- flash_attention -----------------------------------------------------------
+
+FLASH_SWEEP = [  # TestFlashAttention's shapes: b, h, hkv, sq, sk, d, causal, window
+    (2, 4, 2, 64, 64, 32, True, None),
+    (1, 2, 2, 48, 80, 16, True, 16),
+    (2, 8, 4, 33, 57, 64, False, None),
+    (1, 4, 1, 128, 128, 128, True, 32),
+    (1, 1, 1, 8, 256, 64, True, None),
+]
+
+
+def _qkv(rng, dtype, b, h, hkv, sq, sk, d):
+    return (
+        _both(rng.normal(size=(b, h, sq, d)), dtype),
+        _both(rng.normal(size=(b, hkv, sk, d)), dtype),
+        _both(rng.normal(size=(b, hkv, sk, d)), dtype),
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", FLASH_SWEEP)
+def test_flash_attention_sweep(dtype, b, h, hkv, sq, sk, d, causal, window):
+    """TestFlashAttention's sweep: the plain version == the Pallas kernel
+    (interpret mode) and == ``attention_ref`` on the f32 inputs, at TOL."""
+    rng = np.random.default_rng(5)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, dtype, b, h, hkv, sq, sk, d)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, h, sq, d)
+    pallas = jflash(jq, jk, jv, causal=causal, window=window,
+                    block_q=32, block_k=32, interpret=True)
+    f32 = lambda x: x.astype(jnp.float32)  # noqa: E731
+    ref = attention_ref(f32(jq), f32(jk), f32(jv), causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, 9)])
+def test_flash_attention_scale(causal, window):
+    """``scale`` multiplies the f32 scores: equal to the reference on
+    ``q · scale`` in f32 (the model passes ``Dh**-0.5``)."""
+    rng = np.random.default_rng(6)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, "float32", 2, 4, 2, 70, 70, 16)
+    scale = 16**-0.5
+    got = flash_attention(tq, tk, tv, causal=causal, window=window, scale=scale)
+    ref = attention_ref(jq * scale, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL["float32"])
+
+
+def test_flash_attention_row_without_keys():
+    """A query row that keeps no key (window past the last key) gives 0,
+    as ``attention_ref`` does."""
+    rng = np.random.default_rng(7)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, "float32", 1, 2, 1, 100, 10, 8)
+    got = flash_attention(tq, tk, tv, causal=False, window=5)
+    ref = attention_ref(jq, jk, jv, causal=False, window=5)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL["float32"])
+    assert not _np(got)[:, :, 20:].any()
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the repo, imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_flash_row_check_sees_one_tile():
+    """The smoke's row-by-row flash check, in the prefill's regime (D = 80,
+    scores of unit spread, a window of 1024 keys, bf16, so each
+    row's output is small): it passes the Pallas kernel (interpret mode)
+    against the port's plain version, and fails the plain version with the
+    window cut by one 64-key tile."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(8)
+    d, s, window = 80, 1152, 1024
+    q = rng.normal(size=(1, 2, s, d)) * d**-0.5
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(q, "bfloat16"),
+        _both(rng.normal(size=(1, 1, s, d)), "bfloat16"),
+        _both(rng.normal(size=(1, 1, s, d)), "bfloat16"),
+    )
+    want = flash_attention(tq, tk, tv, causal=True, window=window)
+    pallas = jflash(jq, jk, jv, causal=True, window=window,
+                    block_q=64, block_k=64, interpret=True)
+    got = torch.from_numpy(np.asarray(pallas.astype(jnp.float32))).to(torch.bfloat16)
+    assert smoke.flash_row_check(got, want, "pallas") < smoke.FLASH_ROW[torch.bfloat16][0]
+    cut = flash_attention(tq, tk, tv, causal=True, window=window - 64)
+    worst, _ = smoke.flash_rows(cut, want)
+    assert worst > 1.0
+    with pytest.raises(AssertionError):
+        smoke.flash_row_check(cut, want, "window cut by 64 keys")
+
+
+# -- embedding_bag -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,d,b,h", [(100, 16, 8, 4), (1000, 64, 16, 1), (50, 128, 4, 10)])
+def test_embedding_bag_sweep(dtype, v, d, b, h):
+    """TestEmbeddingBag's sweep: the plain version with weights and mask ==
+    the Pallas kernel (interpret mode) and == ``embedding_bag_ref``."""
+    rng = np.random.default_rng(2)
+    jt, tt = _both(rng.normal(size=(v, d)), dtype)
+    idx = rng.integers(0, v, (b, h)).astype(np.int32)
+    jw, tw = _both(rng.normal(size=(b, h)), dtype)
+    mask = rng.random((b, h)) < 0.8
+    got = embedding_bag(tt, torch.from_numpy(idx), tw, torch.from_numpy(mask))
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, d)
+    pallas = embedding_bag_pallas(jt, jnp.asarray(idx), weights=jw,
+                                  mask=jnp.asarray(mask), interpret=True)
+    ref = embedding_bag_ref(jt.astype(jnp.float32), jnp.asarray(idx),
+                            jw.astype(jnp.float32) * mask)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["ones", "weights"])
+def test_embedding_bag_clips_ids(weighted):
+    """Ids below 0 and at or past V read the first and last rows, as
+    ``embedding_bag_ref`` (``take(mode="clip")``) does; weights default to 1."""
+    rng = np.random.default_rng(8)
+    v, d = 30, 8
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = np.array([[-1, 0, v], [v + 7, -(2**31), 2**31 - 1], [3, 4, 5]], np.int32)
+    w = rng.normal(size=idx.shape).astype(np.float32) if weighted else None
+    got = embedding_bag(torch.from_numpy(table), torch.from_numpy(idx),
+                        None if w is None else torch.from_numpy(w))
+    ref = embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx),
+                            jnp.ones(idx.shape) if w is None else jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["float32"])

@@ -1,0 +1,358 @@
+"""The port's LM serving path against the JAX package, on the CPU.
+
+The reduced h2o-danube (sliding window 32: the ring buffer wraps), qwen3-32b
+(qk-norm) and qwen2.5-32b (qkv bias) configs, f32, with the JAX package's
+own initialised parameters carried across as numpy arrays — norms and
+biases perturbed first, so that ``ln``/``q_norm``/``k_norm``/``bq..bv`` are
+not all ones and zeros. On the CPU the port's prefill attention is the
+``flash_attention`` wrapper's plain version. Tolerances: the attention
+functions at 2e-5 (``TOL`` of tests/test_kernels.py, f32); logits and the
+cache through two layers at rtol = atol = 1e-4, because the JAX package
+runs an online softmax over KV chunks and the port one softmax per row.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models.transformer import attention as jattn  # noqa: E402
+from repro.models.transformer import model as jtm  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.models.transformer import MoEConfig, TransformerConfig  # noqa: E402
+from repro_torch.models.transformer import attention as tattn  # noqa: E402
+from repro_torch.models.transformer import model as ttm  # noqa: E402
+
+LM_ARCHS = ("h2o-danube-1.8b", "qwen3-32b", "qwen2.5-32b")
+ALL_LM = [a for a in jconfigs.all_arch_ids() if jconfigs.get_spec(a).family == "lm"]
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
+PROMPT, BATCH = 40, 2
+#: decode steps: twice h2o-danube's reduced window, plus 3, so the ring wraps twice
+STEPS = 2 * 32 + 3
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _port_config(cfg):
+    """The JAX config's fields in the port's dataclasses."""
+    fields = dataclasses.asdict(cfg)
+    if cfg.moe is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    return TransformerConfig(**fields)
+
+
+# -- configs and registry ------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ALL_LM)
+def test_config_counts_match(arch):
+    """``head_dim``, ``n_params`` and ``n_active_params`` equal the JAX
+    package's for every LM config (MoE included), full and reduced."""
+    spec = jconfigs.get_spec(arch)
+    for cfg in (spec.config, spec.reduced):
+        port = _port_config(cfg)
+        assert port.head_dim == cfg.head_dim
+        assert port.n_params() == cfg.n_params()
+        assert port.n_active_params() == cfg.n_active_params()
+        assert port.pdtype == getattr(torch, cfg.pdtype.name)
+        assert port.cdtype == getattr(torch, cfg.cdtype.name)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ("autoint",))
+def test_registry_resolves_ported(arch):
+    """Each ported id gives the JAX package's spec, field for field."""
+    j, t = jconfigs.get_spec(arch), tconfigs.get_spec(arch)
+    assert (t.arch_id, t.family, t.shapes, t.skips, t.notes) == (
+        j.arch_id, j.family, j.shapes, j.skips, j.notes,
+    )
+    assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+    assert dataclasses.asdict(t.reduced) == dataclasses.asdict(j.reduced)
+    assert arch in tconfigs.all_arch_ids()
+
+
+@pytest.mark.parametrize(
+    "arch,item",
+    [("qwen3-moe-235b-a22b", "A7"), ("deepseek-moe-16b", "A7"), ("pna", "A5"),
+     ("graphsage-reddit", "A5"), ("graphcast", "A5"), ("gat-cora", "A5")],
+)
+def test_registry_refuses_unported(arch, item):
+    assert arch in jconfigs.all_arch_ids()
+    with pytest.raises(NotImplementedError, match=item):
+        tconfigs.get_spec(arch)
+
+
+def test_moe_model_raises():
+    cfg = _port_config(jconfigs.get_spec("deepseek-moe-16b").reduced)
+    with pytest.raises(NotImplementedError, match="A7"):
+        ttm.init(cfg, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` the port asks for the card, and without one it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = tconfigs.get_spec("h2o-danube-1.8b").reduced
+    for call in (
+        lambda: ttm.init(cfg),
+        lambda: ttm.init_cache(cfg, 1, 8),
+        lambda: serve.random_prompts(cfg, 1, 8, 0),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+# -- building blocks -------------------------------------------------------------
+
+
+def test_rms_norm_rounding_order():
+    """Normalise in f32, cast to x's dtype, then scale: bitwise the JAX
+    package's bf16 result, which the other order would not give."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(16, 64)).astype(np.float32) * 3
+    g = rng.normal(size=64).astype(np.float32)
+    jx, jg = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    tx, tg = _t(x).to(torch.bfloat16), _t(g).to(torch.bfloat16)
+    want = np.asarray(jcommon.rms_norm(jx, jg).astype(jnp.float32))
+    got = tcommon.rms_norm(tx, tg).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    x32 = tx.float()
+    other = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6) * tg.float())
+    assert not np.array_equal(other.to(torch.bfloat16).float().numpy(), want)
+
+
+def test_swiglu_and_losses_match():
+    """``swiglu``, ``softmax_cross_entropy`` and ``sigmoid_bce`` == the JAX
+    package's blocks."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 5, 16)).astype(np.float32)
+    w1, w3 = (rng.normal(size=(16, 24)).astype(np.float32) for _ in range(2))
+    w2 = rng.normal(size=(24, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        tcommon.swiglu(*map(_t, (x, w1, w3, w2))).numpy(),
+        np.asarray(jcommon.swiglu(*map(jnp.asarray, (x, w1, w3, w2)))), **ATTN_TOL,
+    )
+    logits = rng.normal(size=(3, 5, 50)).astype(np.float32) * 4
+    labels = rng.integers(0, 50, (3, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        tcommon.softmax_cross_entropy(_t(logits), _t(labels)).item(),
+        float(jcommon.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))),
+        **ATTN_TOL,
+    )
+    z = rng.normal(size=40).astype(np.float32) * 30
+    y = (rng.random(40) < 0.5).astype(np.float32)
+    np.testing.assert_allclose(
+        tcommon.sigmoid_bce(_t(z), _t(y)).item(),
+        float(jcommon.sigmoid_bce(jnp.asarray(z), jnp.asarray(y))), **ATTN_TOL,
+    )
+
+
+@pytest.mark.parametrize("pos_shape", ["seq", "batch1"])
+def test_apply_rope_split_half(pos_shape):
+    """Split-half RoPE at sequence positions [S] and decode positions [B, 1]."""
+    rng = np.random.default_rng(1)
+    if pos_shape == "seq":
+        x = rng.normal(size=(2, 12, 4, 16)).astype(np.float32)
+        pos = np.arange(12, dtype=np.int32) + 100
+    else:
+        x = rng.normal(size=(3, 1, 4, 16)).astype(np.float32)
+        pos = np.array([[0], [7], [5000]], np.int32)
+    want = jattn.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)
+    got = tattn.apply_rope(_t(x), _t(pos), 10_000.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+    # the pair of dimension i is i + Dh/2, not i + 1
+    half = x.shape[-1] // 2
+    np.testing.assert_allclose(
+        np.linalg.norm(got.numpy()[..., [0, half]], axis=-1),
+        np.linalg.norm(x[..., [0, half]], axis=-1), rtol=1e-5,
+    )
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_attention_dense_with_ring_positions(window):
+    """Dense attention with per-batch positions and a key mask (the decode
+    step's case) == the JAX function."""
+    rng = np.random.default_rng(2)
+    b, sk, h, hkv, d = 2, 9, 4, 2, 8
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    q_pos = np.array([[8], [11]], np.int32)
+    k_pos = np.array([[0, 1, 2, 3, 4, 5, 6, 7, 8], [9, 10, 3, 4, 5, 6, 7, 8, 11]], np.int32)
+    kv_mask = np.array([[1] * 8 + [1], [1, 1, 0, 1, 1, 1, 1, 1, 1]], bool)
+    want = jattn.attention_dense(*map(jnp.asarray, (q, k, v, q_pos, k_pos)),
+                                 causal=True, window=window, kv_mask=jnp.asarray(kv_mask))
+    got = tattn.attention_dense(*map(_t, (q, k, v, q_pos, k_pos)),
+                                causal=True, window=window, kv_mask=_t(kv_mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 7), (False, None)])
+def test_attention_chunked_matches(causal, window):
+    """The port's flash path == the JAX package's chunked online softmax
+    (positions 0..S−1, ragged against the chunk size)."""
+    rng = np.random.default_rng(3)
+    b, s, h, hkv, d = 2, 37, 4, 2, 16
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    want = jattn.attention_chunked(*map(jnp.asarray, (q, k, v)), pos, pos,
+                                   causal=causal, window=window, chunk_kv=16)
+    got = tattn.attention_chunked(*map(_t, (q, k, v)), causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+# -- the model, with the JAX package's parameters ---------------------------------
+
+
+class Pair:
+    """One reduced config in both packages with the same parameters."""
+
+    def __init__(self, arch):
+        self.cfg = jconfigs.get_spec(arch).reduced
+        self.tcfg = tconfigs.get_spec(arch).reduced
+        tree = jax.tree_util.tree_map(np.asarray, jtm.init(jax.random.PRNGKey(7), self.cfg))
+        rng = np.random.default_rng(7)
+        layers = tree["layers"]
+        for name in ("ln1", "ln2", "q_norm", "k_norm", "bq", "bk", "bv"):
+            if name in layers:
+                base = 1.0 if name.startswith(("ln", "q_", "k_")) else 0.0
+                layers[name] = (base + 0.3 * rng.normal(size=layers[name].shape)).astype(np.float32)
+        tree["ln_f"] = (1.0 + 0.3 * rng.normal(size=tree["ln_f"].shape)).astype(np.float32)
+        self.tree = tree
+        self.jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+        self.tparams = ttm.params_from_arrays(self.tcfg, tree, device="cpu")
+        self.capacity = jtm.cache_len(self.cfg, PROMPT + STEPS)
+        self.prompt = rng.integers(0, self.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+        self.feed = rng.integers(0, self.cfg.vocab_size, (STEPS, BATCH, 1)).astype(np.int32)
+
+
+@pytest.fixture(scope="module", params=LM_ARCHS)
+def pair(request):
+    return Pair(request.param)
+
+
+def test_params_from_arrays_layout(pair):
+    """The carried parameters hold the JAX tree's leaves, and the port's own
+    ``init`` gives the same names, shapes and dtypes."""
+    own = ttm.init(pair.tcfg, seed=0, device="cpu")
+    carried = dict(pair.tparams.named_parameters())
+    assert sorted(carried) == sorted(dict(own.named_parameters()))
+    for name, t in own.named_parameters():
+        assert t.shape == carried[name].shape and t.dtype == carried[name].dtype
+    np.testing.assert_array_equal(pair.tparams.layers["wq"].numpy(), pair.tree["layers"]["wq"])
+    np.testing.assert_array_equal(
+        pair.tparams.layers["ffn_w2"].numpy(), pair.tree["layers"]["ffn"]["w2"]
+    )
+
+
+def test_params_from_arrays_bf16():
+    """A bfloat16 JAX tree (the published configs' dtype) arrives bit for
+    bit as bfloat16 tensors."""
+    cfg = dataclasses.replace(jconfigs.get_spec("h2o-danube-1.8b").reduced,
+                              param_dtype="bfloat16")
+    tree = jax.tree_util.tree_map(np.asarray, jtm.init(jax.random.PRNGKey(1), cfg))
+    got = ttm.params_from_arrays(_port_config(cfg), tree, device="cpu")
+    assert got.embed.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.embed.float().numpy(), tree["embed"].astype(np.float32))
+    np.testing.assert_array_equal(
+        got.layers["ffn_w1"].float().numpy(), tree["layers"]["ffn"]["w1"].astype(np.float32)
+    )
+
+
+def test_forward_matches(pair):
+    want, _ = jtm.forward(pair.jparams, jnp.asarray(pair.prompt), pair.cfg)
+    got, aux = ttm.forward(pair.tparams, _t(pair.prompt), pair.tcfg)
+    assert aux == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+
+
+def test_prefill_matches(pair):
+    """Full and last-only logits and the cache — for h2o-danube the last
+    ``capacity`` positions at slot ``pos % capacity`` — equal JAX's."""
+    tokens = jnp.asarray(pair.prompt)
+    jfull, jcache = jtm.prefill(pair.jparams, tokens, pair.cfg, capacity=pair.capacity)
+    jlast, _ = jtm.prefill(pair.jparams, tokens, pair.cfg, capacity=pair.capacity,
+                           full_logits=False)
+    tfull, tcache = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
+                                capacity=pair.capacity)
+    tlast, _ = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
+                           capacity=pair.capacity, full_logits=False)
+    np.testing.assert_allclose(tfull.numpy(), np.asarray(jfull), **LM_TOL)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **LM_TOL)
+    for key in ("k", "v"):
+        assert tuple(tcache[key].shape) == jcache[key].shape
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(jcache[key]), **LM_TOL)
+    assert tcache["length"].dtype == torch.int32
+    np.testing.assert_array_equal(tcache["length"].numpy(), np.asarray(jcache["length"]))
+
+
+def test_decode_teacher_forced(pair):
+    """After the prompt, ``STEPS`` decode steps fed the same tokens in both
+    packages: logits at every step, the length exactly, and the final ring
+    cache. For h2o-danube the ring (capacity 32) wraps twice."""
+    _, jcache = jtm.prefill(pair.jparams, jnp.asarray(pair.prompt), pair.cfg,
+                            capacity=pair.capacity, full_logits=False)
+    _, tcache = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
+                            capacity=pair.capacity, full_logits=False)
+    cfg = pair.cfg
+    jstep = jax.jit(lambda p, c, t: jtm.decode_step(p, c, t, cfg))
+    for i, tok in enumerate(pair.feed):
+        jlogits, jcache = jstep(pair.jparams, jcache, jnp.asarray(tok))
+        tlogits = ttm.decode_step_(pair.tparams, tcache, _t(tok), pair.tcfg)
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **LM_TOL,
+                                   err_msg=f"step {i}")
+        np.testing.assert_array_equal(tcache["length"].numpy(), np.asarray(jcache["length"]))
+    assert tcache["length"].dtype == torch.int32
+    assert int(tcache["length"][0]) == PROMPT + STEPS
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(jcache[key]), **LM_TOL)
+
+
+def test_decode_step_writes_in_place(pair):
+    """``decode_step_`` updates the cache it is given: the K/V tensors held
+    from before the step gain the token's slot, ``length`` advances in the
+    same tensor, and a clone taken before the step equals the JAX
+    package's cache before its (functional) step."""
+    _, jcache = jtm.prefill(pair.jparams, jnp.asarray(pair.prompt), pair.cfg,
+                            capacity=pair.capacity, full_logits=False)
+    _, tcache = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
+                            capacity=pair.capacity, full_logits=False)
+    held = dict(tcache)
+    before = {key: t.clone() for key, t in tcache.items()}
+    tok = pair.feed[0]
+    logits = ttm.decode_step_(pair.tparams, tcache, _t(tok), pair.tcfg)
+    assert tuple(logits.shape) == (BATCH, pair.cfg.vocab_size)
+    jnew = jtm.decode_step(pair.jparams, jcache, jnp.asarray(tok), pair.cfg)[1]
+    for key in ("k", "v", "length"):
+        assert tcache[key] is held[key]
+        np.testing.assert_allclose(before[key].numpy(), np.asarray(jcache[key]), **LM_TOL)
+        np.testing.assert_allclose(held[key].numpy(), np.asarray(jnew[key]), **LM_TOL)
+    slot = PROMPT % pair.capacity
+    assert not torch.equal(held["k"][:, :, slot], before["k"][:, :, slot])
+    np.testing.assert_array_equal(held["length"].numpy(), np.full(BATCH, PROMPT + 1))
+
+
+def test_serve_entry_point_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve --reduced --device cpu`` runs to
+    the end: greedy int32 tokens, one logits row per emitted token."""
+    res = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "40", "--decode-steps", "6"])
+    assert res.tokens.dtype == torch.int32 and tuple(res.tokens.shape) == (2, 7)
+    assert len(res.logits) == 7 and res.capacity == 32
+    for logits, tok in zip(res.logits, res.tokens.T):
+        np.testing.assert_array_equal(logits.argmax(-1).numpy(), tok.numpy())
+    out = capsys.readouterr().out
+    assert "prefill 2×40" in out and "decode 6 steps" in out
