@@ -12,13 +12,17 @@ on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of ``src/repro_torch/csrc`` from the checkout (one ``nvcc``
-   per source, all at once) into the ignored ``src/repro_torch/build/``;
+   per source, all at once) into the ignored ``src/repro_torch/build/``,
+   and checks one tile of each tensor-core flash product (S = Q·Kᵀ,
+   O = P·V) against f32 torch (with ``--probe`` it stops there);
 2. holds each kernel against its plain PyTorch version on the card over a
    sweep: ``gather_rows``/``segment_reduce`` over dtypes, widths,
    negative/sentinel indices, empty segments, masks and every combiner;
    ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
    shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
-   32/8 heads, window 4096); ``embedding_bag`` over ``TestEmbeddingBag``'s
+   32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
+   tile edges, NaN in the next kv head's rows, and D = 100 (each case
+   must take the route its dtype and D name); ``embedding_bag`` over ``TestEmbeddingBag``'s
    shapes with weights, masks and out-of-range ids (exact where the
    arithmetic is, else the f32/bf16 ``TOL`` of tests/test_kernels.py;
    flash besides row by row, ``FLASH_ROW``, relative to each row's norm);
@@ -40,7 +44,8 @@ on the first thing that is wrong:
    cut by one 64-key tile); each decode step's logits
    against one prefill over prompt + decoded tokens (teacher-forced), and
    the greedy tokens wherever that reference's top-2 margin exceeds the
-   tolerance; exactly 24 flash launches per prefill;
+   tolerance; exactly 24 flash launches per prefill, all on the
+   tensor-core route;
 5. serves AutoInt (random tables from the seed): ``serve_p99`` (batch 512)
    logits against an independent float64 numpy forward, ``serve_bulk``
    (batch 262,144), and ``retrieval_cand`` (one query, 10⁶ candidates)
@@ -92,6 +97,23 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_entries(log: str) -> dict:
+    """``{entry: [registers, spill store bytes]}`` from a ``ptxas -v`` log,
+    entries named by their mangled kernel and template arguments."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = re.search(r"(flash_\w+?|\w+?)(I.*?E)?E?v", m.group(1))
+            cur = m.group(1)[:48] if name is None else name.group(0)[:48]
+            out.setdefault(cur, [0, 0])
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[cur][1] = int(m.group(1))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur][0] = int(m.group(1))
+    return out
 
 
 def say(kind: str, card: str, **fields):
@@ -202,6 +224,57 @@ FLASH_CASES = [
     (1, 2, 1, 100, 10, 8, True, 5),
     (1, 32, 8, 4500, 4500, 80, True, 4096),
 ]
+#: the tensor-core route's one-tile probe: (D, Sq, Sk) — the model's D,
+#: rows past Sq/Sk that must read as zero, D % 16 != 0, the widest D
+TC_PROBE_CASES = [(80, 128, 128), (80, 64, 100), (8, 64, 128), (128, 128, 77)]
+
+
+def tc_probe(gen):
+    """One tile of each tensor-core product (S = Q·Kᵀ, O = P·V) against
+    f32 torch, before any whole kernel runs: the ``wgmma`` descriptors and
+    the TMA swizzle must agree, or both products come out scrambled.
+    Returns the largest error over each case's largest |value|."""
+    from repro_torch.kernels.flash_attention.ops import TC_BLOCK_K, tile_probe
+
+    worst = 0.0
+    for d, sq, sk in TC_PROBE_CASES:
+        q, k, v = (torch.randn((n, d), generator=gen).to(torch.bfloat16).cuda()
+                   for n in (sq, sk, sk))
+        p = torch.rand((64, TC_BLOCK_K), generator=gen).to(torch.bfloat16).cuda()
+        s, o = tile_probe(q, k, v, p)
+        torch.cuda.synchronize()
+        qz = torch.zeros((64, d), device="cuda")
+        qz[:min(sq, 64)] = q[:64].float()
+        kz = torch.zeros((TC_BLOCK_K, d), device="cuda")
+        kz[:min(sk, TC_BLOCK_K)] = k[:TC_BLOCK_K].float()
+        vz = torch.zeros((TC_BLOCK_K, d), device="cuda")
+        vz[:min(sk, TC_BLOCK_K)] = v[:TC_BLOCK_K].float()
+        for name, got, want in (("Q·Kᵀ", s, qz @ kz.T), ("P·V", o, p.float() @ vz)):
+            err = float((got - want).abs().max() / want.abs().max())
+            if not err <= 1e-5:  # f32 sums of exact bf16 products
+                raise AssertionError(f"tensor-core tile {name} at D={d}, Sq={sq}, "
+                                     f"Sk={sk}: error {err} of the largest value")
+            worst = max(worst, err)
+    return worst
+
+
+#: bf16 only, the tensor-core route's edges at its 128 x 128 tiles: Sq of
+#: 1, 127, 129 and 6144; Sk below, at and past one key tile; windows of
+#: 127, 128 and 129; D from 8 to 128; Hkv of 1 and H; and D = 100, which
+#: takes the SIMT route
+FLASH_BF16_CASES = [
+    (1, 4, 1, 1, 100, 80, True, None),
+    (1, 8, 1, 1, 129, 64, False, None),
+    (1, 4, 4, 127, 127, 80, True, 127),
+    (2, 4, 2, 129, 129, 64, True, 128),
+    (1, 4, 1, 129, 500, 96, False, 129),
+    (1, 2, 1, 200, 200, 8, True, None),
+    (2, 2, 1, 300, 257, 16, False, None),
+    (1, 2, 2, 255, 129, 128, True, None),
+    (1, 4, 1, 6144, 6144, 80, True, 4096),
+    (1, 2, 2, 6144, 6144, 128, True, 129),
+    (1, 4, 2, 129, 129, 100, True, 128),
+]
 #: tests/test_kernels.py TestEmbeddingBag's shapes (v, d, b, h)
 BAG_CASES = [(100, 16, 8, 4), (1000, 64, 16, 1), (50, 128, 4, 10)]
 
@@ -214,20 +287,34 @@ def check_model_kernels(device, gen):
     from repro_torch.kernels import (
         embedding_bag, embedding_bag_plain, flash_attention, flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.ops import route, tc_uses_tensor_cores
 
+    route_cases = {"tc": 0, "simt": 0}
     cases = {"flash_attention": 0, "embedding_bag": 0}
     row_ratio = {}
+    if device.type == "cuda":  # the wrapper's route rule is the C entry's
+        for dt in (torch.float32, torch.bfloat16):
+            for d in range(1, 129):
+                if tc_uses_tensor_cores(dt, d) != (route(dt, d) == "tc"):
+                    raise AssertionError(f"route rules disagree at {dt}, D={d}")
     for dt in (torch.float32, torch.bfloat16):
-        for b, h, hkv, sq, sk, d, causal, window in FLASH_CASES:
+        extra = FLASH_BF16_CASES if dt == torch.bfloat16 else []
+        for b, h, hkv, sq, sk, d, causal, window in FLASH_CASES + extra:
             q = torch.randn((b, h, sq, d), generator=gen).to(dt).to(device)
             k = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
             v = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
             for scale in (1.0, d**-0.5):
+                before = flash_attention.launches_tc, flash_attention.launches_simt
                 got = flash_attention(q, k, v, causal, window, scale)
                 want = flash_attention_plain(q, k, v, causal, window, scale)
+                what = f"{dt} {(b, h, hkv, sq, sk, d, causal, window)} scale {scale}"
+                if device.type == "cuda":
+                    took = "tc" if flash_attention.launches_tc > before[0] else "simt"
+                    if took != route(dt, d):
+                        raise AssertionError(f"flash_attention {what} took {took}")
+                    route_cases[took] += 1
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=TOL[dt], atol=TOL[dt])
-                what = f"{dt} {(b, h, hkv, sq, sk, d, causal, window)} scale {scale}"
                 ratio = flash_row_check(got, want, what)
                 row_ratio[str(dt)] = max(row_ratio.get(str(dt), 0.0), ratio)
                 cases["flash_attention"] += 1
@@ -248,6 +335,20 @@ def check_model_kernels(device, gen):
                     torch.testing.assert_close(got.float(), want.float(),
                                                rtol=TOL[dt], atol=TOL[dt])
                 cases["embedding_bag"] += 1
+    # NaN in the rows that follow a kv head's last key (the next head's
+    # first rows), which a flattened map would read into the tile past Sk:
+    # the heads of kv head 0 must not see it
+    q = torch.randn((1, 4, 100, 80), generator=gen).to(torch.bfloat16).to(device)
+    k = torch.randn((1, 2, 100, 80), generator=gen).to(torch.bfloat16).to(device)
+    v = torch.randn((1, 2, 100, 80), generator=gen).to(torch.bfloat16).to(device)
+    v[0, 1, :28] = float("nan")
+    got = flash_attention(q, k, v, True, None, 80**-0.5)[:, :2]
+    want = flash_attention_plain(q[:, :2], k[:, :1], v[:, :1], True, None, 80**-0.5)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("flash_attention: NaN past Sk reached a head that keeps none")
+    flash_row_check(got, want, "with NaN in the next kv head's rows")
+    cases["flash_attention"] += 1
+    cases.update({f"flash_attention_{r}": n for r, n in route_cases.items()})
     return cases, row_ratio
 
 
@@ -622,11 +723,14 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
         torch.cuda.reset_peak_memory_stats()
 
     flash_attention.launches = 0
+    flash_attention.launches_tc = 0
+    flash_attention.launches_simt = 0
     res = srv.serve(params, cfg, prompts, steps)
     launches = flash_attention.launches
-    if device.type == "cuda" and launches != cfg.n_layers:
-        raise AssertionError(f"{launches} flash launches for one prefill of "
-                             f"{cfg.n_layers} layers")
+    launches_tc = flash_attention.launches_tc
+    if device.type == "cuda" and not launches == launches_tc == cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches ({launches_tc} on the tensor "
+                             f"cores) for one prefill of {cfg.n_layers} layers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
     warm = srv.serve(params, cfg, prompts, steps)  # every kernel loaded
     if not torch.equal(warm.tokens, res.tokens):
@@ -635,7 +739,7 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
     say(
         "lm_serve", card, arch=cfg.name, batch=batch, prompt_len=prompt_len,
         decode_steps=steps, cache_capacity=res.capacity, params_init_s=init_s,
-        n_params=cfg.n_params(), flash_launches=launches,
+        n_params=cfg.n_params(), flash_launches=launches, flash_launches_tc=launches_tc,
         prefill_s=[res.prefill_s, warm.prefill_s],
         prefill_tok_s=[n_prompt / res.prefill_s, n_prompt / warm.prefill_s],
         decode_s=[res.decode_s, warm.decode_s],
@@ -664,7 +768,7 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     err = (got.float() - want.float()).abs().max().item()
     row_ratio = flash_row_check(got, want, "at the prefill's layer 0")
-    # the row check must see one 64-key tile at the window's edge: the plain
+    # the row check must see one 64-key cut at the window's edge: the plain
     # version with the window cut by 64 keys has to fail it
     cut = flash_attention_plain(q, k, v, True, cfg.swa_window - 64, scale)
     cut_worst, cut_ratio = flash_rows(cut, want)
@@ -699,7 +803,7 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
         greedy_agree_all=int(agree.sum().item()),
     )
     del ref, got_l, diff, params
-    return {"launches": launches, "q": q, "k": k, "v": v, "window": cfg.swa_window,
+    return {"launches": launches_tc, "q": q, "k": k, "v": v, "window": cfg.swa_window,
             "scale": scale, "max_abs_err": err}
 
 
@@ -839,6 +943,8 @@ def model_kernel_rows(lm, rec):
         embedding_bag, embedding_bag_plain, flash_attention, flash_attention_plain,
     )
     from repro_torch.kernels.flash_attention import keep_mask
+    from repro_torch.kernels.flash_attention.ops import route
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v, window, scale = lm["q"], lm["k"], lm["v"], lm["window"], lm["scale"]
     b, h, sq, d = q.shape
@@ -858,7 +964,25 @@ def model_kernel_rows(lm, rec):
     kx, vx = k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1)
     expanded_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, attn_mask=keep, scale=scale), reps=10)
+    # a harder yardstick: PyTorch's FlashAttention backend, causal without
+    # the window (it has no window), so it computes more pairs than the kernel
+    causal_pairs = sq * (sq + 1) // 2
+    causal = {}
+    for name, (kk, vv, gqa) in (("library_causal", (k, v, True)),
+                                ("library_causal_expanded_kv", (kx, vx, False))):
+        def sdpa_causal(kk=kk, vv=vv, gqa=gqa):
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                      scale=scale, enable_gqa=gqa)
+        try:
+            sdpa_causal()
+            causal[f"{name}_ms"] = cuda_ms(sdpa_causal, reps=10)
+        except RuntimeError as exc:  # the backend refuses this call: say so
+            causal[f"{name}_ms"] = None
+            causal[f"{name}_refused"] = str(exc).splitlines()[0][:300]
     del kx, vx
+    flops = pairs * b * h * 4 * d
+    ms = cuda_ms(lambda: flash_attention(q, k, v, True, window, scale), reps=10)
     rows = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -866,7 +990,7 @@ def model_kernel_rows(lm, rec):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
         "launches": lm["launches"],
         "max_abs_err": lm["max_abs_err"],
-        "ms": cuda_ms(lambda: flash_attention(q, k, v, True, window, scale), reps=10),
+        "ms": ms,
         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True, window, scale), reps=3),
         "bound_ms": f_bound,
         "bound_by": f_by,
@@ -876,6 +1000,12 @@ def model_kernel_rows(lm, rec):
         "library": "scaled_dot_product_attention(enable_gqa, bool mask)",
         "library_max_abs_diff": float(lib_err),
         "library_expanded_kv_ms": expanded_ms,
+        **causal,
+        "library_causal_pairs_per_head": causal_pairs,
+        "kept_pairs_per_head": pairs,
+        "kernel_route": "tc (TMA + wgmma)" if route(q.dtype, d) == "tc" else "simt",
+        "tflops": flops / ms / 1e9,
+        "bound_share": f_bound / ms,
     }]
     del lib
 
@@ -931,9 +1061,19 @@ def main() -> int:
         say(
             "ptxas", card, kernel=name, instantiations=len(regs),
             max_registers=max(regs, default=0), spill_store_bytes=sum(spills),
+            **({"per_entry": ptxas_entries(log)} if name == "flash_attention" else {}),
         )
+        if "setmaxnreg ignored" in log:
+            raise AssertionError(f"{name}: ptxas ignored setmaxnreg")
+        if "Performance Loss" in log:  # e.g. C7514: every wgmma serialized
+            raise AssertionError(f"{name}: ptxas serialized wgmma:\n" + "\n".join(
+                line for line in log.splitlines() if "Performance Loss" in line))
 
     gen = torch.Generator().manual_seed(seed)
+    say("tc_probe", card, ok=True, cases=len(TC_PROBE_CASES),
+        max_rel_err=tc_probe(gen))
+    if "--probe" in sys.argv[1:]:  # the first call on a new kernel: stop here
+        return 0
     cases, row_ratio = check_kernels(device, gen)
     say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
         versus="plain PyTorch versions")

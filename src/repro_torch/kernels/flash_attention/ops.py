@@ -11,7 +11,12 @@ are ``scale · q·k`` in float32 (``scale=1`` is the TPU kernel, which has
 none); a row with no key kept gives 0; the output is in q's dtype.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device.
+version is taken only for tensors on the CPU or the meta device. The
+kernel has two routes, chosen by :func:`route` from dtype and D alone:
+bf16 with D % 8 == 0 runs on the tensor cores (TMA + ``wgmma``, counted in
+``flash_attention.launches_tc``), everything else on the f32 units
+(``flash_attention.launches_simt``); ``flash_attention.launches`` counts
+both. No route stands in for the other when a launch fails.
 """
 
 from __future__ import annotations
@@ -24,8 +29,44 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's query tile and the grid's limit on tiles
+#: the SIMT kernel's query tile and the grid's limit on tiles
 _BLOCK_Q, _MAX_Q_TILES = 64, 65535
+#: the tensor-core kernel's query and key tiles
+TC_BLOCK_Q, TC_BLOCK_K = 128, 128
+
+
+def route(dtype, d: int) -> str:
+    """The kernel's route for ``dtype`` and head dim ``d``: ``"tc"`` (TMA +
+    ``wgmma``) for bf16 with ``d % 8 == 0``, else ``"simt"``. ``wgmma`` on
+    f32 would be TF32, and TMA needs rows of a multiple of 16 bytes. The C
+    entry point's ``flash_attention_uses_tc`` states the same rule."""
+    return "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+
+
+def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
+               bk: int = TC_BLOCK_K):
+    """``[(q_tile, kt_begin, kt_end)]``: the key tiles each query tile
+    visits, by the TPU kernel's skip rule as a loop range, the formula of
+    both CUDA kernels."""
+    n_kt = -(-sk // bk)
+    out = []
+    for qt in range(-(-sq // bq)):
+        q0 = qt * bq
+        end = min(n_kt, (q0 + bq - 1) // bk + 1) if causal else n_kt
+        begin = 0
+        if window is not None and q0 - window + 1 > 0:
+            begin = (q0 - window + 1) // bk
+        out.append((qt, begin, end))
+    return out
+
+
+def tile_needs_mask(q_lo: int, rows: int, k0: int, sk: int, causal: bool, window,
+                    bk: int = TC_BLOCK_K) -> bool:
+    """Whether the tensor-core kernel masks key tile ``[k0, k0 + bk)`` for
+    query rows ``[q_lo, q_lo + rows)`` (one warpgroup's): the tile straddles
+    Sk, the causal diagonal or the window's edge. Interior tiles skip it."""
+    return (k0 + bk > sk or (causal and k0 + bk - 1 > q_lo)
+            or (window is not None and q_lo + rows - 1 - k0 >= window))
 
 
 def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
@@ -78,6 +119,41 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _probe_entry():
+    fn = build.library("flash_attention").flash_attention_probe
+    fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 6, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tc_uses_tensor_cores(dtype, d: int) -> bool:
+    """The C entry point's own route rule (``flash_attention_uses_tc``)."""
+    fn = build.library("flash_attention").flash_attention_uses_tc
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return bool(fn(_DTYPE_CODE[dtype], d))
+
+
+def tile_probe(q, k, v, p):
+    """One tile of each tensor-core product, on the card: q bf16 ``[Sq, D]``,
+    k/v ``[Sk, D]``, p bf16 ``[64, 128]``; returns f32 ``s = q[:64] ·
+    k[:128]ᵀ`` ``[64, 128]`` and ``o = p · v[:128]`` ``[64, D]``, rows past
+    Sq/Sk read as zero. A check of the descriptors and the swizzle."""
+    sq, d = q.shape
+    dp = -(-d // 16) * 16
+    s = torch.empty((64, TC_BLOCK_K), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, dp), dtype=torch.float32, device=q.device)
+    rc = _probe_entry()(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        s.data_ptr(), o.data_ptr(), sq, k.shape[0], d,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention tile probe failed: CUDA error {rc}")
+    return s, o[:, :d]
+
+
 def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise TypeError(
@@ -100,6 +176,8 @@ def _check(q, k, v):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
+    if route(q.dtype, d) == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
 
 
 def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
@@ -121,7 +199,13 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    if route(q.dtype, d) == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_simt += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_simt = 0

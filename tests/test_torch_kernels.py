@@ -351,6 +351,52 @@ def test_flash_row_check_sees_one_tile():
         smoke.flash_row_check(cut, want, "window cut by 64 keys")
 
 
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route_rule(dtype):
+    """The kernel's route depends on dtype and D alone: bf16 with D % 8 == 0
+    runs on the tensor cores (TMA rows of 16-byte multiples), everything
+    else, f32 above all (wgmma would be TF32), on the SIMT kernel."""
+    for d in range(1, 129):
+        want = "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+        assert flash_ops.route(dtype, d) == want, d
+    assert flash_ops.route(torch.bfloat16, 80) == "tc"  # the model's heads
+    assert flash_ops.route(torch.bfloat16, 100) == "simt"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 1, 127, 128, 129, 200, 1000])
+def test_flash_live_tiles_cover_kept_pairs(causal, window):
+    """The tensor-core kernel's loop ranges at its 128 x 128 tiles: every
+    pair ``keep_mask`` keeps lies in a visited (query tile, key tile); a
+    visited tile with no kept pair among the real rows and keys is one the
+    TPU kernel's block rule (``kernel.py``'s ``live``) visits too; and a
+    tile the kernel leaves unmasked keeps every pair of its warpgroup's
+    real rows."""
+    bq, bk = flash_ops.TC_BLOCK_Q, flash_ops.TC_BLOCK_K
+    for sq in (1, 127, 128, 129, 300):
+        for sk in (1, 127, 128, 129, 300):
+            keep = flash_ops.keep_mask(torch.arange(sq), torch.arange(sk), causal, window)
+            visited = torch.zeros_like(keep)
+            for qt, begin, end in flash_ops.live_tiles(sq, sk, causal, window):
+                q0 = qt * bq
+                for kt in range(begin, end):
+                    k0 = kt * bk
+                    tile = keep[q0:q0 + bq, k0:k0 + bk]
+                    visited[q0:q0 + bq, k0:k0 + bk] = True
+                    if not tile.any():  # allowed only where the TPU rule is live
+                        assert not causal or k0 <= q0 + bq - 1
+                        assert window is None or k0 + bk - 1 >= q0 - window + 1
+                    for lo in (q0, q0 + 64):  # one warpgroup's 64 rows each
+                        rows = keep[lo:lo + 64, k0:k0 + bk]
+                        if rows.numel() and not flash_ops.tile_needs_mask(
+                                lo, 64, k0, sk, causal, window):
+                            assert k0 + bk <= sk and rows.all(), (sq, sk, qt, kt, lo)
+            assert not (keep & ~visited).any(), (sq, sk)
+
+
 # -- embedding_bag -------------------------------------------------------------
 
 
