@@ -16,8 +16,14 @@ on the first thing that is wrong:
    and checks one tile of each tensor-core flash product (S = Q·Kᵀ,
    O = P·V) against f32 torch (with ``--probe`` it stops there);
 2. holds each kernel against its plain PyTorch version on the card over a
-   sweep: ``gather_rows``/``segment_reduce`` over dtypes, widths,
-   negative/sentinel indices, empty segments, masks and every combiner;
+   sweep: ``gather_rows`` over dtypes (bool tables included), widths,
+   negative/sentinel indices, N % 16 != 0 and ``idx`` views at storage
+   offsets 0-3, each case on the route ``ops.route`` names by row length;
+   ``segment_reduce`` over every combiner, widths, empty segments, masks,
+   NaNs, dropped rows planted with NaN, a 200,000-row segment, segments
+   ending on tile edges, 2^20 one-row segments, all-empty segments and
+   values at odd storage offsets, plus a float sum of random values held
+   to ``TOL`` · Σ|x| of a float64 sum, and repeated bit for bit;
    ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
    shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
    32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
@@ -32,9 +38,15 @@ on the first thing that is wrong:
    (pull and push) and WCC on the symmetric graph, SSSP and PageRank on
    the directed weighted one, plus ``cp.run()`` for WCC, each against an
    independent host oracle (scipy components, Dijkstra, a float64 numpy
-   PageRank) and each superstep count against the plan's cost model; then
-   times ``gather_rows``/``segment_reduce`` at its shapes and measures the
-   card's busy share over one program run;
+   PageRank) and each superstep count against the plan's cost model, every
+   ``gather_rows`` launch on the vec route and every ``segment_reduce``
+   launch on the rows route; then times ``gather_rows`` at WCC's shape and
+   over four index patterns and ``segment_reduce`` at WCC's, vertex 0's
+   segment alone, a uniform degree and PageRank's f32 sum, and measures
+   the card's busy share over one program run (with ``--graph-only`` it
+   stops there and prints the graph kernels' rows; ``--kernel-shapes``
+   builds and times only the two graph kernels over those shapes, and
+   prints no result line);
 4. serves h2o-danube-1.8b (24 layers, d 2560, bf16, random weights from
    the seed) through ``repro_torch.launch.serve``: prefill then greedy
    decode over the ring-buffer cache (6144 > the 4096 window, so the window
@@ -149,25 +161,182 @@ def flash_row_check(got, want, what: str) -> float:
 def check_kernels(device, gen):
     """Each kernel against its plain version over a sweep; returns the
     number of cases per kernel and flash's largest row ratio per dtype."""
-    from repro_torch.graph.structure import segment_offsets
-    from repro_torch.kernels import (
-        gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
-    )
+    cases = check_gather(device, gen)
+    cases.update(check_segment_reduce(device, gen))
+    model_cases, row_ratio = check_model_kernels(device, gen)
+    cases.update(model_cases)
+    sync(device)
+    return cases, row_ratio
 
-    cases = {"gather_rows": 0, "segment_reduce": 0}
+
+def gather_case(table, idx, fill, device, what):
+    """One gather on ``device`` against the plain version on the host, and
+    on the card the route the wrapper counted against ``ops.route``.
+    Returns the route taken (``None`` off the card)."""
+    from repro_torch.kernels import gather_rows, gather_rows_plain
+    from repro_torch.kernels.gather_rows.ops import route
+
+    t, i = table.to(device), idx.to(device)
+    before = gather_rows.launches_vec
+    got = gather_rows(t, i, fill)
+    took = None
+    if device.type == "cuda":
+        took = "vec" if gather_rows.launches_vec > before else "scalar"
+        if took != route(got[0].numel() if got.shape[0] else 1):
+            raise AssertionError(f"gather_rows {what}: took {took}")
+    if not torch.equal(got.cpu(), gather_rows_plain(table, idx, fill)):
+        raise AssertionError(f"gather_rows {what}")
+    return took
+
+
+def check_gather(device, gen):
+    """``gather_rows`` over dtypes, row widths (1, 5 = 20 bytes in f32, 8, 40),
+    negative and sentinel ids in both modes, N around the warp's 32
+    outputs, ``idx`` views at storage offsets 0-3 and bool tables; on the
+    card every case must take the route ``ops.route`` names."""
+    cases = {"gather_rows": 0, "gather_rows_vec": 0, "gather_rows_scalar": 0}
+
+    def count(took):
+        cases["gather_rows"] += 1
+        if took is not None:
+            cases[f"gather_rows_{took}"] += 1
+
     for dt in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
-        for shape in ((1000,), (1000, 5), (300, 40), (70_000,)):
+        for shape in ((1000,), (1000, 5), (500, 8), (300, 40), (70_000,)):
             table = torch.randn(shape, generator=gen) * 10
             table = (table > 0) if dt == torch.bool else table.to(dt)
             v = shape[0]
             idx = torch.randint(-2 * v, 2 * v, (7777,), generator=gen, dtype=torch.int32)
             idx[:4] = torch.tensor([-1, v, v + 1, -v - 1])  # negative, sentinel
             for fill in (None, True if dt == torch.bool else -3):
-                got = gather_rows(table.to(device), idx.to(device), fill).cpu()
-                want = gather_rows_plain(table, idx, fill)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"gather_rows {dt} {shape} fill={fill}")
-                cases["gather_rows"] += 1
+                count(gather_case(table, idx, fill, device, f"{dt} {shape} fill={fill}"))
+            # idx views at storage offsets 0-3 and lengths around the runs
+            base = torch.randint(-v - 2, v + 2, (100_020,), generator=gen, dtype=torch.int32)
+            for off in range(4):
+                for n in (1, 15, 16, 17, 127, 129, 100_003):
+                    idx = base[off:off + n]
+                    for fill in (None, False if dt == torch.bool else 7):
+                        count(gather_case(table, idx, fill, device,
+                                          f"{dt} {shape} idx view +{off} n={n} fill={fill}"))
+    if device.type == "cuda" and not (cases["gather_rows_vec"] and cases["gather_rows_scalar"]):
+        raise AssertionError("gather_rows: a route was never taken")
+    return cases
+
+
+def sorted_ids(lengths, n, dropped_below=0, dropped_above=0):
+    """Sorted int32 segment ids with ``lengths[s]`` rows of segment ``s``
+    and the given number of dropped ids (-1 before, n after)."""
+    ids = torch.repeat_interleave(torch.arange(n, dtype=torch.int32),
+                                  torch.as_tensor(lengths, dtype=torch.int64))
+    return torch.cat([torch.full((dropped_below,), -1, dtype=torch.int32), ids,
+                      torch.full((dropped_above,), n, dtype=torch.int32)])
+
+
+def segment_values(dt, op, e, gen, width=1):
+    """Values for ``op``: float sums of k/16 with |k| <= 16, so that every
+    partial sum of up to 2^20 rows is exact in f32 and the kernel's order of
+    summation cannot change a bit (the check is exact, and finds a row
+    read twice or missed); products near 1; the rest spread over hundreds.
+    :func:`sum_rounding` holds float sums of random values to ``TOL``."""
+    vals = torch.randn((e, width) if width > 1 else (e,), generator=gen)
+    if dt == torch.bool:
+        return vals > 0
+    if op == "prod":
+        return (1.0 + 0.05 * vals).to(dt) if dt != torch.int32 else vals.sign().to(dt)
+    if op == "sum" and dt.is_floating_point:
+        return (vals * 8).round().clamp(-16, 16).div(16).to(dt)
+    return (vals * 100).to(dt)
+
+
+def segment_case(vals, ids, n, op, mask, device, what):
+    """One segment reduction on ``device`` against the plain version: float
+    prod at ``TOL``, the rest exactly (NaN where the plain one has NaN; float
+    sums are of :func:`segment_values`' exact k/16, :func:`sum_rounding`
+    holds sums of random values).
+    On the card the route must be the one ``ops.route`` names."""
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import segment_reduce, segment_reduce_plain
+    from repro_torch.kernels.segment_reduce.ops import route
+
+    dt = vals.dtype
+    before = segment_reduce.launches_rows
+    got = segment_reduce(
+        vals.to(device), ids.to(device), n, op,
+        mask=None if mask is None else mask.to(device),
+        offsets=segment_offsets(ids, n).to(device),
+    ).cpu()
+    if device.type == "cuda":
+        took = "rows" if segment_reduce.launches_rows > before else "cols"
+        if took != route(vals.shape[1] if vals.ndim > 1 else 1):
+            raise AssertionError(f"segment_reduce {what}: took {took}")
+    want = segment_reduce_plain(vals, ids, n, op, mask=mask)
+    if dt in TOL and op == "prod":
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt],
+                                   equal_nan=True, msg=lambda m: f"segment_reduce {what}: {m}")
+    elif dt in TOL:  # sums of k/16 and min/max: exact, NaN where the plain one has NaN
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"segment_reduce {what}: {m}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"segment_reduce {what}")
+    return got
+
+
+def sum_rounding(lengths, device, gen):
+    """A masked float32 sum of random values (``randn`` × 100) over segments
+    of ``lengths`` on ``device`` against the float64 sum of the same rows:
+    each segment's error at most ``TOL`` · Σ|x| over its rows, the kernel's
+    and the plain version's alike (the order of summation differs, so the
+    error's scale is the magnitude summed, not the result, which cancels).
+    Returns each one's largest error in units of eps32 · Σ|x|."""
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import segment_reduce, segment_reduce_plain
+
+    n = len(lengths)
+    ids = sorted_ids(lengths, n, 3, 4)
+    vals = torch.randn(ids.shape[0], generator=gen) * 100
+    mask = torch.rand(ids.shape[0], generator=gen) < 0.8
+    x = torch.where(mask, vals, 0.0).double()
+    ref = segment_reduce_plain(x, ids, n, "sum")
+    mag = segment_reduce_plain(x.abs(), ids, n, "sum")
+    eps = torch.finfo(torch.float32).eps
+    errs = {}
+    for who, got in (
+        ("kernel", segment_reduce(vals.to(device), ids.to(device), n, "sum", mask=mask.to(device),
+                                  offsets=segment_offsets(ids, n).to(device)).cpu()),
+        ("plain", segment_reduce_plain(vals, ids, n, "sum", mask=mask)),
+    ):
+        err = (got.double() - ref).abs()
+        if not bool((err <= TOL[torch.float32] * mag).all()):
+            raise AssertionError(f"segment_reduce f32 sum of random values ({who}): error "
+                                 f"{float(err.max())} past TOL · Σ|x|")
+        errs[who] = float((err / (eps * mag).clamp(min=1e-300)).max())
+    return errs
+
+
+def tile_edge_lengths(tile):
+    """Segment lengths around the rows route's tiles of ``tile`` items (a
+    segment of L rows is L + 1 items): ends on a tile's last item, on its
+    first (the head partial of a tile that holds no row of it), one row,
+    empty runs, and segments over two and three tiles."""
+    return [tile - 1, tile - 1, tile, 0, 0, tile + 1, 1, 2 * tile - 2, 0, 2 * tile - 1,
+            2 * tile, 3 * tile - 1, 3, tile - 1]
+
+
+def check_segment_reduce(device, gen):
+    """``segment_reduce`` over every dtype and combiner, widths 1, 3 and 40,
+    ids in [-3, n+3) (rows outside ``[offsets[0], offsets[n])`` are planted
+    with NaN: they must not be read), empty segments, masks and NaNs; then
+    for one-element rows a 200,000-row segment among short ones, segments
+    ending on tile edges, 2^20 one-row segments, all segments empty (rows
+    all dropped, or none at all), values and mask at odd storage offsets,
+    float sums of random values against a float64 sum, and a float sum
+    repeated bit for bit."""
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.kernels.segment_reduce.ops import kernel_tile_items
+
+    tile = kernel_tile_items() if device.type == "cuda" else 16  # the CPU has no tiles
+    cases = {"segment_reduce": 0}
     for dt in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
         ops = ("min", "max", "or", "and") if dt == torch.bool else ("sum", "prod", "min", "max")
         for op in ops:
@@ -176,39 +345,57 @@ def check_kernels(device, gen):
                 ids = torch.randint(-3, n + 3, (e,), generator=gen, dtype=torch.int32)
                 ids[(ids > 100) & (ids < 140)] = 150  # empty segments
                 ids = torch.sort(ids).values
-                vals = torch.randn((e, width) if width > 1 else (e,), generator=gen)
-                if dt == torch.bool:
-                    vals = vals > 0
-                elif op == "prod":
-                    vals = (1.0 + 0.05 * vals).to(dt) if dt != torch.int32 else (
-                        vals.sign().to(dt)
-                    )
-                else:
-                    vals = (vals * 100).to(dt)
+                vals = segment_values(dt, op, e, gen, width)
                 if dt.is_floating_point:  # a NaN must reach its segment's result
                     vals.view(e, -1)[torch.randint(0, e, (5,), generator=gen), 0] = float("nan")
+                    vals[(ids < 0) | (ids >= n)] = float("nan")  # dropped rows: never read
                 for mask in (None, torch.rand(e, generator=gen) < 0.8):
-                    off = segment_offsets(ids, n)
-                    got = segment_reduce(
-                        vals.to(device), ids.to(device), n, op,
-                        mask=None if mask is None else mask.to(device),
-                        offsets=off.to(device),
-                    ).cpu()
-                    want = segment_reduce_plain(vals, ids, n, op, mask=mask)
-                    if dt in TOL and op in ("sum", "prod"):
-                        torch.testing.assert_close(
-                            got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt],
-                            equal_nan=True,
-                        )
-                    elif dt in TOL:  # min/max: exact, NaN where the plain one has NaN
-                        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
-                    elif not torch.equal(got, want):
-                        raise AssertionError(f"segment_reduce {dt} {op} width={width}")
+                    segment_case(vals, ids, n, op, mask, device, f"{dt} {op} width={width}")
                     cases["segment_reduce"] += 1
-    model_cases, row_ratio = check_model_kernels(device, gen)
-    cases.update(model_cases)
-    sync(device)
-    return cases, row_ratio
+            hub = [int(x) for x in torch.randint(0, 40, (50,), generator=gen)]
+            hub[7] = 200_000
+            for what, lengths, below, above in (
+                ("a 200,000-row segment", hub, 5, 9),
+                ("segments on tile edges", tile_edge_lengths(tile), 0, 0),
+                ("2^20 one-row segments", [1] * 2**20, 2, 0),
+                ("all empty, rows dropped", [0] * 3000, 40, 60),
+                ("all empty, no rows", [0] * 3000, 0, 0),
+            ):
+                n = len(lengths)
+                ids = sorted_ids(lengths, n, below, above)
+                e = ids.shape[0]
+                vals = segment_values(dt, op, e, gen)
+                if dt.is_floating_point:
+                    vals[(ids < 0) | (ids >= n)] = float("nan")
+                for mask in (None, torch.rand(e, generator=gen) < 0.8):
+                    segment_case(vals, ids, n, op, mask, device, f"{dt} {op}: {what}")
+                    cases["segment_reduce"] += 1
+            # values and mask as views at odd storage offsets
+            ids = sorted_ids(hub, 50, 5, 9)
+            e = ids.shape[0]
+            vals = segment_values(dt, op, e + 3, gen)[3:]
+            mask = (torch.rand(e + 5, generator=gen) < 0.8)[5:]
+            segment_case(vals, ids, 50, op, mask, device, f"{dt} {op}: odd storage offsets")
+            cases["segment_reduce"] += 1
+    # float sums of random values: rounding held to TOL · Σ|x| of a float64 sum
+    cases["segment_reduce_f32_sum_max_err_eps"] = {
+        what: sum_rounding(lengths, device, gen)
+        for what, lengths in (("200,000-row segment", hub),
+                              ("tile edges", tile_edge_lengths(tile)),
+                              ("uniform 1-40 rows", [int(x) for x in torch.randint(
+                                  1, 41, (3000,), generator=gen)]))
+    }
+    # a float sum is the same bits from launch to launch
+    ids = sorted_ids(hub, 50, 5, 9)
+    vals = torch.randn(ids.shape[0], generator=gen).to(device)
+    off = segment_offsets(ids, 50).to(device)
+    first = segment_reduce(vals, ids.to(device), 50, "sum", offsets=off)
+    for _ in range(3):
+        again = segment_reduce(vals, ids.to(device), 50, "sum", offsets=off)
+        if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError("segment_reduce: a float sum changed bits from one launch to the next")
+    cases["segment_reduce_repeat_bitwise"] = 3
+    return cases
 
 
 #: tests/test_kernels.py TestFlashAttention's shapes (b, h, hkv, sq, sk, d,
@@ -461,6 +648,31 @@ def run_program(name, source, graph, schedule, device, card):
     return cp, res
 
 
+def graph_shape(graph):
+    """The degree statistics that shape the two graph kernels' work: the
+    share of empty segments (in-degree 0), the mean and largest segment,
+    segments past 4096 and 65536 rows and the share of rows they and the
+    segments past 32 rows hold, and the share of neighbour reads (``src``
+    in the dst ordering) that fall in the lowest 2^16, 2^18 and 2^20 ids."""
+    n = graph.n_vertices
+    deg = (graph.in_ptr[1:] - graph.in_ptr[:-1]).long()
+    rows = int(deg.sum())
+    src = graph.src[graph.edge_mask].long()
+    return {
+        "empty_share": float((deg == 0).sum()) / n,
+        "mean_rows": rows / n,
+        "max_rows": int(deg.max()),
+        "max_rows_vertex": int(deg.argmax()),
+        "segments_over_4096": int((deg > 4096).sum()),
+        "segments_over_65536": int((deg > 65536).sum()),
+        "row_share_over_4096": float(deg[deg > 4096].sum()) / rows,
+        "row_share_over_32": float(deg[deg > 32].sum()) / rows,
+        "read_share_below_2^16": float((src < 2**16).sum()) / rows,
+        "read_share_below_2^18": float((src < 2**18).sum()) / rows,
+        "read_share_below_2^20": float((src < 2**20).sum()) / rows,
+    }
+
+
 def main_path(scale, edgefactor, seed, device, card):
     """Build the graphs, then run the programs with the launch counters
     zeroed just before and read just after."""
@@ -476,10 +688,13 @@ def main_path(scale, edgefactor, seed, device, card):
         "graphs", card, setup_s=time.perf_counter() - t0, scale=scale,
         edgefactor=edgefactor, n_vertices=sym.n_vertices,
         symmetric_edges=sym.n_edges, directed_edges=dirw.n_edges,
+        symmetric_shape=graph_shape(sym),
     )
 
-    gather_rows.launches = 0
-    segment_reduce.launches = 0
+    for counter in ("launches", "launches_vec", "launches_scalar"):
+        setattr(gather_rows, counter, 0)
+    for counter in ("launches", "launches_rows", "launches_cols"):
+        setattr(segment_reduce, counter, 0)
     runs = [
         ("sv", alg.SV, sym, "pull"),
         ("sv", alg.SV, sym, "push"),
@@ -501,10 +716,24 @@ def main_path(scale, edgefactor, seed, device, card):
         "gather_rows": gather_rows.launches,
         "segment_reduce": segment_reduce.launches,
     }
-    say("launches", card, **launches)
-    for k, v in launches.items():
-        if v <= 0 and device.type == "cuda":
-            raise AssertionError(f"the main path never launched {k}")
+    routes = {
+        "gather_rows_vec": gather_rows.launches_vec,
+        "gather_rows_scalar": gather_rows.launches_scalar,
+        "segment_reduce_rows": segment_reduce.launches_rows,
+        "segment_reduce_cols": segment_reduce.launches_cols,
+    }
+    say("launches", card, **launches, **routes)
+    if device.type == "cuda":
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"the main path never launched {k}")
+        # every launch on the redesigned routes
+        if not routes["gather_rows_vec"] == launches["gather_rows"]:
+            raise AssertionError(f"gather_rows: {routes['gather_rows_scalar']} main-path "
+                                 "launches on the scalar route")
+        if not routes["segment_reduce_rows"] == launches["segment_reduce"]:
+            raise AssertionError(f"segment_reduce: {routes['segment_reduce_cols']} main-path "
+                                 "launches on the cols route")
 
     # steady state: every program once more, with every kernel loaded
     for (name, _, graph, schedule), (cp, first) in zip(runs, compiled):
@@ -569,9 +798,99 @@ def bound(nbytes: int, nops: int, ops_per_s: float = SCALAR_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timed(fn, want_ms_bound, reps: int = 20):
+    """``{"ms", "bound_share", "gb_s"}`` of ``fn`` against a bound of
+    ``(bound_ms, bytes)``."""
+    bound_ms, nbytes = want_ms_bound
+    ms = cuda_ms(fn, reps)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+            "gb_s": nbytes / ms / 1e6}
+
+
+def graph_kernel_shapes(sym, table):
+    """The two graph kernels over the shapes that tell their limits apart,
+    through the public wrappers only (so that it times any tree of the port):
+    ``gather_rows`` of ``table`` (int32 [n]) at the symmetric graph's edge
+    count over four index patterns — the streaming floor (arange), the
+    index and output streams alone (random over 2^14 rows, a table that
+    stays in L1), L2-resident random reads (random over all n rows) and the
+    graph's ``src`` — and of a bool table at ``src`` (SSSP's active flag),
+    each beside ``index_select``; ``segment_reduce`` min over WCC's
+    neighbour values at the graph's offsets, over vertex 0's segment alone
+    (the hub) and over a uniform degree of 30 on the same vertices (no
+    skew), each beside ``scatter_reduce``."""
+    from repro_torch.kernels import (
+        gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
+    )
+
+    n, e = table.numel(), sym.src.numel()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g_bytes = n * 4 + e * 4 + e * 4
+    gather = {}
+    for name, make in (
+        ("arange", lambda: (torch.arange(e, device="cuda") % n).to(torch.int32)),
+        ("random_2^14", lambda: torch.randint(0, 2**14, (e,), device="cuda", generator=gen,
+                                              dtype=torch.int32)),
+        ("random_2^22", lambda: torch.randint(0, n, (e,), device="cuda", generator=gen,
+                                              dtype=torch.int32)),
+        ("sym.src", lambda: sym.src),
+    ):
+        idx = make()
+        if not torch.equal(gather_rows(table, idx), torch.index_select(table, 0, idx)):
+            raise AssertionError(f"gather_rows disagrees with index_select over {name}")
+        gather[name] = {
+            **timed(lambda: gather_rows(table, idx), (bound(g_bytes, 0)[0], g_bytes)),
+            "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx)),
+        }
+        del idx
+    flags = table < n // 2
+    if not torch.equal(gather_rows(flags, sym.src), gather_rows_plain(flags, sym.src)):
+        raise AssertionError("gather_rows disagrees with its plain version on a bool table")
+    b_bytes = n + e * 4 + e
+    gather["sym.src_bool"] = {
+        **timed(lambda: gather_rows(flags, sym.src), (bound(b_bytes, 0)[0], b_bytes)),
+        "library_ms": cuda_ms(lambda: torch.index_select(flags, 0, sym.src)),
+    }
+    del flags
+
+    vals = gather_rows(table, sym.src)
+    mask = sym.edge_mask
+    identity = torch.full((n,), torch.iinfo(torch.int32).max, dtype=torch.int32, device="cuda")
+    seg = {}
+    hub_off = sym.in_ptr[:2].contiguous()
+    hub_rows = int(hub_off[1] - hub_off[0])
+    uni_ids = torch.repeat_interleave(torch.arange(n, dtype=torch.int32, device="cuda"), 30)
+    uni_ids = torch.cat([uni_ids, torch.full((e - uni_ids.numel(),), n, dtype=torch.int32,
+                                             device="cuda")])
+    for name, ids, off, nseg, rows in (
+        ("wcc_min", sym.dst, sym.in_ptr, n, e),
+        ("hub_only", sym.dst, hub_off, 1, hub_rows),
+        ("uniform_degree_30", uni_ids, torch.arange(n + 1, dtype=torch.int32, device="cuda") * 30,
+         n, 30 * n),
+    ):
+        got = segment_reduce(vals, ids, nseg, "min", mask=mask, offsets=off)
+        if name != "hub_only" and not torch.equal(
+                got, segment_reduce_plain(vals, ids, nseg, "min", mask=mask)):
+            raise AssertionError(f"segment_reduce disagrees with its plain version: {name}")
+        nbytes = rows * 5 + (nseg + 1) * 4 + nseg * 4
+        ids64 = ids.long().clamp(max=n - 1)
+        seg[name] = {
+            **timed(lambda: segment_reduce(vals, ids, nseg, "min", mask=mask, offsets=off),
+                    (bound(nbytes, rows)[0], nbytes)),
+            "rows": rows,
+            "library_ms": None if name == "hub_only" else cuda_ms(
+                lambda: identity.scatter_reduce(0, ids64, torch.where(mask, vals, identity[0]),
+                                                "amin", include_self=True), reps=3),
+        }
+        del ids64
+    return {"gather_rows": gather, "segment_reduce": seg}
+
+
 def kernel_rows(graphs, launches):
     """Each kernel at the main path's shapes: its time, the plain version's,
-    the library call's, its bound and its error against the plain version."""
+    the library call's, its bound and its error against the plain version;
+    gather_rows also over four index patterns, segment_reduce also over
+    vertex 0's segment alone, a uniform degree and PageRank's f32 sum."""
     from repro_torch.graph import ops as gops
     from repro_torch.kernels import (
         gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
@@ -581,13 +900,16 @@ def kernel_rows(graphs, launches):
     n = sym.n_vertices
     # gather: WCC's neighbour read C[e.id] — an int32 field at every edge
     table = torch.randperm(n, device="cuda").to(torch.int32)
+    shapes = graph_kernel_shapes(sym, table)
     idx = sym.src
     got = gather_rows(table, idx)
     if not torch.equal(got, gather_rows_plain(table, idx)):
         raise AssertionError("gather_rows disagrees with its plain version")
     err_g = (got - gather_rows_plain(table, idx)).abs().max().item()
-    g_bytes = table.numel() * 4 + idx.numel() * 4 + got.numel() * 4
+    e = idx.numel()
+    g_bytes = table.numel() * 4 + e * 4 + got.numel() * 4
     g_bound, g_by = bound(g_bytes, 0)
+    g = timed(lambda: gather_rows(table, idx), (g_bound, g_bytes))
     rows = [{
         "name": "gather_rows",
         "route": "cuda",
@@ -595,12 +917,16 @@ def kernel_rows(graphs, launches):
         "replaces": "src/repro/kernels/gather_rows/kernel.py:20",
         "launches": launches["gather_rows"],
         "max_abs_err": float(err_g),
-        "ms": cuda_ms(lambda: gather_rows(table, idx)),
+        "ms": g["ms"],
         "plain_ms": cuda_ms(lambda: gather_rows_plain(table, idx)),
         "bound_ms": g_bound,
         "bound_by": g_by,
         "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx)),
-        "shape": f"table i32[{n}], idx i32[{idx.numel()}]",
+        "shape": f"table i32[{n}], idx i32[{e}]",
+        "kernel_route": "vec",
+        "bound_share": g["bound_share"],
+        "gb_s": g["gb_s"],
+        "index_patterns": shapes["gather_rows"],
     }]
 
     # segment reduce: WCC's minimum [C[e.id] | e <- Nbr[v]] over the
@@ -622,11 +948,39 @@ def kernel_rows(graphs, launches):
         raise AssertionError("a segment sum reaches 2**20: f32 sums are no longer exact")
     torch.testing.assert_close(fgot, fwant, rtol=0, atol=0)
     err = max(err, (fgot - fwant).abs().max().item())
-    e = vals.numel()
     s_bytes = e * 4 + e + (n + 1) * 4 + n * 4
     s_bound, s_by = bound(s_bytes, e)
+    s = timed(lambda: segment_reduce(vals, sym.dst, n, "min", mask=mask, offsets=sym.in_ptr),
+              (s_bound, s_bytes))
+    gen = torch.Generator(device="cuda").manual_seed(1)
     ids64 = sym.dst.long()
     ident = torch.full((n,), torch.iinfo(torch.int32).max, dtype=torch.int32, device="cuda")
+    # PageRank's sum over In[v]: random f32 shares, at TOL, bit for bit
+    # from one launch to the next
+    pr = torch.rand(dirw.n_edges, device="cuda", generator=gen)
+    pgot = segment_reduce(pr, dirw.dst, n, "sum", mask=dirw.edge_mask, offsets=dirw.in_ptr)
+    pwant = segment_reduce_plain(pr, dirw.dst, n, "sum", mask=dirw.edge_mask)
+    torch.testing.assert_close(pgot, pwant, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    again = segment_reduce(pr, dirw.dst, n, "sum", mask=dirw.edge_mask, offsets=dirw.in_ptr)
+    if not torch.equal(pgot.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("segment_reduce: PageRank's f32 sum changed bits between launches")
+    pe = dirw.n_edges
+    p_bytes = pe * 4 + pe + (n + 1) * 4 + n * 4
+    p_bound, _ = bound(p_bytes, pe)
+    p_ids64 = dirw.dst.long().clamp(max=n - 1)
+    p_mask = dirw.edge_mask
+    zeros = torch.zeros(n, device="cuda")
+    pagerank = {
+        **timed(lambda: segment_reduce(pr, dirw.dst, n, "sum", mask=p_mask,
+                                       offsets=dirw.in_ptr), (p_bound, p_bytes)),
+        "plain_ms": cuda_ms(lambda: segment_reduce_plain(pr, dirw.dst, n, "sum", mask=p_mask),
+                            reps=3),
+        "library_ms": cuda_ms(lambda: zeros.scatter_reduce(
+            0, p_ids64, torch.where(p_mask, pr, 0.0), "sum", include_self=True), reps=3),
+        "shape": f"values f32[{pe}] sum, mask, {n} segments",
+        "max_abs_err": float((pgot - pwant).abs().max()),
+        "repeat_bitwise": True,
+    }
     rows.append({
         "name": "segment_reduce",
         "route": "cuda",
@@ -634,9 +988,7 @@ def kernel_rows(graphs, launches):
         "replaces": "src/repro/kernels/segment_reduce/kernel.py:55",
         "launches": launches["segment_reduce"],
         "max_abs_err": float(err),
-        "ms": cuda_ms(
-            lambda: segment_reduce(vals, sym.dst, n, "min", mask=mask, offsets=sym.in_ptr)
-        ),
+        "ms": s["ms"],
         "plain_ms": cuda_ms(lambda: segment_reduce_plain(vals, sym.dst, n, "min", mask=mask)),
         "bound_ms": s_bound,
         "bound_by": s_by,
@@ -644,6 +996,12 @@ def kernel_rows(graphs, launches):
             lambda: ident.scatter_reduce(0, ids64, vals, "amin", include_self=True)
         ),
         "shape": f"values i32[{e}] min, mask, {n} segments",
+        "kernel_route": "rows",
+        "bound_share": s["bound_share"],
+        "gb_s": s["gb_s"],
+        "hub_only": shapes["segment_reduce"]["hub_only"],
+        "uniform_degree_30": shapes["segment_reduce"]["uniform_degree_30"],
+        "pagerank_f32_sum": pagerank,
     })
     return rows
 
@@ -1052,6 +1410,8 @@ def main() -> int:
     # f32 results are compared with f32/f64 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--kernel-shapes" in sys.argv[1:]:
+        return kernel_shapes_only(scale, edgefactor, seed, card)
     t0 = time.perf_counter()
     reports = build.build()
     say("build", card, seconds=time.perf_counter() - t0, built=sorted(reports))
@@ -1085,13 +1445,38 @@ def main() -> int:
         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     del graphs, results
 
+    if "--graph-only" in sys.argv[1:]:  # a rehearsal of the graph kernels: stop here
+        return finish(rows, card, t_start)
     lm = lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len,
                  decode_steps, seed, device, card)
     spec = configs.get_spec("autoint")
     rec = autoint_path(spec.config, spec.shapes, seed, device, card)
     rows += model_kernel_rows(lm, rec)
-    say("total", card, seconds=time.perf_counter() - t_start)
+    return finish(rows, card, t_start)
 
+
+def kernel_shapes_only(scale, edgefactor, seed, card) -> int:
+    """``--kernel-shapes``: builds the two graph kernels, times them over
+    :func:`graph_kernel_shapes` on the main path's symmetric R-MAT and
+    stops, printing no result line. It uses only the wrappers' public
+    calls, so a copy of this script beside an earlier tree of the port
+    times that tree's kernels."""
+    from repro_torch.graph import generators as G
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build(["gather_rows", "segment_reduce"])
+    sym = G.rmat(scale, edgefactor, directed=False, seed=seed, device="cuda")
+    table = torch.randperm(sym.n_vertices, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+    say("kernel_shapes", card, setup_s=time.perf_counter() - t0,
+        **graph_kernel_shapes(sym, table.to(torch.int32)))
+    return 0
+
+
+def finish(rows, card, t_start) -> int:
+    """The kernel table, the card, and the result line."""
+    say("total", card, seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({

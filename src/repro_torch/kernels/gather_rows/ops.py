@@ -10,7 +10,12 @@ a table ``[V, ...]`` of 1-, 2- or 4-byte elements and int32 indices ``[N]``:
   ``jnp.take(mode="fill")`` does.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device.
+version is taken only for tensors on the CPU or the meta device. The
+kernel has two routes, chosen by row length alone (:func:`route`):
+``"vec"`` (rows of one element, a warp over 32 neighbouring outputs) and
+``"scalar"`` (wider rows, one thread per element), counted in
+``gather_rows.launches_vec`` and ``gather_rows.launches_scalar`` beside
+``gather_rows.launches``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,12 @@ def _fill_bits(fill, dtype) -> int:
         return 0
     raw = torch.tensor([fill]).to(dtype).view(torch.uint8).tolist()
     return int.from_bytes(bytes(raw), "little")
+
+
+def route(row_len: int) -> str:
+    """The kernel's route for rows of ``row_len`` elements: ``"vec"`` for
+    one element, else ``"scalar"`` (the C entry's rule)."""
+    return "vec" if row_len == 1 else "scalar"
 
 
 @functools.cache
@@ -109,7 +120,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
         return out
     _launch(table, idx, out, 0 if fill is None else 1, _fill_bits(fill, table.dtype))
     gather_rows.launches += 1
+    if route(out[0].numel()) == "vec":
+        gather_rows.launches_vec += 1
+    else:
+        gather_rows.launches_scalar += 1
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches_vec = 0
+gather_rows.launches_scalar = 0

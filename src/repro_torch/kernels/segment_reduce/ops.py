@@ -13,7 +13,12 @@ Masked rows contribute the identity; an empty segment gets the identity
 return the input dtype; int32 sums wrap.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device.
+version is taken only for tensors on the CPU or the meta device. The
+kernel has two routes, by width alone (:func:`route`): rows of one element
+(the message combiner's) take the merge-path tiles, counted in
+``segment_reduce.launches_rows``; wider rows take one warp per segment,
+counted in ``segment_reduce.launches_cols``. The wrapper sizes the rows
+route's scratch with :func:`n_tiles` at the built kernel's tile size.
 """
 
 from __future__ import annotations
@@ -93,6 +98,19 @@ def segment_reduce_plain(
     return buf[:n].to(values.dtype)
 
 
+def route(width: int) -> str:
+    """The kernel's route for rows of ``width`` elements: ``"rows"`` (merge-
+    path tiles) for one element, else ``"cols"`` (one warp per segment)."""
+    return "rows" if width == 1 else "cols"
+
+
+def n_tiles(max_rows: int, num_segments: int, tile_items: int) -> int:
+    """Tiles of ``tile_items`` merge items (rows + segment ends) the rows
+    route needs for at most ``max_rows`` rows: every item the offsets can
+    name, rounded up (tiles past the last item do nothing)."""
+    return max(1, -(-(max_rows + num_segments) // tile_items))
+
+
 @functools.cache
 def _entry():
     """The C entry point of the kernel's library, typed."""
@@ -100,13 +118,28 @@ def _entry():
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def kernel_tile_items() -> int:
+    """Merge items per tile of the rows route, as the built kernel has them
+    (``kTile`` of csrc/segment_reduce.cu)."""
+    fn = build.library("segment_reduce").segment_reduce_tile_items
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def _launch(values, mask, offsets, out, op):
+    width = out[0].numel() if out.shape[0] else 0
+    tiles = n_tiles(values.shape[0], out.shape[0], kernel_tile_items())
+    scratch = (
+        torch.empty(4 * tiles + 1, dtype=torch.int32, device=values.device)
+        if route(width) == "rows" else None
+    )
     fn = _entry()
     rc = fn(
         values.device.index or 0,
@@ -115,9 +148,11 @@ def _launch(values, mask, offsets, out, op):
         offsets.data_ptr(),
         out.data_ptr(),
         offsets.shape[0] - 1,
-        out[0].numel() if out.shape[0] else 0,
+        width,
         _DTYPE_CODE[values.dtype],
         _OP_CODE[op],
+        None if scratch is None else scratch.data_ptr(),
+        tiles,
         torch.cuda.current_stream(values.device).cuda_stream,
     )
     if rc != 0:
@@ -165,7 +200,13 @@ def segment_reduce(
         return out
     _launch(values, mask, offsets, out, op)
     segment_reduce.launches += 1
+    if route(out[0].numel()) == "rows":
+        segment_reduce.launches_rows += 1
+    else:
+        segment_reduce.launches_cols += 1
     return out
 
 
 segment_reduce.launches = 0
+segment_reduce.launches_rows = 0
+segment_reduce.launches_cols = 0

@@ -434,3 +434,248 @@ def test_embedding_bag_clips_ids(weighted):
     ref = embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx),
                             jnp.ones(idx.shape) if w is None else jnp.asarray(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["float32"])
+
+
+# -- the redesigned graph kernels: gather_rows' routes, segment_reduce's tiles --
+
+import pathlib  # noqa: E402
+import re  # noqa: E402
+
+from repro_torch.kernels.gather_rows import ops as gather_ops  # noqa: E402
+from repro_torch.kernels.segment_reduce import ops as seg_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1003])
+def test_gather_route_rule(offset, n):
+    """The route depends on the row length alone: rows of one element (1 or
+    4 bytes) take the vec route, rows of 5·4 and 40·4 bytes the scalar
+    route, whatever N and the ``idx`` view's storage offset. Both compute
+    the rows ``repro.graph.ops.gather`` computes on the same ``idx`` view,
+    in clip and fill mode (here through the plain version)."""
+    rng = np.random.default_rng(23)
+    base_np = rng.integers(-100, 100, 1100).astype(np.int32)
+    base = torch.from_numpy(base_np)
+    idx = base[offset:offset + n]
+    assert idx.data_ptr() - base.data_ptr() == 4 * offset
+    jidx = jnp.asarray(base_np[offset:offset + n])
+    for dtype, shape in (("bool", (97,)), ("int32", (97,)), ("float32", (97, 5)),
+                         ("float32", (97, 40))):
+        table_np = _values(rng, dtype, shape, "sum")
+        jtable, table = _both(table_np, dtype)
+        row_len = int(np.prod(shape[1:], dtype=np.int64))
+        assert gather_ops.route(row_len) == ("vec" if row_len == 1 else "scalar")
+        for fill in (None, False if dtype == "bool" else 7):
+            want = jops.gather(jtable, jidx, fill)
+            np.testing.assert_array_equal(_np(gather_rows(table, idx, fill)), _np(want))
+
+
+# The rows route's tiling in plain PyTorch, as csrc/segment_reduce.cu cuts
+# the merge items (rows + segment ends) into tiles of ``tile_items``.
+
+
+def merge_tiles(offsets: torch.Tensor, tile_items: int):
+    """The rows route's tiles over CSR ``offsets [n + 1]``: a list of
+    ``(first_segment, end_segment, row_begin, row_end)``, one per tile.
+    The items are the rows ``[offsets[0], offsets[n])`` and the ``n``
+    segment ends, merged in order (a segment's end follows its last row);
+    tile ``k`` is items ``[k * tile_items, (k + 1) * tile_items)``, and
+    holds the ends of segments ``[first_segment, end_segment)`` and the rows
+    ``[row_begin, row_end)``. ``first_segment`` is the merge-path split the
+    kernel's ``seg_search`` finds by binary search."""
+    off = offsets.long().cpu()
+    n = off.shape[0] - 1
+    r0 = int(off[0])
+    total = int(off[n]) - r0 + n
+    # the end item of segment s sits at (offsets[s+1] - r0) + s, increasing
+    end_pos = off[1:] - r0 + torch.arange(n)
+    edges = torch.arange(0, total + tile_items, tile_items).clamp(max=total)
+    split = torch.searchsorted(end_pos, edges, side="left").tolist()
+    edges = edges.tolist()
+    return [
+        (split[k], split[k + 1], r0 + edges[k] - split[k], r0 + edges[k + 1] - split[k + 1])
+        for k in range(len(edges) - 1)
+    ]
+
+
+def segment_reduce_tiled(values, offsets, op, mask, tile_items):
+    """The rows route's arithmetic, tile by tile: returns ``(out, tiles)``.
+    Within a tile, a segment that ends there gets the fold of its rows in
+    the tile; the one it starts with, if an earlier tile holds rows of it,
+    leaves that fold as the tile's ``head`` partial; the segment open at the
+    tile's end leaves the fold of its rows in the tile as the tile's
+    ``carry``. Then each run of tiles that carry one segment is folded in
+    tile order, followed by the head partial of the tile that ends the
+    segment. ``tiles`` lists, per tile, ``(first_segment, end_segment,
+    row_begin, row_end, carry_segment or None, has_head)``. Values of one
+    element per row; masked rows fold as the identity; bf16 folds in f32."""
+    n = offsets.shape[0] - 1
+    ident = identity(op, values.dtype)
+    work = values.float() if values.dtype == torch.bfloat16 else values
+    if mask is not None:
+        work = torch.where(mask, work, ident)
+    off = offsets.long().tolist()
+
+    def fold(rows):  # one partial over rows, in the plain version's arithmetic
+        ids = torch.zeros(rows.shape[0], dtype=torch.int32)
+        return seg_ops.segment_reduce_plain(rows, ids, 1, op)[0]
+
+    out = torch.full((n,), ident, dtype=work.dtype)
+    carry, head, tiles = {}, {}, []
+    for k, (s0, s1, rb, re_) in enumerate(merge_tiles(offsets, tile_items)):
+        for s in range(s0, s1):  # segments that end in this tile
+            part = fold(work[max(off[s], rb):off[s + 1]])
+            if s == s0 and rb > off[s0]:
+                head[k] = part
+            else:
+                out[s] = part
+        carried = s1 < n and re_ > off[s1]
+        if carried:
+            carry[k] = (s1, fold(work[max(off[s1], rb):re_]))
+        tiles.append((s0, s1, rb, re_, s1 if carried else None, k in head))
+    for k in sorted(carry):
+        s, acc = carry[k]
+        if k - 1 in carry and carry[k - 1][0] == s:
+            continue  # not the first tile of its run
+        m = k + 1
+        while m in carry and carry[m][0] == s:
+            acc = fold(torch.stack([acc, carry[m][1]]))
+            m += 1
+        out[s] = fold(torch.stack([acc, head[m]]))
+    return out.to(values.dtype), tiles
+
+
+def _kernel_tile_items() -> int:
+    """``kTile = kThreads * kItems`` as csrc/segment_reduce.cu sets it."""
+    src = (pathlib.Path(seg_ops.__file__).parents[2] / "csrc" / "segment_reduce.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kThreads|kItems) = (\d+);", src))
+    return int(consts["kThreads"]) * int(consts["kItems"])
+
+
+def _layout(name, tile):
+    """Segment lengths and dropped ids (below 0, at or above n) around tiles
+    of ``tile`` items (a segment of L rows is L + 1 items)."""
+    rng = np.random.default_rng(21)
+    if name == "hub":  # one segment over more than three tiles
+        lengths = list(rng.integers(0, 5, 12))
+        lengths[4] = 3 * tile + tile // 2
+        return lengths, 3, 5
+    if name == "tile_edges":  # ends on a tile's last and first items
+        return [tile - 1, tile - 1, tile, 0, 0, tile + 1, 1, 2 * tile - 2, 0, 2 * tile - 1,
+                2 * tile, 3 * tile - 1, 3, tile - 1], 0, 0
+    if name == "all_empty":
+        return [0] * (3 * tile + 5), 7, 9
+    if name == "one_segment":
+        return [5 * tile + 3], 0, 0
+    if name == "out_of_range":  # rows outside [offsets[0], offsets[n])
+        return list(rng.integers(0, 4, 30)), 2 * tile + 1, tile + 3
+    raise ValueError(name)
+
+
+def _tiled_case(name, tile, op, dtype, masked):
+    """One layout's values (NaN on dropped float rows, which must never be
+    read), ids, n, mask and offsets, as numpy arrays and offsets tensor."""
+    lengths, below, above = _layout(name, tile)
+    n = len(lengths)
+    ids = np.concatenate([np.full(below, -1), np.repeat(np.arange(n), lengths),
+                          np.full(above, n)]).astype(np.int32)
+    rng = np.random.default_rng(22)
+    vals = _values(rng, "float32" if dtype == "bfloat16" else dtype, ids.shape, op)
+    if dtype in ("float32", "bfloat16"):
+        vals[(ids < 0) | (ids >= n)] = np.nan
+    mask = rng.random(ids.shape[0]) < 0.8 if masked else None
+    return vals, ids, n, mask, segment_offsets(torch.from_numpy(ids), n)
+
+
+def _jax_segment_reduce(vals, ids, n, op, dtype, mask):
+    """``repro.graph.ops.segment_reduce`` on the same values; bf16 values
+    reduce in f32 and round back to bf16, the port's stated accumulation."""
+    jvals, _ = _both(vals, dtype)
+    if dtype == "bfloat16":
+        jvals = jvals.astype(jnp.float32)
+    want = jops.segment_reduce(jvals, jnp.asarray(ids), n, op, indices_are_sorted=True,
+                               mask=None if mask is None else jnp.asarray(mask))
+    return want.astype(JNP[dtype])
+
+
+def _assert_seg_equal(got, want, dtype, op):
+    """Float sums and products at TOL, the rest exactly."""
+    assert _np(got).dtype == _np(want).dtype and _np(got).shape == _np(want).shape
+    if dtype in TOL and op in ("sum", "prod"):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    else:
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+SEG_KERNEL_CASES = [(op, dt) for dt in ("float32", "bfloat16", "int32", "bool")
+                    for op in (("min", "max", "or", "and") if dt == "bool"
+                               else ("sum", "prod", "min", "max"))]
+
+
+@pytest.mark.parametrize("layout", ["hub", "tile_edges", "all_empty", "one_segment",
+                                    "out_of_range"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("op,dtype", SEG_KERNEL_CASES)
+def test_segment_tiles_match_plain(op, dtype, masked, layout):
+    """The rows route's tiling (each tile's rows and segment ends, its head
+    partial and carry, the carries folded in tile order) at tiles of 16
+    items == ``repro.graph.ops.segment_reduce`` on the same inputs; float
+    sums and products at TOL, the rest exactly."""
+    vals, ids, n, mask, off = _tiled_case(layout, 16, op, dtype, masked)
+    tvals = torch.from_numpy(vals).to(TORCH[dtype])
+    got, tiles = segment_reduce_tiled(tvals, off, op,
+                                      None if mask is None else torch.from_numpy(mask), 16)
+    _assert_seg_equal(got, _jax_segment_reduce(vals, ids, n, op, dtype, mask), dtype, op)
+    assert len(tiles) <= seg_ops.n_tiles(vals.shape[0], n, 16)
+    carried = [t[4] for t in tiles]
+    if layout in ("hub", "one_segment"):  # a run of more than three carries
+        hub = max(set(carried) - {None}, key=carried.count)
+        assert carried.count(hub) >= 3 and sum(t[5] for t in tiles) >= 1
+    if layout == "all_empty":
+        assert all(t[2] == t[3] for t in tiles) and carried == [None] * len(tiles)
+
+
+@pytest.mark.parametrize("layout", ["hub", "tile_edges", "out_of_range"])
+def test_segment_tiles_at_kernel_size(layout):
+    """The same at the kernel's own tiles (``kTile`` of
+    csrc/segment_reduce.cu): a float sum and an int32 min over a hub of
+    more than three tiles and ends on tile edges."""
+    tile = _kernel_tile_items()
+    for op, dtype in (("sum", "float32"), ("min", "int32")):
+        vals, ids, n, mask, off = _tiled_case(layout, tile, op, dtype, True)
+        got, tiles = segment_reduce_tiled(torch.from_numpy(vals), off, op,
+                                          torch.from_numpy(mask), tile)
+        _assert_seg_equal(got, _jax_segment_reduce(vals, ids, n, op, dtype, mask), dtype, op)
+        assert len(tiles) <= seg_ops.n_tiles(vals.shape[0], n, tile)
+
+
+@pytest.mark.parametrize("layout", ["hub", "tile_edges", "all_empty", "out_of_range"])
+@pytest.mark.parametrize("tile", [1, 3, 16])
+def test_merge_tiles_brute_force(layout, tile):
+    """``merge_tiles`` (the kernel's binary-search split) == merging the
+    rows and the segment ends one item at a time: each tile's first and end
+    segment and its row span, the rows covering ``[offsets[0], offsets[n])``
+    exactly once."""
+    lengths, below, _ = _layout(layout, 16)  # ids past n follow offsets[n]
+    n = len(lengths)
+    off = np.concatenate([[below], below + np.cumsum(lengths)]).astype(np.int32)
+    items = []  # ("row", r) or ("end", s) in merge order
+    s, r = 0, int(off[0])
+    while s < n:
+        if r < off[s + 1]:
+            items.append(("row", r))
+            r += 1
+        else:
+            items.append(("end", s))
+            s += 1
+    tiles = merge_tiles(torch.from_numpy(off), tile)
+    assert len(tiles) == -(-len(items) // tile)
+    row = int(off[0])
+    for k, (s0, s1, rb, re_) in enumerate(tiles):
+        chunk = items[k * tile:(k + 1) * tile]
+        ends = [x for kind, x in chunk if kind == "end"]
+        rows = [x for kind, x in chunk if kind == "row"]
+        assert s1 - s0 == len(ends) and (not ends or ends[0] == s0)
+        assert (rb, re_) == (row, row + len(rows)) and rows == list(range(rb, re_))
+        row = re_
+    assert row == off[n] and sum(s1 - s0 for s0, s1, _, _ in tiles) == n
