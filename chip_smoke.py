@@ -28,10 +28,15 @@ on the first thing that is wrong:
    shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
    32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
    tile edges, NaN in the next kv head's rows, and D = 100 (each case
-   must take the route its dtype and D name); ``embedding_bag`` over ``TestEmbeddingBag``'s
-   shapes with weights, masks and out-of-range ids (exact where the
-   arithmetic is, else the f32/bf16 ``TOL`` of tests/test_kernels.py;
-   flash besides row by row, ``FLASH_ROW``, relative to each row's norm);
+   must take the route its dtype and D name); ``embedding_bag`` over
+   ``TestEmbeddingBag``'s shapes and ``BAG_SWEEP`` (odd D, table views at
+   storage offsets 1-3, H = 0, weighted bf16 bags of 8, rows wider than a
+   block) with weights, masks and ids −1, V and 2³¹−1, each case on the
+   route the sweep names for it, as the C entry reports it, and both
+   routes taken (exact for
+   bags of at most one slot, else the f32/bf16 ``TOL`` of
+   tests/test_kernels.py; flash besides row by row, ``FLASH_ROW``,
+   relative to each row's norm);
 3. drives the graph main path — ``compile_program`` → ``run_bsp`` — on the
    R-MAT (4.19 M vertices, 67 M directed edges; about twice that once
    symmetrised, the soc-LiveJournal1 class of graph): Shiloach-Vishkin
@@ -61,10 +66,13 @@ on the first thing that is wrong:
 5. serves AutoInt (random tables from the seed): ``serve_p99`` (batch 512)
    logits against an independent float64 numpy forward, ``serve_bulk``
    (batch 262,144), and ``retrieval_cand`` (one query, 10⁶ candidates)
-   against a float64 numpy top-100; ``embedding_bag`` must have launched;
+   against a float64 numpy top-100; ``embedding_bag`` must have launched,
+   every launch on its ``vec`` route;
 6. times ``flash_attention`` and ``embedding_bag`` at those paths' shapes
    beside their bounds, their plain versions and the one PyTorch call
-   that computes the same function.
+   that computes the same function (``embedding_bag``'s bound counts each
+   distinct row once; ``--bag-shapes`` builds and times only
+   ``embedding_bag`` over four shapes, and prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -464,20 +472,102 @@ FLASH_BF16_CASES = [
 ]
 #: tests/test_kernels.py TestEmbeddingBag's shapes (v, d, b, h)
 BAG_CASES = [(100, 16, 8, 4), (1000, 64, 16, 1), (50, 128, 4, 10)]
+#: embedding_bag's route sweep (dtype, v, d, b, h, storage offset of the
+#: table view in elements, the route the C entry must take): the scalar
+#: route (odd D, views at offsets 1-3, bags of H != 1 slots: H = 0,
+#: weighted bf16 bags of 8), the vec route (one-slot bags of f32 D = 16,
+#: bf16 D = 8 and 64), blocks of bags with a ragged last one, and rows
+#: wider than a block (blockIdx.y) on both routes;
+#: tests/test_torch_kernels.py holds the plain version to the JAX package
+#: over the same shapes
+BAG_SWEEP = [
+    ("float32", 40, 3, 9, 2, 0, "scalar"), ("float32", 40, 17, 9, 1, 0, "scalar"),
+    ("bfloat16", 40, 12, 9, 3, 0, "scalar"),
+    ("float32", 40, 16, 9, 1, 1, "scalar"), ("float32", 40, 16, 9, 2, 2, "scalar"),
+    ("float32", 40, 16, 9, 3, 3, "scalar"), ("bfloat16", 40, 8, 9, 1, 1, "scalar"),
+    ("bfloat16", 40, 8, 9, 2, 3, "scalar"),
+    ("float32", 40, 16, 9, 1, 0, "vec"), ("bfloat16", 40, 8, 9, 1, 0, "vec"),
+    ("bfloat16", 40, 64, 9, 4, 0, "scalar"),
+    ("float32", 40, 16, 9, 0, 0, "scalar"), ("bfloat16", 40, 8, 9, 0, 0, "scalar"),
+    ("bfloat16", 40, 64, 9, 8, 0, "scalar"), ("bfloat16", 40, 12, 9, 8, 2, "scalar"),
+    ("float32", 1000, 16, 1000, 1, 0, "vec"), ("bfloat16", 1000, 64, 1000, 3, 0, "scalar"),
+    ("float32", 30, 1040, 5, 2, 0, "scalar"), ("bfloat16", 30, 300, 5, 2, 1, "scalar"),
+    ("float32", 40, 16, 9, 2, 0, "scalar"), ("bfloat16", 1000, 8, 1001, 1, 0, "vec"),
+    ("float32", 30, 1040, 5, 1, 0, "vec"), ("bfloat16", 30, 2056, 5, 1, 0, "vec"),
+]
+
+
+def table_view(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """``values`` [V, D] copied into a contiguous view ``offset`` elements
+    into its storage (a table pointer off 16-byte alignment for 1-3)."""
+    base = torch.zeros(values.numel() + offset, dtype=values.dtype, device=values.device)
+    table = base[offset:].view(values.shape)
+    table.copy_(values)
+    return table
+
+
+def bag_case(table, idx, weights, mask, device, what, route):
+    """One ``embedding_bag`` call on ``table`` (on ``device``) against its
+    plain version: bit-equal for bags of at most one slot, else ``TOL``. On
+    the card it must be one launch, on ``route``."""
+    from repro_torch.kernels import embedding_bag, embedding_bag_plain
+
+    on = [None if x is None else x.to(device) for x in (weights, mask)]
+    before = embedding_bag.launches_vec, embedding_bag.launches_scalar
+    got = embedding_bag(table, idx.to(device), *on).cpu()
+    want = embedding_bag_plain(table.cpu(), idx, weights, mask)
+    if idx.shape[1] <= 1:  # a copy of one row times its weight, or 0: exact
+        if not torch.equal(got, want):
+            raise AssertionError(f"embedding_bag {what}")
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[table.dtype],
+                                   atol=TOL[table.dtype])
+    if device.type != "cuda":
+        return
+    took = {"vec": embedding_bag.launches_vec - before[0],
+            "scalar": embedding_bag.launches_scalar - before[1]}
+    if took != {r: int(r == route) for r in took}:
+        raise AssertionError(f"embedding_bag {what}: launches {took}, not one on {route}")
+
+
+def check_embedding_bag(device, gen):
+    """``embedding_bag`` over ``BAG_CASES`` (with weights, masks and ids
+    −1, V and 2³¹−1) and ``BAG_SWEEP``, each case on the card on the route
+    it names. Returns the cases, all and per route."""
+    took = {"cases": 0, "vec": 0, "scalar": 0}
+    # BAG_CASES: aligned tables of rows a multiple of 16 bytes, so one-slot
+    # bags take vec
+    shapes = [(dt, v, d, b, h, 0, "vec" if h == 1 else "scalar")
+              for dt in ("float32", "bfloat16") for v, d, b, h in BAG_CASES] + BAG_SWEEP
+    for dt, v_rows, d, b, h, off, route in shapes:
+        dt = getattr(torch, dt)
+        table = table_view(torch.randn((v_rows, d), generator=gen).to(dt).to(device), off)
+        idx = torch.randint(0, v_rows, (b, h), generator=gen, dtype=torch.int32)
+        idx.view(-1)[:3] = torch.tensor([-1, v_rows, 2**31 - 1])[: idx.numel()]
+        w = torch.randn((b, h), generator=gen).to(dt)
+        mask = torch.rand((b, h), generator=gen) < 0.8
+        for weights, m in ((None, None), (w, None), (None, mask), (w, mask)):
+            what = f"{dt} {(v_rows, d, b, h)} +{off} weights {weights is not None} " \
+                   f"mask {m is not None}"
+            bag_case(table, idx, weights, m, device, what, route)
+            took["cases"] += 1
+            if device.type == "cuda":
+                took[route] += 1
+    if device.type == "cuda" and not (took["vec"] and took["scalar"]):
+        raise AssertionError(f"the embedding_bag sweep left a route untaken: {took}")
+    return took
 
 
 def check_model_kernels(device, gen):
     """``flash_attention`` and ``embedding_bag`` against their plain
     versions over their sweeps, at the f32 / bf16 ``TOL`` (flash also row
-    by row, ``FLASH_ROW``). Returns the cases per kernel and flash's
-    largest row ratio per dtype."""
-    from repro_torch.kernels import (
-        embedding_bag, embedding_bag_plain, flash_attention, flash_attention_plain,
-    )
+    by row, ``FLASH_ROW``). Returns the cases per kernel and route, and
+    flash's largest row ratio per dtype."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import route, tc_uses_tensor_cores
 
     route_cases = {"tc": 0, "simt": 0}
-    cases = {"flash_attention": 0, "embedding_bag": 0}
+    cases = {"flash_attention": 0}
     row_ratio = {}
     if device.type == "cuda":  # the wrapper's route rule is the C entry's
         for dt in (torch.float32, torch.bfloat16):
@@ -505,23 +595,6 @@ def check_model_kernels(device, gen):
                 ratio = flash_row_check(got, want, what)
                 row_ratio[str(dt)] = max(row_ratio.get(str(dt), 0.0), ratio)
                 cases["flash_attention"] += 1
-        for v_rows, d, b, h in BAG_CASES:
-            table = torch.randn((v_rows, d), generator=gen).to(dt)
-            idx = torch.randint(0, v_rows, (b, h), generator=gen, dtype=torch.int32)
-            idx.view(-1)[:3] = torch.tensor([-1, v_rows, 2**31 - 1])[: idx.numel()]
-            w = torch.randn((b, h), generator=gen).to(dt)
-            mask = torch.rand((b, h), generator=gen) < 0.8
-            for weights, m in ((None, None), (w, None), (None, mask), (w, mask)):
-                on = [None if x is None else x.to(device) for x in (weights, m)]
-                got = embedding_bag(table.to(device), idx.to(device), *on).cpu()
-                want = embedding_bag_plain(table, idx, weights, m)
-                if h == 1 and weights is None:  # a copy of one row (or 0): exact
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"embedding_bag {dt} {(v_rows, d, b, h)}")
-                else:
-                    torch.testing.assert_close(got.float(), want.float(),
-                                               rtol=TOL[dt], atol=TOL[dt])
-                cases["embedding_bag"] += 1
     # NaN in the rows that follow a kv head's last key (the next head's
     # first rows), which a flattened map would read into the tile past Sk:
     # the heads of kv head 0 must not see it
@@ -536,6 +609,9 @@ def check_model_kernels(device, gen):
     flash_row_check(got, want, "with NaN in the next kv head's rows")
     cases["flash_attention"] += 1
     cases.update({f"flash_attention_{r}": n for r, n in route_cases.items()})
+    bag = check_embedding_bag(device, gen)
+    cases["embedding_bag"] = bag.pop("cases")
+    cases.update({f"embedding_bag_{r}": n for r, n in bag.items()})
     return cases, row_ratio
 
 
@@ -1229,15 +1305,19 @@ def autoint_path(cfg, shapes, seed, device, card):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    embedding_bag.launches = 0
+    for counter in ("launches", "launches_vec", "launches_scalar"):
+        setattr(embedding_bag, counter, 0)
     p99 = ai.forward(params, batches["serve_p99"], cfg)
     bulk = ai.forward(params, batches["serve_bulk"], cfg)
     retr = {"fields": batches["retrieval_cand"]["fields"], "candidates": cands}
     scores, ids = ai.retrieval_score(params, retr, cfg, top_k=100)
     sync(device)
-    launches = embedding_bag.launches
+    launches, launches_vec = embedding_bag.launches, embedding_bag.launches_vec
     if device.type == "cuda" and launches <= 0:
         raise AssertionError("the AutoInt path never launched embedding_bag")
+    if device.type == "cuda" and launches_vec != launches:
+        raise AssertionError(f"{launches - launches_vec} of the AutoInt path's "
+                             f"{launches} embedding_bag launches on the scalar route")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
 
     t0 = time.perf_counter()
@@ -1275,6 +1355,7 @@ def autoint_path(cfg, shapes, seed, device, card):
                         f"autoint {name}", card)
     say(
         "autoint_serve", card, arch=cfg.name, embedding_bag_launches=launches,
+        embedding_bag_launches_vec=launches_vec,
         setup_s=setup_s, check_s=check_s, peak_allocated_gb=peak_gb,
         serve_p99_ms=p99_ms, serve_p99_rows_s=b99 / p99_ms * 1e3,
         serve_bulk_ms=bulk_ms, serve_bulk_rows_s=bbulk / bulk_ms * 1e3,
@@ -1368,13 +1449,17 @@ def model_kernel_rows(lm, rec):
     del lib
 
     table, idx = rec["table"], rec["idx"]
+    vec_before = embedding_bag.launches_vec
     got = embedding_bag(table, idx)
+    bag_route = "vec" if embedding_bag.launches_vec > vec_before else "scalar"
     want = embedding_bag_plain(table, idx)
     if not torch.equal(got, want):
         raise AssertionError("embedding_bag disagrees with its plain version at serve_bulk")
     n, d = idx.shape[0], table.shape[1]
-    e_bytes = n * d * table.element_size() * 2 + idx.numel() * 4
-    e_bound, e_by = bound(e_bytes, n * d, SCALAR_OPS_PER_S)
+    distinct, e_bytes = bag_bytes(table, idx)
+    e_bound, e_by = bound(e_bytes, idx.numel() * d, SCALAR_OPS_PER_S)
+    per_slot = bound(n * d * table.element_size() * 2 + idx.numel() * 4, 0)[0]
+    ms = cuda_ms(lambda: embedding_bag(table, idx))
     rows.append({
         "name": "embedding_bag",
         "route": "cuda",
@@ -1382,15 +1467,33 @@ def model_kernel_rows(lm, rec):
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:42",
         "launches": rec["launches"],
         "max_abs_err": float((got - want).abs().max()),
-        "ms": cuda_ms(lambda: embedding_bag(table, idx)),
+        "ms": ms,
         "plain_ms": cuda_ms(lambda: embedding_bag_plain(table, idx)),
         "bound_ms": e_bound,
         "bound_by": e_by,
         "library_ms": cuda_ms(lambda: F.embedding_bag(idx, table, mode="sum")),
         "shape": f"table f32[{table.shape[0]},{d}], {n} one-slot bags (serve_bulk lookup)",
         "library": "embedding_bag(mode='sum')",
+        "kernel_route": bag_route,
+        "distinct_rows": distinct,
+        "bound_share": e_bound / ms,
+        "gb_s": e_bytes / ms / 1e6,
+        "bound_ms_per_slot": per_slot,
     })
     return rows
+
+
+def bag_bytes(table, idx, weighted: bool = False):
+    """``(distinct rows, bytes)`` an ``embedding_bag`` call must move: each
+    distinct (clipped) row its ids name read once, the ids and weights read
+    once, the output written once. The distinct rows are counted on the card
+    by ``torch.unique``, outside any timed window."""
+    v, d = table.shape
+    elem = table.element_size()
+    distinct = int(torch.unique(idx.reshape(-1).clamp(0, v - 1)).numel())
+    nbytes = (distinct * d * elem + idx.shape[0] * d * elem + idx.numel() * 4
+              + (idx.numel() * elem if weighted else 0))
+    return distinct, nbytes
 
 
 def main() -> int:
@@ -1412,6 +1515,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if "--kernel-shapes" in sys.argv[1:]:
         return kernel_shapes_only(scale, edgefactor, seed, card)
+    if "--bag-shapes" in sys.argv[1:]:
+        return bag_shapes_only(seed, card)
     t0 = time.perf_counter()
     reports = build.build()
     say("build", card, seconds=time.perf_counter() - t0, built=sorted(reports))
@@ -1471,6 +1576,67 @@ def kernel_shapes_only(scale, edgefactor, seed, card) -> int:
                            generator=torch.Generator(device="cuda").manual_seed(seed))
     say("kernel_shapes", card, setup_s=time.perf_counter() - t0,
         **graph_kernel_shapes(sym, table.to(torch.int32)))
+    return 0
+
+
+def bag_shapes_only(seed, card) -> int:
+    """``--bag-shapes``: builds ``embedding_bag`` alone and times it beside
+    ``F.embedding_bag`` over four shapes: ``serve_bulk``'s lookup (AutoInt's
+    flat table from the seed, the Zipf ids of ``recsys_batches`` as
+    :func:`autoint_path` draws them), uniform ids over all 39 M rows (the
+    rows from device memory), ``arange`` ids (rows in order), and a
+    multi-hot f32 ``[10⁶, 64]`` table with 65,536 bags of 8 weighted slots.
+    Each beside its bound by distinct rows (:func:`bag_bytes`); prints no
+    result line. It uses only the wrappers' public calls, so a copy of this
+    script beside an earlier tree of the port times that tree's kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels import build, embedding_bag, embedding_bag_plain
+    from repro_torch.models.recsys import autoint as ai
+
+    t0 = time.perf_counter()
+    build.build(["embedding_bag"])
+    spec = configs.get_spec("autoint")
+    tables = ai.init(spec.config, seed=seed, device="cuda")["tables"]
+    f, v, d = tables.shape
+    table = tables.reshape(f * v, d)
+    fields = next(recsys_batches(spec.shapes["serve_bulk"]["batch"], f, v,
+                                 seed=seed + 1, device="cuda"))["fields"]
+    n = fields.numel()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    offsets = torch.arange(f, dtype=torch.int32, device="cuda") * v
+    multi_table = torch.randn((10**6, 64), generator=gen, device="cuda")
+    shapes = {
+        "serve_bulk": (table, (fields + offsets).reshape(-1, 1), None),
+        "uniform_39M": (table, torch.randint(0, f * v, (n, 1), generator=gen, device="cuda",
+                                             dtype=torch.int32), None),
+        "arange": (table, torch.arange(n, dtype=torch.int32, device="cuda").reshape(-1, 1),
+                   None),
+        "multi_hot_8": (multi_table,
+                        torch.randint(0, 10**6, (65536, 8), generator=gen, device="cuda",
+                                      dtype=torch.int32),
+                        torch.randn((65536, 8), generator=gen, device="cuda")),
+    }
+    sync(torch.device("cuda"))
+    out = {}
+    for name, (tab, idx, w) in shapes.items():
+        got = embedding_bag(tab, idx, w)
+        want = embedding_bag_plain(tab, idx, w)
+        if w is None and not torch.equal(got, want):
+            raise AssertionError(f"embedding_bag disagrees with its plain version: {name}")
+        torch.testing.assert_close(got, want, rtol=TOL[tab.dtype], atol=TOL[tab.dtype])
+        distinct, nbytes = bag_bytes(tab, idx, w is not None)
+        out[name] = {
+            **timed(lambda: embedding_bag(tab, idx, w),
+                    (bound(nbytes, idx.numel() * tab.shape[1])[0], nbytes)),
+            "distinct_rows": distinct, "bags": idx.shape[0], "slots": idx.shape[1],
+            "library_ms": cuda_ms(lambda: F.embedding_bag(idx, tab, mode="sum",
+                                                          per_sample_weights=w)),
+        }
+        del got, want
+    say("bag_shapes", card, setup_s=time.perf_counter() - t0, **out)
     return 0
 
 

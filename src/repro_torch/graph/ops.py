@@ -16,7 +16,11 @@ Index rules follow the JAX functions exactly, and they differ per op:
 * :func:`scatter_combine` wraps ``[-n, -1]`` and drops the rest
   (``.at[idx].op(mode="drop")``);
 * :func:`segment_reduce` drops every id outside ``[0, num_segments)``
-  (``jax.ops.segment_*``), the padding sentinel included.
+  (``jax.ops.segment_*``), the padding sentinel included;
+* :func:`edge_softmax` reads its per-segment values as ``x[ids]`` does:
+  ``[-n, -1]`` wraps, then every id is clamped.
+
+A float written into an int32 buffer converts as XLA's does (:func:`to_int32`).
 
 Dtypes stay the JAX package's (x64 off): int32 ids, float32, bool.
 """
@@ -172,17 +176,22 @@ def _drop_index(idx: torch.Tensor, n: int, mask=None) -> torch.Tensor:
 
 def _scatter(buffer, idx, values, reduce: Optional[str], mask=None):
     """``buffer.at[idx].<reduce>(values, mode="drop")`` out of place, via an
-    extra sentinel row that takes the dropped writes."""
+    extra sentinel row that takes the dropped writes. As in JAX, the scatter
+    runs in the promoted type of ``buffer`` and ``values``, and the result
+    converts back to the buffer's dtype as XLA converts (f32 values into an
+    int32 buffer: summed in f32, then saturated, NaN as 0)."""
     n = buffer.shape[0]
     rows = _drop_index(idx, n, mask)
-    ext = torch.cat([buffer, buffer.new_zeros((1,) + buffer.shape[1:])])
-    values = values.to(buffer.dtype).expand(rows.shape + buffer.shape[1:])
+    dtype = torch.promote_types(buffer.dtype, values.dtype)
+    ext = torch.cat([buffer, buffer.new_zeros((1,) + buffer.shape[1:])]).to(dtype)
+    values = values.to(dtype).expand(rows.shape + buffer.shape[1:])
     index = rows.reshape(rows.shape + (1,) * (buffer.ndim - 1)).expand(values.shape)
     if reduce is None:
         ext.scatter_(0, index, values)
     else:
         ext.scatter_reduce_(0, index, values, reduce, include_self=True)
-    return ext[:n]
+    out = ext[:n]
+    return to_int32(out) if buffer.dtype == torch.int32 else out.to(buffer.dtype)
 
 
 def scatter_set(buffer: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
@@ -209,7 +218,7 @@ def scatter_combine(
         return _scatter(buffer, idx, values, reduce[op], mask)
     if op in ("or", "and"):
         out = _scatter(
-            buffer.to(torch.int32), idx, to_int32(values),
+            to_int32(buffer), idx, to_int32(values),
             "amax" if op == "or" else "amin", mask,
         )
         return out.to(buffer.dtype)
@@ -233,13 +242,15 @@ def edge_softmax(
         offsets=offsets,
     )
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-    ex = torch.exp(scores - gather(seg_max, segment_ids))
+    # x[ids] as JAX reads it: [-n, -1] wraps, then gather clamps every id
+    ids = torch.where(segment_ids < 0, segment_ids + num_segments, segment_ids)
+    ex = torch.exp(scores - gather(seg_max, ids))
     if mask is not None:
         ex = torch.where(mask.reshape(mshape), ex, 0.0)
     denom = segment_reduce(
         ex, segment_ids, num_segments, "sum", indices_are_sorted, offsets=offsets
     )
-    return ex / torch.clamp(gather(denom, segment_ids), min=1e-16)
+    return ex / torch.clamp(gather(denom, ids), min=1e-16)
 
 
 def in_degrees(graph) -> torch.Tensor:

@@ -11,7 +11,13 @@ and the weights are then cast to the table's dtype. An index is clipped to
 ``[0, V-1]``, as the JAX package's ``ref.py`` and its model callers read.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device.
+version is taken only for tensors on the CPU or the meta device. The
+kernel has two routes, which its C entry chooses and reports: ``vec``
+(bags of one slot of rows a multiple of 16 bytes long, from a 16-byte
+aligned table, in 16-byte chunks; AutoInt's lookup) and ``scalar`` (one
+thread per output element, every other bag), counted in
+``embedding_bag.launches_vec`` and ``embedding_bag.launches_scalar`` beside
+``embedding_bag.launches``.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ def _entry():
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int),
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -90,16 +97,23 @@ def embedding_bag(table, indices, weights=None, mask=None):
     out = torch.empty((b, table.shape[1]), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
+    took = ctypes.c_int(-1)
     rc = _entry()(
         table.device.index or 0, table.data_ptr(), indices.data_ptr(),
         None if w is None else w.data_ptr(), out.data_ptr(), table.shape[0],
         b, h, table.shape[1], _DTYPE_CODE[table.dtype],
-        torch.cuda.current_stream(table.device).cuda_stream,
+        torch.cuda.current_stream(table.device).cuda_stream, ctypes.byref(took),
     )
     if rc != 0:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {rc}")
     embedding_bag.launches += 1
+    if took.value == 0:
+        embedding_bag.launches_vec += 1
+    else:
+        embedding_bag.launches_scalar += 1
     return out
 
 
 embedding_bag.launches = 0
+embedding_bag.launches_vec = 0
+embedding_bag.launches_scalar = 0

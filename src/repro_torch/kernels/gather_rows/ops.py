@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -44,17 +45,27 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor, fill=None):
     return out.reshape(idx.shape + table.shape[1:])
 
 
+def _fill_value(fill, dtype) -> torch.Tensor:
+    """``fill`` as a 0-d tensor of ``dtype``, cast as the JAX package casts
+    its static fill value (``np.asarray(fill, dtype)``): into an integer or
+    bool table numpy converts it, so a value the dtype cannot hold raises
+    ``OverflowError`` (inf, 3e9) or ``ValueError`` (NaN) as it does there."""
+    if dtype.is_floating_point:
+        return torch.tensor(fill).to(dtype)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.from_numpy(np.array(np.asarray(fill, np_dtype)))
+
+
 def _fill_scalar(fill, dtype):
-    """``fill`` cast to ``dtype`` as a Python scalar (the JAX package casts
-    its static fill value the same way)."""
-    return torch.tensor(fill).to(dtype).item()
+    """``fill`` cast to ``dtype`` as a Python scalar."""
+    return _fill_value(fill, dtype).item()
 
 
 def _fill_bits(fill, dtype) -> int:
     """The raw bits of ``fill`` in ``dtype``, as the kernel's uint32."""
     if fill is None:
         return 0
-    raw = torch.tensor([fill]).to(dtype).view(torch.uint8).tolist()
+    raw = _fill_value(fill, dtype).reshape(1).view(torch.uint8).tolist()
     return int.from_bytes(bytes(raw), "little")
 
 

@@ -436,6 +436,50 @@ def test_embedding_bag_clips_ids(weighted):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["float32"])
 
 
+def _table_view(values: np.ndarray, dtype: str, offset: int):
+    """``values`` [V, D] as a contiguous view ``offset`` elements into its
+    storage (a misaligned table pointer for offsets 1-3)."""
+    v, d = values.shape
+    flat = np.concatenate([np.zeros(offset), values.reshape(-1)])
+    base = torch.from_numpy(flat).to(TORCH[dtype])
+    table = base[offset:].view(v, d)
+    assert table.is_contiguous() and table.data_ptr() - base.data_ptr() == offset * base.element_size()
+    return table
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["ones", "weights"])
+@pytest.mark.parametrize("dtype,v,d,b,h,offset",
+                         [case[:6] for case in _chip_smoke().BAG_SWEEP])
+def test_embedding_bag_route_shapes(dtype, v, d, b, h, offset, weighted):
+    """The plain version at the card sweep's shapes (``chip_smoke.py``'s
+    ``BAG_SWEEP``, less the route each case must take on the card: odd D,
+    table views at storage offsets 1-3, H = 0, weighted bf16 bags of 8,
+    rows wider than a block) against the Pallas
+    kernel (interpret mode; it has no H = 0, so there against the ref alone)
+    and ``embedding_bag_ref``: exact for H <= 1, else ``TOL``."""
+    rng = np.random.default_rng(40 + d + h + offset)
+    values = rng.normal(size=(v, d))
+    jt = jnp.asarray(values).astype(JNP[dtype])
+    tt = _table_view(values, dtype, offset)
+    idx = rng.integers(0, v, (b, h)).astype(np.int32)
+    jw, tw = _both(rng.normal(size=(b, h)), dtype) if weighted else (None, None)
+    mask = rng.random((b, h)) < 0.8 if weighted else None
+    got = embedding_bag(tt, torch.from_numpy(idx), tw,
+                        None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == TORCH[dtype] and tuple(got.shape) == (b, d)
+    w = jw * jnp.asarray(mask).astype(JNP[dtype]) if weighted else jnp.ones((b, h), JNP[dtype])
+    wants = [embedding_bag_ref(jt, jnp.asarray(idx), w)]
+    if h:
+        wants.append(embedding_bag_pallas(jt, jnp.asarray(idx), weights=jw,
+                                          mask=None if mask is None else jnp.asarray(mask),
+                                          interpret=True))
+    for want in wants:
+        if h <= 1:
+            np.testing.assert_array_equal(_np(got), _np(want))
+        else:
+            np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
 # -- the redesigned graph kernels: gather_rows' routes, segment_reduce's tiles --
 
 import pathlib  # noqa: E402

@@ -201,3 +201,85 @@ def test_to_int32_matches_xla():
     )
     want = np.asarray(jnp.asarray(x).astype(jnp.int32))
     np.testing.assert_array_equal(tops.to_int32(torch.from_numpy(x)).numpy(), want)
+
+
+# -- inputs at the edges of JAX's conversion and index rules --------------------
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("odd", [-4, -3, -2, -1, 4, -5])
+def test_edge_softmax_reads_segments_as_jax_indexes(odd, masked):
+    """``seg_max[ids]`` and ``denom[ids]`` as JAX's plain indexing reads
+    them (n = 4): ``[-n, -1]`` wraps to ``id + n``, ``n`` and ``-n-1`` clamp.
+    The segment reductions drop those ids, so the wrapped read can see an
+    empty segment's max of 0 and a denominator of 0 (then 1e-16)."""
+    rng = np.random.default_rng(30 + odd)
+    n = 4
+    ids = np.array([0, 1, 1, odd, 2, odd, 0], np.int32)
+    scores = rng.normal(size=(ids.shape[0], 2)).astype(np.float32)
+    mask = np.array([1, 1, 0, 1, 1, 0, 1], bool) if masked else None
+    want = jops.edge_softmax(
+        jnp.asarray(scores), jnp.asarray(ids), n,
+        mask=None if mask is None else jnp.asarray(mask),
+    )
+    got = tops.edge_softmax(
+        torch.from_numpy(scores), torch.from_numpy(ids), n,
+        mask=None if mask is None else torch.from_numpy(mask),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("value", [3e9, -3e9, np.nan], ids=["3e9", "-3e9", "nan"])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "set"])
+def test_float_into_int32_scatter_converts_as_xla(op, value):
+    """f32 values written into an int32 buffer: JAX scatters in f32 and
+    converts back as XLA does (saturating, NaN as 0), so 5 + 3e9 saturates
+    and an untouched 2^24 + 1 comes back rounded through f32."""
+    buf = np.array([0, 5, 2**24 + 1], np.int32)
+    idx = np.array([0, 1], np.int32)
+    vals = np.array([value, value], np.float32)
+    jb, ji, jv = jnp.asarray(buf), jnp.asarray(idx), jnp.asarray(vals)
+    tb, ti, tv = torch.from_numpy(buf), torch.from_numpy(idx), torch.from_numpy(vals)
+    if op == "set":
+        want = jb.at[ji].set(jv, mode="drop")
+        got = tops.scatter_set(tb, ti, tv)
+    else:
+        want = jops.scatter_combine(jb, ji, jv, op)
+        got = tops.scatter_combine(tb, ti, tv, op)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("held", [np.nan, 3e9, -3e9], ids=["nan", "3e9", "-3e9"])
+@pytest.mark.parametrize("op", ["or", "and"])
+def test_or_and_scatter_converts_float_buffer_as_xla(op, held):
+    """``||=``/``&&=`` into an f32 buffer go through int32 as XLA converts
+    the buffer: a row that no write reaches comes back saturated (NaN as 0)."""
+    buf = np.array([held, 0.0, 2.0], np.float32)
+    idx = np.array([1, 3, 2], np.int32)  # row 0 untouched, 3 dropped
+    vals = np.array([1.0, 1.0, 0.0], np.float32)
+    want = jops.scatter_combine(jnp.asarray(buf), jnp.asarray(idx), jnp.asarray(vals), op)
+    got = tops.scatter_combine(
+        torch.from_numpy(buf), torch.from_numpy(idx), torch.from_numpy(vals), op
+    )
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("fill", [np.inf, 3e9, np.nan], ids=["inf", "3e9", "nan"])
+def test_fill_int32_cannot_hold_raises_as_jax(fill):
+    """A fill value an int32 table cannot hold raises JAX's exception
+    (``np.asarray(fill, int32)``: ``OverflowError`` or ``ValueError``), on
+    the plain path and in the kernel's fill bits alike."""
+    from repro_torch.kernels.gather_rows import ops as gather_ops
+
+    table = np.array([5, 6], np.int32)
+    idx = np.array([7], np.int32)
+    with pytest.raises(Exception) as jax_raised:
+        jops.gather(jnp.asarray(table), jnp.asarray(idx), fill)
+    kind = jax_raised.type
+    assert kind in (OverflowError, ValueError)
+    with pytest.raises(kind):
+        tops.gather(torch.from_numpy(table), torch.from_numpy(idx), fill)
+    with pytest.raises(kind):
+        gather_ops._fill_bits(fill, torch.int32)
