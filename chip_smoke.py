@@ -45,10 +45,21 @@ on the first thing that is wrong:
    independent host oracle (scipy components, Dijkstra, a float64 numpy
    PageRank) and each superstep count against the plan's cost model, every
    ``gather_rows`` launch on the vec route and every ``segment_reduce``
-   launch on the rows route; then times ``gather_rows`` at WCC's shape and
-   over four index patterns and ``segment_reduce`` at WCC's, vertex 0's
-   segment alone, a uniform degree and PageRank's f32 sum, and measures
-   the card's busy share over one program run (with ``--graph-only`` it
+   launch on the rows route; then runs the same programs through the
+   partitioned placement (``run_bsp(placement="partitioned")``, edge-balanced
+   shards with halo exchange): one shard in this process (all five, a first
+   and a warm run each) and, on the first four, ``RANKS`` gloo ranks on
+   the one card sharing the partition by CUDA IPC (gloo stages the CUDA
+   tensors through the host: a correctness run, not a communication time);
+   every field bit-equal to the replicated run (PageRank's f32 sum within
+   ``TOL``), the same supersteps, trips and frontiers, both graph kernels
+   launched by this phase (counted apart from the main path, every launch
+   on ``vec`` / ``rows``), with the partition's host seconds, halo sizes
+   and S-V's request dedup printed; then times ``gather_rows`` at WCC's
+   shape and over four index patterns and ``segment_reduce`` at WCC's,
+   vertex 0's segment alone, a uniform degree and PageRank's f32 sum, and
+   measures the card's busy share over one program run (with
+   ``--graph-only`` it
    stops there and prints the graph kernels' rows; ``--kernel-shapes``
    builds and times only the two graph kernels over those shapes, and
    prints no result line);
@@ -749,12 +760,42 @@ def graph_shape(graph):
     }
 
 
+def graph_counters(zero: bool = False) -> dict:
+    """The two graph kernels' launch counters (set to 0 first with
+    ``zero``)."""
+    from repro_torch.kernels import gather_rows, segment_reduce
+
+    names = {
+        gather_rows: ("launches", "launches_vec", "launches_scalar"),
+        segment_reduce: ("launches", "launches_rows", "launches_cols"),
+    }
+    out = {}
+    for fn, counters in names.items():
+        for counter in counters:
+            if zero:
+                setattr(fn, counter, 0)
+            key = fn.__name__ + ("" if counter == "launches" else counter[8:])
+            out[key] = getattr(fn, counter)
+    return out
+
+
+def require_graph_routes(counts: dict, path: str):
+    """Both graph kernels launched on ``path``, every launch on the
+    redesigned routes (``vec`` / ``rows``)."""
+    for name, route, other in (("gather_rows", "vec", "scalar"),
+                               ("segment_reduce", "rows", "cols")):
+        if counts[name] <= 0:
+            raise AssertionError(f"the {path} path never launched {name}")
+        if counts[f"{name}_{route}"] != counts[name]:
+            raise AssertionError(f"{name}: {counts[f'{name}_{other}']} {path}-path "
+                                 f"launches on the {other} route")
+
+
 def main_path(scale, edgefactor, seed, device, card):
     """Build the graphs, then run the programs with the launch counters
     zeroed just before and read just after."""
     from repro_torch.core import algorithms as alg
     from repro_torch.graph import generators as G
-    from repro_torch.kernels import gather_rows, segment_reduce
 
     t0 = time.perf_counter()
     sym = G.rmat(scale, edgefactor, directed=False, seed=seed, device=device)
@@ -767,10 +808,7 @@ def main_path(scale, edgefactor, seed, device, card):
         symmetric_shape=graph_shape(sym),
     )
 
-    for counter in ("launches", "launches_vec", "launches_scalar"):
-        setattr(gather_rows, counter, 0)
-    for counter in ("launches", "launches_rows", "launches_cols"):
-        setattr(segment_reduce, counter, 0)
+    graph_counters(zero=True)
     runs = [
         ("sv", alg.SV, sym, "pull"),
         ("sv", alg.SV, sym, "push"),
@@ -788,30 +826,13 @@ def main_path(scale, edgefactor, seed, device, card):
         wall_s=time.perf_counter() - t0, supersteps=dense_counts["palgol_pull"],
         trips=dense_trips,
     )
-    launches = {
-        "gather_rows": gather_rows.launches,
-        "segment_reduce": segment_reduce.launches,
-    }
-    routes = {
-        "gather_rows_vec": gather_rows.launches_vec,
-        "gather_rows_scalar": gather_rows.launches_scalar,
-        "segment_reduce_rows": segment_reduce.launches_rows,
-        "segment_reduce_cols": segment_reduce.launches_cols,
-    }
-    say("launches", card, **launches, **routes)
-    if device.type == "cuda":
-        for k, v in launches.items():
-            if v <= 0:
-                raise AssertionError(f"the main path never launched {k}")
-        # every launch on the redesigned routes
-        if not routes["gather_rows_vec"] == launches["gather_rows"]:
-            raise AssertionError(f"gather_rows: {routes['gather_rows_scalar']} main-path "
-                                 "launches on the scalar route")
-        if not routes["segment_reduce_rows"] == launches["segment_reduce"]:
-            raise AssertionError(f"segment_reduce: {routes['segment_reduce_cols']} main-path "
-                                 "launches on the cols route")
+    launches = graph_counters()
+    say("launches", card, **launches)
+    if device.type == "cuda":  # the plain versions launch nothing
+        require_graph_routes(launches, "main")
 
     # steady state: every program once more, with every kernel loaded
+    warm = []
     for (name, _, graph, schedule), (cp, first) in zip(runs, compiled):
         res, wall = timed_run(cp, graph, schedule, device)
         if res.supersteps != first.supersteps:
@@ -820,6 +841,7 @@ def main_path(scale, edgefactor, seed, device, card):
             "program_warm", card, name=name, schedule=schedule, wall_s=wall,
             supersteps=res.supersteps, ms_per_superstep=wall * 1e3 / res.supersteps,
         )
+        warm.append(wall)
     if dense_trips != wcc.trips or not torch.equal(dense["C"], wcc.fields["C"]):
         raise AssertionError("wcc: cp.run() and run_bsp disagree")
     if sv_pull.supersteps >= sv_push.supersteps:
@@ -848,7 +870,253 @@ def main_path(scale, edgefactor, seed, device, card):
         components=int(comp.max() + 1), sssp_reached=int(fin.sum()),
         pagerank_sum=float(ref.sum()),
     )
-    return launches, (sym, dirw), (sv_pull, sv_push, wcc, sssp, pr)
+    replicated = [
+        dict(name=name, source=source, graph=graph, schedule=schedule, cp=cp,
+             result=res, warm_s=wall)
+        for (name, source, graph, schedule), (cp, res), wall in zip(runs, compiled, warm)
+    ]
+    return launches, (sym, dirw), replicated
+
+
+# -- 3b. the partitioned placement ------------------------------------------------
+
+#: shards of the multi-rank run: gloo ranks on the one card
+RANKS = 4
+#: the programs of the S = 1 run (all five) and of the S = RANKS run
+RANK_PROGRAMS = 4
+
+
+def compare_run(label, res, want, tol_fields=()):
+    """A partitioned run against the replicated one: supersteps, trips and
+    frontiers equal, every field bit-equal except ``tol_fields`` (held to
+    ``TOL``). Returns the largest difference of the ``tol_fields``."""
+    if (res.supersteps, res.trips, res.active_sets) != (
+        want.supersteps, want.trips, want.active_sets
+    ):
+        raise AssertionError(
+            f"{label}: {res.supersteps} supersteps, trips {res.trips} against "
+            f"{want.supersteps}, {want.trips} (or the frontiers differ)"
+        )
+    if set(res.fields) != set(want.fields):
+        raise AssertionError(f"{label}: fields {sorted(res.fields)} != {sorted(want.fields)}")
+    diff = {}
+    for f, w in want.fields.items():
+        got = res.fields[f]
+        if got.dtype != w.dtype or got.shape != w.shape:
+            raise AssertionError(f"{label}.{f}: {got.dtype}{tuple(got.shape)} != "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if f in tol_fields:
+            tol = TOL[torch.float32]
+            torch.testing.assert_close(got, w, rtol=tol, atol=tol, msg=f"{label}.{f}")
+            diff[f] = {"max_abs_diff": float((got - w).abs().max()),
+                       "bit_equal": bool(torch.equal(got, w))}
+        elif not torch.equal(got, w):
+            raise AssertionError(f"{label}.{f}: differs from the replicated run")
+    return diff
+
+
+def partition_rank(rank, port, device, shared, queue):
+    """One gloo rank of the S = RANKS run, on ``device`` (every rank on
+    the one card): runs each job through ``run_bsp(placement="partitioned")``
+    over its shard of the partition (shared from the parent, on the card by
+    CUDA IPC), holds rank 0's dense result against the replicated one, and
+    reports walls and counters. ``shared`` is ``[pgs, jobs]``: emptied
+    here, so that the process object keeps no reference and the blocks
+    shared by CUDA IPC are released when this function returns."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    pgs, jobs = shared
+    shared.clear()
+    try:
+        from repro_torch.core import parse
+        from repro_torch.dist import shard_mesh
+        from repro_torch.pregel import run_bsp
+
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=RANKS, timeout=datetime.timedelta(seconds=300),
+        )
+        mesh = shard_mesh(device=device)  # cuda:{rank % device_count}
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)
+        graph_counters(zero=True)
+        runs = []
+        for job in jobs:
+            sync(device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = run_bsp(parse(job["source"]), pgs[job["graph"]], job["fields"],
+                          schedule=job["schedule"], placement="partitioned", mesh=mesh)
+            sync(device)
+            wall = time.perf_counter() - t0
+            if rank == 0:
+                compare_run(job["label"], res, job["want"])
+            runs.append({"label": job["label"], "wall_s": wall,
+                         "supersteps": res.supersteps})
+            del res
+        queue.put((rank, {"runs": runs, "launches": graph_counters()}))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def run_ranks(pgs, jobs, device):
+    """Spawns RANKS gloo ranks on ``device`` and collects their reports;
+    any rank's failure fails the phase, and every rank is stopped."""
+    import queue as queue_mod
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=partition_rank, args=(r, port, device, [pgs, jobs], queue))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        deadline = time.perf_counter() + 600
+        while len(reports) < RANKS:
+            try:
+                rank, rep = queue.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"partitioned ranks: exit codes {dead} or timed out")
+                continue
+            if "error" in rep:
+                raise AssertionError(f"partitioned rank {rank} failed:\n{rep['error']}")
+            reports[rank] = rep
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * RANKS:
+        raise AssertionError(f"partitioned ranks exited {codes}")
+    return reports, time.perf_counter() - t0
+
+
+def partitioned_path(graphs, replicated, device, card):
+    """``run_bsp(placement="partitioned")`` on the main path's graphs: one
+    shard in process (all five programs) and RANKS gloo ranks on the one
+    card (the first four), each against its replicated run. Every run goes
+    through both graph kernels; their counters are this phase's own."""
+    from repro_torch.dist import shard_mesh
+    from repro_torch.graph.partition import (
+        partition_graph, partition_stats, request_dedup_report,
+    )
+    from repro_torch.pregel import run_bsp
+
+    t_phase = time.perf_counter()
+    sym, dirw = graphs
+    keys = {id(sym): "sym", id(dirw): "dirw"}
+    partition_s = {}
+
+    def partition(n_shards):
+        pgs = {}
+        for key, g in (("sym", sym), ("dirw", dirw)):
+            t0 = time.perf_counter()
+            pg = partition_graph(g, n_shards)
+            partition_s[f"{key}_s{n_shards}"] = time.perf_counter() - t0
+            pgs[key] = pg
+        return pgs
+
+    # one shard, in this process
+    pgs = {k: pg.to(device) for k, pg in partition(1).items()}
+    mesh = shard_mesh(1, device=device)
+    launches = graph_counters(zero=True)
+    pr_diff = {}
+    for run in replicated:
+        key = keys[id(run["graph"])]
+        f0 = run["cp"].init_fields()
+        walls = []
+        for _ in range(2):  # the first run, then a warm one
+            sync(device)
+            t0 = time.perf_counter()
+            res = run_bsp(run["cp"].prog, pgs[key], f0, schedule=run["schedule"],
+                          placement="partitioned", mesh=mesh)
+            sync(device)
+            walls.append(time.perf_counter() - t0)
+        label = f"{run['name']}/{run['schedule']} S=1"
+        diff = compare_run(label, res, run["result"],
+                           tol_fields=("PR",) if run["name"] == "pagerank" else ())
+        pr_diff.update(diff)
+        say("partitioned_run", card, name=run["name"], schedule=run["schedule"],
+            n_shards=1, wall_s=walls[0], warm_wall_s=walls[1],
+            replicated_warm_wall_s=run["warm_s"], supersteps=res.supersteps,
+            trips=res.trips, **({"pagerank_PR": diff["PR"]} if diff else {}))
+        del res
+    launches_s1 = graph_counters()
+    if device.type == "cuda":
+        wcc = replicated[2]
+        device_busy(
+            lambda: run_bsp(wcc["cp"].prog, pgs["sym"], wcc["cp"].init_fields(),
+                            placement="partitioned", mesh=mesh),
+            "wcc run_bsp partitioned S=1", card, program="wcc",
+        )
+    sv = replicated[0]
+    first = run_bsp(sv["cp"].prog, sym, sv["cp"].init_fields(), max_iters=0)
+    dedup = {
+        "first_pull_round": request_dedup_report(first.fields["D"].cpu(), sym.n_vertices),
+        "converged": request_dedup_report(sv["result"].fields["D"].cpu(), sym.n_vertices),
+    }
+    del pgs, first
+
+    # RANKS gloo ranks on the one card, the partition shared by CUDA IPC
+    host = partition(RANKS)
+    stats = {k: partition_stats(pg) for k, pg in host.items()}
+    pgs = {k: pg.to(device) for k, pg in host.items()}
+    del host
+    jobs = [
+        dict(label=f"{run['name']}/{run['schedule']} S={RANKS}", source=run["source"],
+             graph=keys[id(run["graph"])], schedule=run["schedule"],
+             fields=run["cp"].init_fields(), want=run["result"])
+        for run in replicated[:RANK_PROGRAMS]
+    ]
+    reports, ranks_s = run_ranks(pgs, jobs, device)
+    for i, job in enumerate(jobs):
+        say("partitioned_run", card, name=job["label"].split("/")[0],
+            schedule=job["schedule"], n_shards=RANKS,
+            transport="gloo, staged through the host",
+            wall_s=max(reports[r]["runs"][i]["wall_s"] for r in range(RANKS)),
+            replicated_warm_wall_s=replicated[i]["warm_s"],
+            supersteps=reports[0]["runs"][i]["supersteps"])
+    del pgs, jobs
+    if device.type == "cuda":  # blocks shared by CUDA IPC wait here until collected
+        torch.cuda.ipc_collect()
+    for k in launches:
+        launches[k] = launches_s1[k] + sum(rep["launches"][k] for rep in reports.values())
+    say("partition", card, seconds=partition_s, ranks_s=ranks_s,
+        **{f"stats_{k}_s{RANKS}": {
+            key: v[key] for key in ("n_vertices", "n_edges", "v_max", "e_max",
+                                    "shard_sizes", "halo_in_per_shard",
+                                    "halo_out_per_shard", "halo_total",
+                                    "halo_pair_cap")} for k, v in stats.items()},
+        sv_request_dedup=dedup)
+    say("launches", card, path="partitioned", **launches,
+        in_process_s1=launches_s1,
+        per_rank={r: rep["launches"] for r, rep in sorted(reports.items())})
+    if device.type == "cuda":
+        require_graph_routes(launches, "partitioned")
+        for r, rep in sorted(reports.items()):
+            require_graph_routes(rep["launches"], f"partitioned rank {r}")
+    say("partitioned_phase", card, seconds=time.perf_counter() - t_phase,
+        allocated_after_gb=torch.cuda.memory_allocated() / 1e9
+        if device.type == "cuda" else None)
+    return launches
 
 
 # -- 4. kernel times ------------------------------------------------------------
@@ -962,11 +1230,13 @@ def graph_kernel_shapes(sym, table):
     return {"gather_rows": gather, "segment_reduce": seg}
 
 
-def kernel_rows(graphs, launches):
+def kernel_rows(graphs, launches, partitioned):
     """Each kernel at the main path's shapes: its time, the plain version's,
     the library call's, its bound and its error against the plain version;
     gather_rows also over four index patterns, segment_reduce also over
-    vertex 0's segment alone, a uniform degree and PageRank's f32 sum."""
+    vertex 0's segment alone, a uniform degree and PageRank's f32 sum.
+    ``launches`` are the graph main path's counts, ``partitioned`` the
+    partitioned phase's (``launches_partitioned``)."""
     from repro_torch.graph import ops as gops
     from repro_torch.kernels import (
         gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
@@ -992,6 +1262,7 @@ def kernel_rows(graphs, launches):
         "source": "src/repro_torch/csrc/gather_rows.cu",
         "replaces": "src/repro/kernels/gather_rows/kernel.py:20",
         "launches": launches["gather_rows"],
+        "launches_partitioned": partitioned["gather_rows"],
         "max_abs_err": float(err_g),
         "ms": g["ms"],
         "plain_ms": cuda_ms(lambda: gather_rows_plain(table, idx)),
@@ -1063,6 +1334,7 @@ def kernel_rows(graphs, launches):
         "source": "src/repro_torch/csrc/segment_reduce.cu",
         "replaces": "src/repro/kernels/segment_reduce/kernel.py:55",
         "launches": launches["segment_reduce"],
+        "launches_partitioned": partitioned["segment_reduce"],
         "max_abs_err": float(err),
         "ms": s["ms"],
         "plain_ms": cuda_ms(lambda: segment_reduce_plain(vals, sym.dst, n, "min", mask=mask)),
@@ -1543,12 +1815,13 @@ def main() -> int:
     say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
         versus="plain PyTorch versions")
 
-    launches, graphs, results = main_path(scale, edgefactor, seed, device, card)
-    rows = kernel_rows(graphs, launches)
-    busy_share(graphs[0], results[2].supersteps, card)
+    launches, graphs, replicated = main_path(scale, edgefactor, seed, device, card)
+    partitioned = partitioned_path(graphs, replicated, device, card)
+    rows = kernel_rows(graphs, launches, partitioned)
+    busy_share(graphs[0], replicated[2]["result"].supersteps, card)
     say("memory", card, path="graph",
         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    del graphs, results
+    del graphs, replicated
 
     if "--graph-only" in sys.argv[1:]:  # a rehearsal of the graph kernels: stop here
         return finish(rows, card, t_start)

@@ -1,6 +1,6 @@
 """Dense code generation for Palgol steps, executed eagerly on torch tensors.
 
-The port of ``repro.core.codegen`` (replicated placement). Every Palgol
+The port of ``repro.core.codegen``, for both placements. Every Palgol
 step is a function ``(fields, graph) -> fields`` over struct-of-arrays
 vertex state:
 
@@ -207,11 +207,20 @@ _REDUCE_TO_COMBINER = {
 @dataclasses.dataclass
 class _EdgeCtx:
     direction: str
-    nbr: torch.Tensor  # i32[E] neighbor ids (e.id)
-    vid: torch.Tensor  # i32[E] current-vertex id per edge
+    nbr: torch.Tensor  # i32[E] neighbor ids (e.id) — global, value semantics
+    vid: torch.Tensor  # i32[E] current-vertex id per edge — global, value sem.
     w: torch.Tensor  # f32[E] e.w
     emask: torch.Tensor  # bool[E]
-    offsets: torch.Tensor  # i32[n+1] segment offsets of ``vid``
+    offsets: torch.Tensor  # i32[rows+1] segment offsets of ``seg``
+    # addressing (== vid/nbr densely; local under a partitioned comm):
+    seg: torch.Tensor = None  # row index of the current vertex (segment key)
+    nbr_read: torch.Tensor = None  # address for reading per-row arrays at e.id
+
+    def __post_init__(self):
+        if self.seg is None:
+            self.seg = self.vid
+        if self.nbr_read is None:
+            self.nbr_read = self.nbr
 
 
 @dataclasses.dataclass
@@ -243,8 +252,18 @@ class StepExecutor:
 
     ``plan`` (or ``schedule``, which lowers one) selects the superstep
     expansion — the same :func:`repro_torch.core.plan.lower_step` plan the
-    staged runtime consumes. Only the replicated placement is ported
-    (``comm=None``): fields are ``[N]`` tensors on the graph's device.
+    staged and partitioned executors consume.
+
+    ``comm`` selects the placement. ``None`` (default) is the dense /
+    replicated path: fields are ``[N]`` tensors on the graph's device,
+    reads are plain gathers. A
+    :class:`repro_torch.graph.partition.executor.ShardComm` makes this the
+    ``placement="partitioned"`` path: ``graph`` is then one shard's view
+    and fields are its ``[v_max]`` blocks; chain-access gathers route
+    through the halo layer's dynamic request/reply exchange, neighbor
+    reads through the static halo exchange, and remote-write scatters
+    through the combiner-aware reduce-scatter. Vertex *values* (ids) stay
+    global in both placements; only addressing changes.
     """
 
     def __init__(
@@ -255,14 +274,11 @@ class StepExecutor:
         plan: Optional[StepPlan] = None,
         schedule: Optional[str] = None,
     ):
-        if comm is not None:
-            raise NotImplementedError(
-                "the partitioned placement (comm=...) is not ported yet"
-            )
         self.step = step
         self.graph = graph
+        self.comm = comm
         self.n = graph.n_vertices
-        self.nrows = graph.n_vertices
+        self.nrows = comm.n_rows if comm is not None else graph.n_vertices
         self.device = graph.device
         if plan is None:
             plan = lower_step(step, schedule=schedule or "pull")
@@ -357,23 +373,38 @@ class StepExecutor:
         halted = fields.get(HALTED)
         if halted is None:
             halted = torch.zeros((self.nrows,), dtype=torch.bool, device=self.device)
-        return ~halted
+        active = ~halted
+        if self.comm is not None:  # padding rows of a shard are never active
+            active = torch.logical_and(active, self.comm.valid)
+        return active
 
     def _ids(self) -> torch.Tensor:
+        if self.comm is not None:
+            return self.comm.ids()
         return torch.arange(self.n, dtype=torch.int32, device=self.device)
 
+    def _gather_rows(self, arr: torch.Tensor, idx: torch.Tensor, fill=None):
+        """Read a per-row array at *global* vertex ids (possibly remote)."""
+        if self.comm is not None:
+            return self.comm.gather(arr, idx, fill)
+        return gops.gather(arr, idx, fill)
+
     def _read_nbr(self, per_row: torch.Tensor, ectx: _EdgeCtx) -> torch.Tensor:
-        """Read a per-row array at each edge's neighbor."""
-        return gops.gather(per_row, ectx.nbr)
+        """Read a per-row array at each edge's neighbor (static halo path)."""
+        if self.comm is not None:
+            return self.comm.read_edge(per_row, ectx)
+        return gops.gather(per_row, ectx.nbr_read)
 
     def _edge_ctx(self, direction: str) -> _EdgeCtx:
+        if self.comm is not None:
+            return self.comm.edge_ctx(direction)
         nbr, vid, w, m = self.graph.edges(direction)
         return _EdgeCtx(direction, nbr, vid, w, m, self.graph.offsets(direction))
 
     def _segment(self, values, ectx: _EdgeCtx, op: str, mask=None):
         """Reduce per-edge values into their vertex's row."""
         return gops.segment_reduce(
-            values, ectx.vid, self.nrows, op, indices_are_sorted=True,
+            values, ectx.seg, self.nrows, op, indices_are_sorted=True,
             mask=mask, offsets=ectx.offsets,
         )
 
@@ -397,10 +428,13 @@ class StepExecutor:
         elif len(pattern) == 1:
             val = self._field(pattern[0])
         else:
+            # pull-mode pointer doubling: under a partitioned comm each
+            # doubling round is a dynamic cross-shard gather whose request
+            # set is rebuilt from the current indirection values
             plan = self.pull.solve(pattern)
             pre = self._chain_value(plan.prefix.pattern)
             suf = self._chain_value(plan.suffix.pattern)
-            val = gops.gather(suf, pre)
+            val = self._gather_rows(suf, pre)
         self.chain_cache[pattern] = val
         return val
 
@@ -411,7 +445,11 @@ class StepExecutor:
         accounts for its superstep."""
         if op.kind == "request":
             # naive hop, requester→owner address push: the scatter the
-            # manual code's wire traffic stands for
+            # manual code's wire traffic stands for. Under a partitioned
+            # comm the paired reply's gather_global pays the request
+            # exchange for real, so this op only accounts for its superstep
+            if self.comm is not None:
+                return
             for ce in op.chains:
                 if ce.pattern in self.chain_cache:
                     continue
@@ -425,7 +463,8 @@ class StepExecutor:
             return
         if op.kind == "push_request":
             # push address-propagation round: accounts for its superstep;
-            # the push_reply round's gather does the work
+            # the push_reply round's gather (under a partitioned comm, its
+            # gather_global) does the work
             return
         # kind "pull", "reply" or "push_reply": gather suffix@prefix
         for ce in op.chains:
@@ -433,7 +472,7 @@ class StepExecutor:
                 continue
             pre = self._chain_value(ce.prefix)
             suf = self._chain_value(ce.suffix)
-            val = gops.gather(suf, pre)
+            val = self._gather_rows(suf, pre)
             req = self._naive_req.pop(ce.pattern, None)
             if req is not None:
                 # fold in the request buffer: req < n+2 always, so this
@@ -472,7 +511,7 @@ class StepExecutor:
             if e.name in self.env:
                 ctx_tag, arr = self.env[e.name]
                 if ctx_tag == "vertex" and ectx is not None:
-                    return gops.gather(arr, ectx.vid)
+                    return gops.gather(arr, ectx.seg)
                 return arr
             raise CompileError(f"unbound variable {e.name!r}")
         if isinstance(e, ast.EdgeProp):
@@ -484,7 +523,7 @@ class StepExecutor:
             pat = chain_pattern_of(e, self.step.vertex_var)
             if pat is not None:
                 val = self._chain_value(pat)
-                return gops.gather(val, ectx.vid) if ectx is not None else val
+                return gops.gather(val, ectx.seg) if ectx is not None else val
             # neighborhood chain from e.id
             if ectx is not None:
                 npat = self._nbr_pattern(e)
@@ -496,7 +535,7 @@ class StepExecutor:
                     return self._read_nbr(per_vertex, ectx)
             # general read
             idx = self._eval(e.index, ectx)
-            return gops.gather(self._field(e.field), _index(idx))
+            return self._gather_rows(self._field(e.field), _index(idx))
         if isinstance(e, ast.Cond):
             c = self._eval(e.cond, ectx)
             t = self._eval(e.then, ectx)
@@ -536,13 +575,13 @@ class StepExecutor:
             fv = self._eval(f, ectx)
             mask = _logical(torch.logical_and, mask, fv)
         if e.func == "count":
-            ones = torch.ones_like(ectx.vid, dtype=torch.int32)
+            ones = torch.ones_like(ectx.seg, dtype=torch.int32)
             return self._segment(ones, ectx, "sum", mask=mask)
-        body = _full(self._eval(e.body, ectx), ectx.vid.shape, self.device)
+        body = _full(self._eval(e.body, ectx), ectx.seg.shape, self.device)
         if e.func in ("argmin", "argmax"):
             comb = "min" if e.func == "argmin" else "max"
             best = self._segment(body, ectx, comb, mask=mask)
-            attained = torch.logical_and(mask, body == gops.gather(best, ectx.vid))
+            attained = torch.logical_and(mask, body == gops.gather(best, ectx.seg))
             ids = torch.where(attained, ectx.nbr, self.n)
             out = self._segment(ids, ectx, "min")
             # empty segments reduce to int-max; clamp to the sentinel (numV)
@@ -552,7 +591,7 @@ class StepExecutor:
 
     # -- statement execution -------------------------------------------------
     def _shape(self, ectx: Optional[_EdgeCtx]):
-        return ectx.vid.shape if ectx is not None else (self.nrows,)
+        return ectx.seg.shape if ectx is not None else (self.nrows,)
 
     def _exec_stmts(self, stmts, mask, ectx: Optional[_EdgeCtx]):
         for s in stmts:
@@ -571,7 +610,7 @@ class StepExecutor:
                 ec = self._edge_ctx(s.range.direction)
                 m = ec.emask
                 if mask is not None:  # lift vertex mask to edges
-                    m = torch.logical_and(m, gops.gather(mask, ec.vid, fill=False))
+                    m = torch.logical_and(m, gops.gather(mask, ec.seg, fill=False))
                 self._exec_stmts(s.body, m, ec)
             elif isinstance(s, ast.LocalWrite):
                 self._local_write(s, mask, ectx)
@@ -615,7 +654,7 @@ class StepExecutor:
         val = _full(self._eval(s.value, ectx), shape, self.device)
         # sender must be active
         sender_active = (
-            gops.gather(self.active, ectx.vid, fill=False)
+            gops.gather(self.active, ectx.seg, fill=False)
             if ectx is not None
             else self.active
         )
@@ -632,12 +671,37 @@ class StepExecutor:
                 )
             buf = self.new[msg.field]
             comb = ast.OP_TO_COMBINER[msg.op]
+            if self.comm is not None:
+                # route the scatter through the halo layer's reduce-scatter:
+                # senders pre-combine locally, owners fold the delta in.
+                # Receiver-activity masking is local to the owner — halted
+                # receivers drop the whole combined delta, matching the
+                # dense per-message drop (all messages to a halted vertex
+                # are dropped together).
+                delta = self.comm.scatter_reduce(
+                    msg.idx, _cast(msg.values, buf.dtype), comb, msg.mask
+                )
+                combined = _fold_combiner(comb, buf, delta)
+                mshape = self.active.shape + (1,) * (buf.ndim - 1)
+                self.new[msg.field] = torch.where(
+                    self.active.reshape(mshape), combined, buf
+                )
+                continue
             # receiver must be active
             recv_active = gops.gather(self.active, msg.idx, fill=False)
             m = torch.logical_and(msg.mask, recv_active)
             self.new[msg.field] = gops.scatter_combine(
                 buf, msg.idx, _cast(msg.values, buf.dtype), comb, mask=m
             )
+
+
+def _fold_combiner(op: str, cur: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Fold a pre-combined remote-write delta into the live field.
+
+    ``delta`` is identity-valued where no message arrived, so the fold is a
+    no-op there — the partitioned equivalent of scatter's "unreduced rows
+    keep their value"."""
+    return _cast(gops.combine(op, cur, delta), cur.dtype)
 
 
 def _binop(op: str, lhs, rhs):
@@ -738,7 +802,9 @@ def _ns_export(ns: str, mailbox, op, state: "_StepState"):
 def exec_plan_part(ref: OpRef, graph, comm, fields, mailbox):
     """Execute one part of a fused :class:`~repro_torch.core.plan.Superstep`
     — the per-op consumer of the program plan that the whole-program path
-    (``CompiledProgram.fn``) walks. Returns ``(fields, mailbox)``."""
+    (``CompiledProgram.fn``, ``comm=None``) walks and the partitioned
+    executor runs on each shard (``comm=ShardComm``). Returns
+    ``(fields, mailbox)``."""
     op = ref.op
     if isinstance(op, IterInit):
         return fields, mailbox

@@ -1,8 +1,8 @@
 """Staged BSP executor: one eager dispatch per Pregel superstep.
 
-The port of ``repro.pregel.runtime`` (replicated placement). The whole
-Palgol program is lowered by :func:`repro_torch.core.plan.lower_program` to
-a :class:`~repro_torch.core.plan.ProgramPlan` and — by default — rewritten
+The port of ``repro.pregel.runtime``. The whole Palgol program is
+lowered by :func:`repro_torch.core.plan.lower_program` to a
+:class:`~repro_torch.core.plan.ProgramPlan` and — by default — rewritten
 by :func:`repro_torch.core.plan.fuse` (state merging + iteration fusion,
 §4.3). This runtime executes **one superstep at a time**: a merged
 superstep's parts run in order inside it, threading a program-level
@@ -21,7 +21,9 @@ expansion — same results, more supersteps.
 * ``schedule="auto"`` picks the cheapest plan per step;
 * fixed-point termination is checked on the host between supersteps, like
   Pregel's aggregator round-trip (one device-to-host read per iteration);
-  the per-iteration frontier size is recorded in ``BSPResult.active_sets``.
+  the per-iteration frontier size is recorded in ``BSPResult.active_sets``;
+* ``placement="partitioned"`` runs the same plan walk over edge-balanced
+  shards, one process per shard (``repro_torch.graph.partition``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ast
 from repro_torch.core import plan as plan_mod
@@ -261,16 +264,22 @@ def read_superstep_count(step: ast.Step, schedule: str) -> int:
     return lower_step(step, schedule=schedule).read_rounds
 
 
-def _frontier_size(before, after, fix_fields) -> int:
+def _frontier_size(before, after, fix_fields, group=None) -> int:
     """Vertices whose fix fields changed this iteration (the fixed-point
-    frontier) — one device-to-host read."""
+    frontier) — one device-to-host read. Under a partitioned placement the
+    fields are this shard's rows and the count is all-reduced over
+    ``group``, so every rank sees the global frontier and takes the same
+    branch."""
     changed = None
     for f in fix_fields:
         d = after[f] != before[f]
         if d.ndim > 1:
             d = d.reshape(d.shape[0], -1).any(dim=-1)
         changed = d if changed is None else torch.logical_or(changed, d)
-    return int(changed.sum())
+    count = changed.sum()
+    if group is not None:
+        dist.all_reduce(count, group=group)
+    return int(count)
 
 
 def walk_plan(
@@ -281,14 +290,16 @@ def walk_plan(
     trips: List[int],
     max_iters: int,
     active_sets: Optional[List[List[int]]] = None,
+    group=None,
 ):
-    """Host-side walk of a (fused) program plan.
+    """Host-side walk of a (fused) program plan, shared by both placements.
 
     ``exec_superstep(superstep, fields)`` executes ONE plan superstep
     (fused parts included) and returns the new fields; this walker owns
     sequencing, trip counting, the host-side OR-aggregator fixed-point
     check, the superstep counter (one per dispatched superstep — the fused
-    accounting), and the per-iteration frontier instrumentation.
+    accounting), and the per-iteration frontier instrumentation. ``group``
+    is the process group of a partitioned run (see :func:`_frontier_size`).
     """
 
     def run(items, flds):
@@ -314,14 +325,18 @@ def walk_plan(
                 trips[slot] += 1
                 if node.fix_fields:
                     # host-side aggregator round-trip (Pregel OR-aggregator)
-                    frontier = _frontier_size(before, flds, node.fix_fields)
+                    frontier = _frontier_size(
+                        before, flds, node.fix_fields, group
+                    )
                     if active_sets is not None:
                         active_sets[slot].append(frontier)
                     if frontier == 0:
                         break
         return flds
 
-    return run(pp.items, fields)
+    out = run(pp.items, fields)
+    del run  # ``run`` calls itself through its closure: free that cycle now
+    return out
 
 
 def run_bsp(
@@ -331,6 +346,9 @@ def run_bsp(
     schedule: str = "pull",
     max_iters: int = 100_000,
     placement: str = "replicated",
+    mesh=None,
+    n_shards: Optional[int] = None,
+    group=None,
     byte_costs: Optional[ByteCostModel] = None,
     fuse: bool = True,
 ) -> BSPResult:
@@ -348,12 +366,26 @@ def run_bsp(
     plan; ``fuse=False`` the unfused per-op expansion (identical results,
     the historical superstep counts).
 
-    Only ``placement="replicated"`` is ported; ``"partitioned"`` raises.
+    ``placement`` selects the vertex-state layout:
+
+    * ``"replicated"`` (default) — dense ``[N]`` tensors on the graph's
+      device;
+    * ``"partitioned"`` — edge-balanced contiguous-range shards with halo
+      exchange (``repro_torch.graph.partition``), one process per shard:
+      every rank of the process group calls ``run_bsp``. ``mesh`` (a
+      :func:`repro_torch.dist.shard_mesh`), or ``n_shards`` and ``group``,
+      select the layout; without a process group there is one shard, run
+      in the calling process. ``graph`` may be a dense graph or a
+      ``PartitionedGraph`` built once. Fields are partitioned on entry and
+      returned dense on every rank, so callers are placement-agnostic.
     """
     if placement == "partitioned":
-        raise NotImplementedError(
-            "placement='partitioned' is not ported yet: the halo-exchange "
-            "engine comes with the partitioned-placement slice (ROADMAP A)"
+        from repro_torch.graph.partition import run_bsp_partitioned
+
+        return run_bsp_partitioned(
+            prog, graph, fields, schedule=schedule, max_iters=max_iters,
+            mesh=mesh, n_shards=n_shards, group=group, byte_costs=byte_costs,
+            fuse=fuse,
         )
     if placement != "replicated":
         raise ValueError(f"unknown placement {placement!r}")

@@ -43,7 +43,8 @@ def test_copy_matches_original_source(module):
     assert port.replace("repro_torch.", "repro.") == orig
 
 
-#: model-slice modules copied from the JAX package, by path under the package
+#: modules outside ``core`` copied from the JAX package, by path under the
+#: package: the model slices' configs and the partition statistics
 COPIED_MODELS = (
     "configs/common.py",
     "configs/h2o_danube_1_8b.py",
@@ -51,14 +52,15 @@ COPIED_MODELS = (
     "configs/qwen2_5_32b.py",
     "configs/autoint.py",
     "models/recsys/config.py",
+    "graph/partition/stats.py",
 )
 
 
 @pytest.mark.parametrize("path", COPIED_MODELS)
 def test_model_copy_matches_original_source(path):
-    """A copied config module differs from the JAX package's only in the
-    package name (``configs/common.py`` and ``models/recsys/config.py``
-    import nothing of it and are byte copies)."""
+    """A copied module differs from the JAX package's only in the package
+    name (``configs/common.py`` and ``models/recsys/config.py`` import
+    nothing of it and are byte copies)."""
     port = (SRC / "repro_torch" / path).read_text()
     orig = (SRC / "repro" / path).read_text()
     assert port.replace("repro_torch.", "repro.") == orig
@@ -98,7 +100,9 @@ def test_superstep_report_matches(name):
 
 
 def test_port_imports_without_jax():
-    """``repro_torch`` imports with ``jax`` and ``repro`` unimportable."""
+    """``repro_torch`` imports with ``jax`` and ``repro`` unimportable, and
+    runs the graph path in both placements (the partitioned one on one
+    shard)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -122,6 +126,12 @@ def test_port_imports_without_jax():
         "b = next(repro_torch.data.recsys_batches(4, cfg.n_fields, "
         "cfg.vocab_per_field, device='cpu'))\n"
         "autoint.forward(p, b, cfg)\n"
+        "import repro_torch.graph.partition, repro_torch.dist\n"
+        "from repro_torch.pregel import run_bsp\n"
+        "cp = compile_program(algorithms.WCC, g)\n"
+        "res = run_bsp(cp.prog, g, cp.init_fields(), placement='partitioned', "
+        "n_shards=1)\n"
+        "assert res.fields['C'].tolist() == [0] * 8\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )
