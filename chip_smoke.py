@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Three paths of the port at real size: the Palgol main path on a Graph500
-R-MAT of scale 22 (edgefactor 16), LM serving of h2o-danube-1.8b at its
-published widths (4 requests, 6144-token prompts, 32 greedy decode steps),
-and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
-at the ``RECSYS_SHAPES`` serve shapes. What it does, in order, and fails
-on the first thing that is wrong:
+Four paths of the port at real size: the Palgol main path on a Graph500
+R-MAT of scale 22 (edgefactor 16), GNN serving of the four GNNs at their
+published widths (graphsage-reddit, gat-cora and pna on an
+ogb_products-sized graph, graphcast on the full_graph_sm shape, sampled
+graphsage-reddit minibatches on a Reddit-sized graph), LM serving of
+h2o-danube-1.8b at its published widths (4 requests, 6144-token prompts,
+32 greedy decode steps), and AutoInt serving at its published widths (39
+fields × 10⁶ rows × 16) at the ``RECSYS_SHAPES`` serve shapes. What it
+does, in order, and fails on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of ``src/repro_torch/csrc`` from the checkout (one ``nvcc``
@@ -23,7 +26,11 @@ on the first thing that is wrong:
    NaNs, dropped rows planted with NaN, a 200,000-row segment, segments
    ending on tile edges, 2^20 one-row segments, all-empty segments and
    values at odd storage offsets, plus a float sum of random values held
-   to ``TOL`` · Σ|x| of a float64 sum, and repeated bit for bit;
+   to ``TOL`` · Σ|x| of a float64 sum, and repeated bit for bit; both at
+   the GNN layers' widths on their wide routes (``gather_rows`` ``scalar``,
+   ``segment_reduce`` ``cols``: f32 and bf16 rows of 8 to 512, a
+   ``[V, 8, 8]`` table, sum/max/min masked and not, a 163,558-row segment
+   among short ones, random float sums at ``TOL`` · Σ|x|);
    ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
    shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
    32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
@@ -63,6 +70,25 @@ on the first thing that is wrong:
    stops there and prints the graph kernels' rows; ``--kernel-shapes``
    builds and times only the two graph kernels over those shapes, and
    prints no result line);
+3c. serves the GNNs (``gnn_path``), weights from ``init(seed)``, through
+   ``data.pipeline`` and ``models.gnn.models``: ``gnn_full_batch`` at the
+   ogb_products shape (R-MAT scale 22, 4,194,304 nodes, about 62 M
+   symmetric edges, d_feat 100) → ``forward`` of graphsage-reddit (f32),
+   gat-cora (f32) and pna (bf16); graphcast (16 layers × 512, bf16) on the
+   full_graph_sm shape (4,096 nodes, d_feat 1,433); ``gnn_minibatches`` →
+   ``sage_minibatch_forward`` for 8 batches of 1,024 seeds on a scale-18
+   R-MAT with f32 features [N, 602] and half of Reddit's 114.6 M edges
+   (``GNN_EDGE_CUT``: the host's build of all of them would take about
+   100 s of this phase's budget of about 150 s). Each
+   full-graph forward must launch ``gather_rows`` ``scalar`` and
+   ``segment_reduce`` ``cols`` and is held to the same forward with both
+   wrappers pointed at their plain versions (max|Δ| ≤ 1e-4 · max|out| in
+   f32, 3e-2 in bf16); one minibatch is replayed from its seed, its
+   masked neighbours looked up among the graph's in-edges on the host and
+   its logits held to a float64 numpy forward; the two wide routes are
+   timed at these shapes beside their bounds, plain versions and library
+   calls (``--gnn-only`` runs the wide-route checks and this phase alone,
+   and prints no result line);
 4. serves h2o-danube-1.8b (24 layers, d 2560, bf16, random weights from
    the seed) through ``repro_torch.launch.serve``: prefill then greedy
    decode over the ring-buffer cache (6144 > the 4096 window, so the window
@@ -94,7 +120,9 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -182,6 +210,7 @@ def check_kernels(device, gen):
     number of cases per kernel and flash's largest row ratio per dtype."""
     cases = check_gather(device, gen)
     cases.update(check_segment_reduce(device, gen))
+    cases.update(check_wide_routes(device, gen))
     model_cases, row_ratio = check_model_kernels(device, gen)
     cases.update(model_cases)
     sync(device)
@@ -300,21 +329,23 @@ def segment_case(vals, ids, n, op, mask, device, what):
     return got
 
 
-def sum_rounding(lengths, device, gen):
-    """A masked float32 sum of random values (``randn`` × 100) over segments
-    of ``lengths`` on ``device`` against the float64 sum of the same rows:
-    each segment's error at most ``TOL`` · Σ|x| over its rows, the kernel's
-    and the plain version's alike (the order of summation differs, so the
-    error's scale is the magnitude summed, not the result, which cancels).
-    Returns each one's largest error in units of eps32 · Σ|x|."""
+def sum_rounding(lengths, device, gen, width=1, dt=torch.float32):
+    """A masked float sum of random values (``randn`` × 100, rows of
+    ``width`` in ``dt``) over segments of ``lengths`` on ``device`` against
+    the float64 sum of the same rows: each segment's error at most
+    ``TOL[dt]`` · Σ|x| over its rows, the kernel's and the plain version's
+    alike (the order of summation differs, so the error's scale is the
+    magnitude summed, not the result, which cancels). Returns each one's
+    largest error in units of eps32 · Σ|x|."""
     from repro_torch.graph.structure import segment_offsets
     from repro_torch.kernels import segment_reduce, segment_reduce_plain
 
     n = len(lengths)
     ids = sorted_ids(lengths, n, 3, 4)
-    vals = torch.randn(ids.shape[0], generator=gen) * 100
-    mask = torch.rand(ids.shape[0], generator=gen) < 0.8
-    x = torch.where(mask, vals, 0.0).double()
+    e = ids.shape[0]
+    vals = (torch.randn((e,) if width == 1 else (e, width), generator=gen) * 100).to(dt)
+    mask = torch.rand(e, generator=gen) < 0.8
+    x = torch.where(mask.reshape((e,) + (1,) * (vals.ndim - 1)), vals, 0).double()
     ref = segment_reduce_plain(x, ids, n, "sum")
     mag = segment_reduce_plain(x.abs(), ids, n, "sum")
     eps = torch.finfo(torch.float32).eps
@@ -325,9 +356,9 @@ def sum_rounding(lengths, device, gen):
         ("plain", segment_reduce_plain(vals, ids, n, "sum", mask=mask)),
     ):
         err = (got.double() - ref).abs()
-        if not bool((err <= TOL[torch.float32] * mag).all()):
-            raise AssertionError(f"segment_reduce f32 sum of random values ({who}): error "
-                                 f"{float(err.max())} past TOL · Σ|x|")
+        if not bool((err <= TOL[dt] * mag).all()):
+            raise AssertionError(f"segment_reduce {dt} sum of random values ({who}, width "
+                                 f"{width}): error {float(err.max())} past TOL · Σ|x|")
         errs[who] = float((err / (eps * mag).clamp(min=1e-300)).max())
     return errs
 
@@ -414,6 +445,69 @@ def check_segment_reduce(device, gen):
         if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
             raise AssertionError("segment_reduce: a float sum changed bits from one launch to the next")
     cases["segment_reduce_repeat_bitwise"] = 3
+    return cases
+
+
+#: the GNN layers' row widths: GAT's 8 heads (and 8 × 8 = 64), PNA's 75
+#: and the ogb_products features' 100, GraphSAGE's 128, GraphCast's 512
+GNN_WIDTHS = (8, 64, 75, 100, 128, 512)
+#: vertex 0's in-degree in the main path's scale-22 R-MAT (PERF.md §4)
+HUB_ROWS = 163_558
+
+
+def check_wide_routes(device, gen):
+    """The two graph kernels at the GNN shapes, on their wide routes
+    (``gather_rows`` ``scalar``, ``segment_reduce`` ``cols``), each case
+    against its plain version: f32 and bf16 rows of every ``GNN_WIDTHS``
+    width and a ``[V, 8, 8]`` table, gathered in both index modes
+    (negative and sentinel ids included); sum/max/min over them with and
+    without a mask (sums of k/16 and min/max exactly); one ``HUB_ROWS``-row
+    segment among short ones at widths 8 and 100 (f32) and 75 (bf16); and
+    float sums of random values held to ``TOL`` · Σ|x| of a float64 sum."""
+    cases = {"gather_rows_wide": 0, "segment_reduce_wide": 0}
+    shapes = [(700, w) for w in GNN_WIDTHS] + [(700, 8, 8)]
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            table = (torch.randn(shape, generator=gen) * 10).to(dt)
+            idx = torch.randint(-700, 1400, (5000,), generator=gen, dtype=torch.int32)
+            idx[:4] = torch.tensor([-1, 700, 701, -701])
+            for fill in (None, -3):
+                took = gather_case(table, idx, fill, device, f"{dt} {shape} fill={fill}")
+                if device.type == "cuda" and took != "scalar":
+                    raise AssertionError(f"gather_rows {dt} {shape}: took {took}")
+                cases["gather_rows_wide"] += 1
+        for op in ("sum", "max", "min"):
+            for shape in shapes:
+                n, e = 600, 9000
+                ids = torch.randint(-3, n + 3, (e,), generator=gen, dtype=torch.int32)
+                ids[(ids > 100) & (ids < 140)] = 150  # empty segments
+                ids = torch.sort(ids).values
+                width = int(np.prod(shape[1:]))
+                vals = segment_values(dt, op, e, gen, width).reshape((e,) + shape[1:])
+                vals[(ids < 0) | (ids >= n)] = float("nan")  # dropped rows: never read
+                for mask in (None, torch.rand(e, generator=gen) < 0.8):
+                    segment_case(vals, ids, n, op, mask, device, f"{dt} {op} {shape[1:]}")
+                    cases["segment_reduce_wide"] += 1
+            hub = [int(x) for x in torch.randint(0, 40, (50,), generator=gen)]
+            hub[7] = HUB_ROWS
+            ids = sorted_ids(hub, 50, 5, 9)
+            for width in ((8, 100) if dt == torch.float32 else (75,)):
+                vals = segment_values(dt, op, ids.shape[0], gen, width)
+                vals[(ids < 0) | (ids >= 50)] = float("nan")
+                for mask in (None, torch.rand(ids.shape[0], generator=gen) < 0.8):
+                    segment_case(vals, ids, 50, op, mask, device,
+                                 f"{dt} {op}: a {HUB_ROWS}-row segment, width {width}")
+                    cases["segment_reduce_wide"] += 1
+    hub = [int(x) for x in torch.randint(0, 40, (50,), generator=gen)]
+    hub[7] = HUB_ROWS
+    uniform = [int(x) for x in torch.randint(1, 41, (1000,), generator=gen)]
+    cases["segment_reduce_wide_sum_max_err_eps"] = {
+        f"{what} {str(dt)[6:]} width {width}": sum_rounding(lengths, device, gen, width, dt)
+        for what, lengths, width, dt in (
+            ("hub", hub, 100, torch.float32), ("hub", hub, 75, torch.bfloat16),
+            ("uniform 1-40 rows", uniform, 512, torch.float32),
+            ("uniform 1-40 rows", uniform, 8, torch.bfloat16))
+    }
     return cases
 
 
@@ -1119,6 +1213,491 @@ def partitioned_path(graphs, replicated, device, card):
     return launches
 
 
+# -- 3c. GNN serving ---------------------------------------------------------------
+
+#: R-MAT average degrees that land each graph's symmetrised edge count
+#: near its ``GNN_SHAPES`` target times ``GNN_EDGE_CUT`` (counted with the
+#: generator's numpy draws at seed 0: ogb_products 61,886,476 of
+#: 61,859,140 at scale 22; minibatch_lg 57,398,690 at scale 18, half of
+#: Reddit's 114,615,892; full_graph_sm 10,552 of 10,556 at scale 12)
+GNN_AVG_DEGREE = {"ogb_products": 7.58, "minibatch_lg": 150.0, "full_graph_sm": 1.38}
+#: the share of a shape's edges its graph keeps: the host's R-MAT build of
+#: the full Reddit edge count (degree 345 at scale 18) would take about
+#: 100 s on the card's host, of the GNN phase's budget of about 150 s
+GNN_EDGE_CUT = {"minibatch_lg": 0.5}
+#: a forward through the kernels against the same forward through their
+#: plain versions: max|Δ| over max|out|
+GNN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+#: models whose random-weight forward outgrows any one scale (GraphCast's 16
+#: residual bf16 layers reach max|out| ≈ 1e29): each element is held to
+#: tol · |ref| + tol · median|ref| instead of tol · max|out|
+GNN_ELEMENTWISE = ("graphcast",)
+#: the full-graph models served on the ogb_products graph
+GNN_FULL = ("graphsage-reddit", "gat-cora", "pna")
+#: sampled GraphSAGE batches served on the Reddit-sized graph
+MINIBATCHES = 8
+
+
+@contextlib.contextmanager
+def plain_graph_kernels():
+    """The two graph kernels' wrappers pointed at their plain versions (the
+    module attributes ``graph.ops`` calls), restored on the way out."""
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.segment_reduce import ops as s
+
+    saved = g.gather_rows, s.segment_reduce
+    g.gather_rows, s.segment_reduce = g.gather_rows_plain, s.segment_reduce_plain
+    try:
+        yield
+    finally:
+        g.gather_rows, s.segment_reduce = saved
+
+
+def reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb(device):
+    return torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+
+
+def edges_near(shape_id, e, target, share=0.05):
+    """The graph's edge count within ``share`` of its shape's, after the
+    shape's ``GNN_EDGE_CUT`` (no check for a ``None`` target)."""
+    if target is None:
+        return
+    target = target * GNN_EDGE_CUT.get(shape_id, 1.0)
+    if abs(e / target - 1) > share:
+        raise AssertionError(f"{shape_id}: {e} edges, not within {share:.0%} of {target:.0f}")
+
+
+def gnn_serve(arch, cfg, batch, seed, device, card):
+    """``models.gnn.models.forward`` of ``cfg`` (weights from ``init(seed)``)
+    on a full-graph batch: the first forward with the launch counters
+    zeroed before and read after, three warm ones and one under the
+    profiler (the card's busy share), then the same forward with the two
+    graph kernels' wrappers pointed at their plain versions, held to
+    ``GNN_TOL``. Returns the launches of one forward."""
+    from repro_torch.models.gnn import models as gm
+
+    n, e = batch["x"].shape[0], batch["src"].shape[0]
+    params = gm.init(cfg, seed=seed, device=device)
+    reset_peak(device)
+    graph_counters(zero=True)
+    sync(device)
+    t0 = time.perf_counter()
+    out = gm.forward(params, batch, cfg)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    launches = graph_counters()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gm.forward(params, batch, cfg)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    warm_s = sorted(walls)[1]
+    peak = peak_gb(device)
+    if device.type == "cuda":
+        device_busy(lambda: gm.forward(params, batch, cfg), f"gnn {arch} forward", card)
+    if tuple(out.shape) != (n, cfg.n_out) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{arch}: output of shape {tuple(out.shape)} or not finite")
+    reset_peak(device)
+    with plain_graph_kernels():
+        ref = gm.forward(params, batch, cfg)
+    sync(device)
+    plain_peak = peak_gb(device)
+    diff, mag = (out - ref).abs(), ref.abs()
+    err, scale = float(diff.max()), float(mag.max())
+    tol = GNN_TOL[cfg.compute_dtype]
+    if arch in GNN_ELEMENTWISE:
+        check = f"|Δ| ≤ {tol}·|ref| + {tol}·median|ref| per element"
+        limit = tol * mag + tol * float(mag.median())
+    else:
+        check = f"max|Δ| ≤ {tol}·max|out|"
+        limit = tol * scale
+    if not bool((diff <= limit).all()):
+        raise AssertionError(f"{arch}: kernels against plain versions past {check}: "
+                             f"max|Δ| {err}, max|out| {scale}")
+    del diff, mag, limit
+    agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    if device.type == "cuda" and not (launches["gather_rows_scalar"] > 0
+                                      and launches["segment_reduce_cols"] > 0):
+        raise AssertionError(f"{arch}: no launch on gather_rows scalar or segment_reduce "
+                             f"cols: {launches}")
+    say("gnn_serve", card, arch=arch, variant=cfg.variant, n_layers=cfg.n_layers,
+        d_hidden=cfg.d_hidden, d_in=cfg.d_in, n_out=cfg.n_out,
+        compute_dtype=cfg.compute_dtype, n_nodes=n, n_edges=e,
+        first_ms=first_s * 1e3, warm_ms=warm_s * 1e3, warm_ms_runs=[w * 1e3 for w in walls],
+        nodes_per_s=n / warm_s, edges_per_s=e / warm_s, peak_allocated_gb=peak,
+        plain_check_peak_allocated_gb=plain_peak, launches=launches,
+        versus_plain_max_abs_diff=err, max_abs_out=scale, check=check,
+        argmax_agree_share=agree)
+    del params, out, ref
+    return launches
+
+
+def numpy_sage_minibatch(params, batch, cfg):
+    """float64 numpy forward of ``sage_minibatch_forward`` on one batch."""
+    def np64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    f0, f1 = cfg.fanouts
+    b = batch["seed_x"].shape[0]
+    l1, l2 = [{k: np64(v) for k, v in lp.items()} for lp in params["layers"]]
+
+    def masked_mean(vals, mask):
+        w = mask[..., None].astype(np.float64)
+        return (vals * w).sum(-2) / np.maximum(w.sum(-2), 1.0)
+
+    def relu(x):
+        return np.maximum(x, 0.0)
+
+    hop0, hop1 = np64(batch["hop0_x"]), np64(batch["hop1_x"])
+    m0, m1 = batch["hop0_mask"].cpu().numpy(), batch["hop1_mask"].cpu().numpy()
+    h0 = relu(hop0 @ l1["w_self"] + masked_mean(hop1.reshape(b * f0, f1, -1), m1)
+              @ l1["w_nbr"] + l1["b"])
+    h_seed = relu(np64(batch["seed_x"]) @ l1["w_self"]
+                  + masked_mean(hop0.reshape(b, f0, -1), m0) @ l1["w_nbr"] + l1["b"])
+    h = relu(h_seed @ l2["w_self"] + masked_mean(h0.reshape(b, f0, -1), m0) @ l2["w_nbr"]
+             + l2["b"])
+    return h @ np64(params["head"])
+
+
+def in_neighbour_check(graph, blocks):
+    """Every masked sampled neighbour ``u`` of a node ``v`` is an in-edge
+    ``u → v`` of the graph, and every unmasked one the sentinel: the pairs
+    looked up on the host (``np.searchsorted``) in the graph's edge keys
+    ``dst · n + src``, sorted once by ``torch.sort``. Returns the pairs."""
+    n = graph.n_vertices
+    keep = graph.edge_mask
+    keys = torch.sort(graph.dst[keep].long() * n + graph.src[keep].long()).values.cpu().numpy()
+    pairs = 0
+    for blk in blocks:
+        nodes = blk.nodes.cpu().numpy().astype(np.int64)
+        nbrs = blk.neighbors.cpu().numpy().astype(np.int64)
+        mask = blk.mask.cpu().numpy()
+        if not (nbrs[~mask] == n).all():
+            raise AssertionError("an unmasked sampled neighbour is not the sentinel")
+        q = (np.broadcast_to(nodes[:, None], nbrs.shape) * n + nbrs)[mask]
+        at = np.minimum(np.searchsorted(keys, q), keys.shape[0] - 1)
+        if not (keys[at] == q).all():
+            raise AssertionError(f"{int((keys[at] != q).sum())} sampled neighbours are "
+                                 "not in-neighbours of their node")
+        pairs += int(q.shape[0])
+    return pairs
+
+
+def minibatch_serve(cfg, graph, feats, labels, batch_nodes, n_batches, seed, device, card):
+    """``gnn_minibatches`` → ``sage_minibatch_forward`` for ``n_batches``
+    batches (the sampler's generator seeded with ``seed``), with the launch
+    counters zeroed before and read after; then one batch replayed from the
+    same seed to check its sampled neighbours on the host and its gathers,
+    and its forward held to a float64 numpy forward (rtol 1e-5, atol
+    1e-5 · max|logit|). Returns the launches and the replayed batch's
+    hop-1 feature read, ``(features + sentinel row, flat neighbour ids)``."""
+    from repro_torch.data import gnn_minibatches
+    from repro_torch.graph.sampler import CSR, sample_khop
+    from repro_torch.models.gnn import models as gm
+
+    params = gm.init(cfg, seed=seed, device=device)
+    reset_peak(device)
+    graph_counters(zero=True)
+    sync(device)
+    sample_s, forward_s = [], []
+    t0 = time.perf_counter()
+    batches = gnn_minibatches(graph, feats, labels, batch_nodes, cfg.fanouts,
+                              torch.Generator(device=device).manual_seed(seed))
+    for i in range(n_batches):
+        batch = next(batches)
+        sync(device)
+        t1 = time.perf_counter()
+        sample_s.append(t1 - t0)
+        out = gm.sage_minibatch_forward(params, batch, cfg)
+        sync(device)
+        t0 = time.perf_counter()
+        forward_s.append(t0 - t1)
+        if i == 0:
+            first, first_out = batch, out
+    launches = graph_counters()
+    peak = peak_gb(device)
+    if device.type == "cuda" and not launches["gather_rows_scalar"] > 0:
+        raise AssertionError(f"the minibatch path never launched gather_rows scalar: {launches}")
+    if tuple(first_out.shape) != (batch_nodes, cfg.n_out):
+        raise AssertionError(f"minibatch logits of shape {tuple(first_out.shape)}")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seeds = torch.randint(0, graph.n_vertices, (batch_nodes,), generator=gen, device=device,
+                          dtype=torch.int32)
+    blocks = sample_khop(CSR.from_graph(graph), seeds, cfg.fanouts, gen)
+    ext = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+    for key, ids in (("seed_x", seeds), ("hop0_x", blocks[0].neighbors),
+                     ("hop1_x", blocks[1].neighbors)):
+        if not torch.equal(first[key], torch.index_select(ext, 0, ids.reshape(-1).long())):
+            raise AssertionError(f"minibatch {key} is not the features at the replayed samples")
+    pairs = in_neighbour_check(graph, blocks)
+    want = numpy_sage_minibatch(params, first, cfg)
+    np.testing.assert_allclose(first_out.cpu().numpy().astype(np.float64), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    masked = [float(b.mask.float().mean()) for b in blocks]
+    say("gnn_serve", card, arch=cfg.name, mode="sampled minibatch", n_nodes=graph.n_vertices,
+        n_edges=graph.n_edges, batch_nodes=batch_nodes, fanouts=list(cfg.fanouts),
+        d_in=cfg.d_in, n_out=cfg.n_out, batches=n_batches,
+        first_sample_ms=sample_s[0] * 1e3, warm_sample_ms=float(np.median(sample_s[1:])) * 1e3,
+        first_forward_ms=forward_s[0] * 1e3,
+        warm_forward_ms=float(np.median(forward_s[1:])) * 1e3,
+        seeds_per_s=batch_nodes / float(np.median([a + b for a, b in
+                                                   zip(sample_s[1:], forward_s[1:])])),
+        peak_allocated_gb=peak, launches=launches, checked_pairs=pairs,
+        mask_share_per_hop=masked, check_s=time.perf_counter() - t0,
+        versus="float64 numpy forward, rtol 1e-5")
+    return launches, (ext, blocks[1].neighbors.reshape(-1))
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, seed=0):
+    """Serve the four GNNs at their published widths (``configs/``, weights
+    from ``init(seed)``): graphsage-reddit, gat-cora and pna on one
+    ogb_products-shaped batch (``gnn_full_batch``: R-MAT at scale 22, about
+    62 M symmetric edges, d_feat 100, 47 classes), graphcast (16 layers ×
+    512, bf16) on the full_graph_sm shape, and sampled graphsage-reddit
+    minibatches on a Reddit-sized R-MAT (scale 18, d_in 602, fanouts 25-10,
+    1,024 seeds a batch). ``shapes`` / ``degrees`` override
+    ``GNN_SHAPES`` / ``GNN_AVG_DEGREE`` for a rehearsal at a small size
+    (``n_edges`` None skips the edge-count check). Returns this phase's
+    launches of both graph kernels and, on the card, their wide routes'
+    times at these shapes (:func:`gnn_route_rows`)."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPE_CLASSES, GNN_SHAPES
+    from repro_torch.data import gnn_full_batch
+    from repro_torch.graph import generators as G
+
+    t_phase = time.perf_counter()
+    shapes = shapes or GNN_SHAPES
+    degrees = degrees or GNN_AVG_DEGREE
+    build_s, total, per_model = {}, {}, {}
+
+    def cfg_for(arch, shape_id):
+        return configs.resolve_gnn_config(configs.get_spec(arch).config, shape_id,
+                                          shapes[shape_id])
+
+    # full-graph serving on the ogb_products shape
+    ogb = shapes["ogb_products"]
+    t0 = time.perf_counter()
+    batch = gnn_full_batch(ogb["n_nodes"], degrees["ogb_products"], ogb["d_feat"],
+                           GNN_SHAPE_CLASSES["ogb_products"], seed=seed, device=device)
+    sync(device)
+    build_s["ogb_products"] = time.perf_counter() - t0
+    n, e = batch["x"].shape[0], batch["src"].shape[0]
+    edges_near("ogb_products", e, ogb["n_edges"])
+    deg = torch.diff(torch.searchsorted(batch["dst"], torch.arange(
+        n + 1, dtype=torch.int32, device=device), out_int32=True))
+    say("gnn_graph", card, shape="ogb_products", n_nodes=n, n_edges=e,
+        target_nodes=ogb["n_nodes"], target_edges=ogb["n_edges"],
+        avg_degree=degrees["ogb_products"], build_s=build_s["ogb_products"],
+        max_in_degree=int(deg.max()), empty_share=float((deg == 0).float().mean()),
+        segments_over_4096=int((deg > 4096).sum()))
+    del deg
+    for arch in GNN_FULL:
+        per_model[arch] = gnn_serve(arch, cfg_for(arch, "ogb_products"), batch, seed,
+                                    device, card)
+        add_launches(total, per_model[arch])
+    routes = gnn_route_rows(batch, per_model) if device.type == "cuda" else {}
+    del batch
+
+    # GraphCast at full width on the full_graph_sm shape
+    sm = shapes["full_graph_sm"]
+    cfg = cfg_for("graphcast", "full_graph_sm")
+    t0 = time.perf_counter()
+    batch = gnn_full_batch(sm["n_nodes"], degrees["full_graph_sm"], sm["d_feat"],
+                           GNN_SHAPE_CLASSES["full_graph_sm"], seed=seed, task=cfg.task,
+                           n_out=cfg.n_out, device=device)
+    build_s["full_graph_sm"] = time.perf_counter() - t0
+    edges_near("full_graph_sm", batch["src"].shape[0], sm["n_edges"])
+    per_model["graphcast"] = gnn_serve("graphcast", cfg, batch, seed, device, card)
+    add_launches(total, per_model["graphcast"])
+    if device.type == "cuda":
+        routes.update(gnn_route_rows(batch, per_model, graphcast=True))
+    del batch
+
+    # sampled GraphSAGE on a Reddit-sized graph
+    mb = shapes["minibatch_lg"]
+    cfg = cfg_for("graphsage-reddit", "minibatch_lg")
+    scale = max(2, int(math.ceil(math.log2(mb["n_nodes"]))))
+    t0 = time.perf_counter()
+    graph = G.rmat(scale, degrees["minibatch_lg"], directed=False, seed=seed, device=device)
+    sync(device)
+    build_s["minibatch_lg"] = time.perf_counter() - t0
+    edges_near("minibatch_lg", graph.n_edges, mb["n_edges"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn((graph.n_vertices, mb["d_feat"]), generator=gen, device=device)
+    labels = torch.randint(0, cfg.n_out, (graph.n_vertices,), generator=gen, device=device,
+                           dtype=torch.int32)
+    say("gnn_graph", card, shape="minibatch_lg", n_nodes=graph.n_vertices,
+        n_edges=graph.n_edges, target_nodes=mb["n_nodes"], target_edges=mb["n_edges"],
+        edge_cut=GNN_EDGE_CUT["minibatch_lg"], avg_degree=degrees["minibatch_lg"],
+        scale=scale, build_s=build_s["minibatch_lg"])
+    per_model["graphsage-reddit minibatch"], hop1_read = minibatch_serve(
+        cfg, graph, feats, labels, mb["batch_nodes"], n_batches, seed, device, card)
+    add_launches(total, per_model["graphsage-reddit minibatch"])
+    if device.type == "cuda":
+        routes.update(gnn_route_rows(None, per_model, hop1_read=hop1_read))
+    del graph, feats, labels, hop1_read
+    say("launches", card, path="gnn", **total, per_model=per_model)
+    say("gnn_phase", card, seconds=time.perf_counter() - t_phase, build_s=build_s)
+    return total, routes
+
+
+def route_row(fn, nbytes, nops, launches, shape, plain=None, library=None, library_name=None,
+              reps=10):
+    """One wide-route time at a GNN shape: :func:`timed` against the bound
+    of ``nbytes`` and ``nops``, and the plain version's and the library
+    call's ms where given."""
+    b_ms, by = bound(nbytes, nops)
+    return {**timed(fn, (b_ms, nbytes), reps), "bound_by": by, "launches_per_pass": launches,
+            "plain_ms": None if plain is None else cuda_ms(plain, reps=3),
+            "library_ms": None if library is None else cuda_ms(library, reps=3),
+            "library": library_name, "shape": shape}
+
+
+def gnn_route_rows(batch, per_model, graphcast=False, hop1_read=None):
+    """The two graph kernels' wide routes timed at the shapes of the GNN
+    passes, each case first checked against its plain version: on the
+    ogb_products batch ``gather_rows`` ``scalar`` of SAGE's ``x[src]``
+    ([E, 100] f32, also the plain version), GAT's ``h[src]`` ([E, 8, 8]
+    f32) and PNA's layer-0 ``x[src]`` ([E, 100] bf16), and
+    ``segment_reduce`` ``cols`` of SAGE's mean sums ([E, 100] and [E, 128]
+    f32, the first also plain and vertex 0's segment alone), GAT's
+    softmax max ([E, 8] f32) and message sum ([E, 8, 8] f32), PNA's max
+    and sum ([E, 75] bf16); with ``graphcast`` its [E, 512] bf16 gather and
+    sum; with ``hop1_read`` = ``(table, idx)`` the minibatch's hop-1
+    feature read ([B·25·10, 602] f32, at the sampled neighbours of a
+    replayed batch). A gather's bound reads each *distinct* row its ids
+    name once. Library calls: ``index_select`` for the gathers,
+    ``index_add_`` for the sums and ``scatter_reduce`` ``amax`` for the max,
+    in place into an ``[n + 1, ...]`` buffer made outside the timing, masked
+    rows sent to its last row (no copy of the values)."""
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import (
+        gather_rows, gather_rows_plain, segment_reduce, segment_reduce_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+
+    def gather_row(name, table, idx, plain=False, launches=None):
+        torch.cuda.empty_cache()
+        got = gather_rows(table, idx)
+        if not torch.equal(got, gather_rows_plain(table, idx)):
+            raise AssertionError(f"gather_rows {name} disagrees with its plain version")
+        del got
+        row_bytes = table[0].numel() * table.element_size()
+        distinct = torch.unique(idx.clamp(0, table.shape[0] - 1)).numel()
+        nbytes = distinct * row_bytes + idx.numel() * 4 + idx.numel() * row_bytes
+        rows[name] = {"kernel": "gather_rows", "kernel_route": "scalar", **route_row(
+            lambda: gather_rows(table, idx), nbytes, 0, launches,
+            f"table {str(table.dtype)[6:]}{list(table.shape)}, idx i32[{idx.numel()}]",
+            plain=(lambda: gather_rows_plain(table, idx)) if plain else None,
+            library=lambda: torch.index_select(table, 0, idx), library_name="index_select"),
+            "distinct_rows": distinct}
+
+    def segment_row(name, vals, ids, n, op, mask, off, plain=False, launches=None):
+        torch.cuda.empty_cache()
+        got = segment_reduce(vals, ids, n, op, mask=mask, offsets=off)
+        want = segment_reduce_plain(vals, ids, n, op, mask=mask)
+        if op == "sum":  # summation orders differ: TOL of the magnitude summed
+            mag = segment_reduce(vals.abs(), ids, n, op, mask=mask, offsets=off).float()
+            ok = bool(((got.float() - want.float()).abs() <= TOL[vals.dtype] * mag).all())
+            del mag
+        else:
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"segment_reduce {name} disagrees with its plain version")
+        del got, want
+        torch.cuda.empty_cache()
+        rows_n = int(off[-1] - off[0])
+        width = vals[0].numel()
+        elem = vals.element_size()
+        nbytes = rows_n * width * elem + rows_n + off.numel() * 4 + n * width * elem
+        ids64 = ids.long()
+        ishape = (-1,) + (1,) * (vals.ndim - 1)
+        buf = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype, device="cuda")
+        if op == "sum":
+            library = lambda: buf.index_add_(0, torch.where(mask, ids64, n), vals)  # noqa: E731
+            lib_name = "index_add_"
+        else:
+            library = lambda: buf.scatter_reduce_(  # noqa: E731
+                0, torch.where(mask, ids64, n).reshape(ishape).expand(vals.shape), vals, "amax",
+                include_self=False)
+            lib_name = "scatter_reduce_ amax"
+        rows[name] = {"kernel": "segment_reduce", "kernel_route": "cols", "op": op, **route_row(
+            lambda: segment_reduce(vals, ids, n, op, mask=mask, offsets=off), nbytes,
+            rows_n * width, launches,
+            f"values {str(vals.dtype)[6:]}{list(vals.shape)} {op}, mask, {n} segments",
+            plain=(lambda: segment_reduce_plain(vals, ids, n, op, mask=mask)) if plain else None,
+            library=library, library_name=lib_name)}
+        del buf, ids64
+
+    if hop1_read is not None:  # the minibatch's hop-1 feature read
+        gather_row("minibatch_hop1_x", *hop1_read,
+                   launches=per_model["graphsage-reddit minibatch"]["gather_rows_scalar"])
+        return rows
+    src, dst, mask = batch["src"], batch["dst"], batch["emask"]
+    n = batch["x"].shape[0]
+    off = segment_offsets(dst, n)
+    if graphcast:
+        x = torch.randn((n, 512), generator=gen, device="cuda").to(torch.bfloat16)
+        gather_row("graphcast_x_src", x, src, launches=per_model["graphcast"]["gather_rows_scalar"])
+        vals = gather_rows(x, src)
+        segment_row("graphcast_sum", vals, dst, n, "sum", mask, off,
+                    launches=per_model["graphcast"]["segment_reduce_cols"])
+        return rows
+    sage, gat, pna = (per_model[a] for a in GNN_FULL)
+    x = batch["x"]
+    gather_row("sage_x_src", x, src, plain=True, launches=sage["gather_rows_scalar"])
+    vals = gather_rows(x, src)
+    segment_row("sage_mean_sum", vals, dst, n, "sum", mask, off, plain=True,
+                launches=sage["segment_reduce_cols"])
+    hub = int(torch.argmax(torch.diff(off)))
+    hub_off = off[hub:hub + 2].contiguous()
+    hub_rows = int(hub_off[1] - hub_off[0])
+    hub_bytes = hub_rows * (100 * 4 + 1) + 2 * 4 + 100 * 4  # values, mask, offsets, out
+    rows["sage_mean_sum_hub_only"] = {
+        "kernel": "segment_reduce", "kernel_route": "cols", "vertex": hub, "rows": hub_rows,
+        **route_row(lambda: segment_reduce(vals, dst, 1, "sum", mask=mask, offsets=hub_off),
+                    hub_bytes, hub_rows * 100, None,
+                    f"vertex {hub}'s segment alone, values f32[{hub_rows}, 100]", reps=3)}
+    del vals
+    vals = torch.randn((src.numel(), 128), generator=gen, device="cuda")
+    segment_row("sage_layer2_sum", vals, dst, n, "sum", mask, off,
+                launches=sage["segment_reduce_cols"])
+    del vals
+    h = torch.randn((n, 8, 8), generator=gen, device="cuda")
+    gather_row("gat_h_src", h, src, launches=gat["gather_rows_scalar"])
+    scores = gather_rows(h[:, :, 0].contiguous(), src)
+    segment_row("gat_softmax_max", scores, dst, n, "max", mask, off,
+                launches=gat["segment_reduce_cols"])
+    del scores
+    vals = gather_rows(h, src)
+    segment_row("gat_message_sum", vals, dst, n, "sum", mask, off,
+                launches=gat["segment_reduce_cols"])
+    del vals, h
+    xb = x.to(torch.bfloat16)
+    gather_row("pna_x_src", xb, src, launches=pna["gather_rows_scalar"])
+    vals = gather_rows(xb[:, :75].contiguous(), src)
+    segment_row("pna_max", vals, dst, n, "max", mask, off, launches=pna["segment_reduce_cols"])
+    segment_row("pna_sum", vals, dst, n, "sum", mask, off, launches=pna["segment_reduce_cols"])
+    del vals, xb
+    return rows
+
+
 # -- 4. kernel times ------------------------------------------------------------
 
 
@@ -1811,6 +2390,12 @@ def main() -> int:
         max_rel_err=tc_probe(gen))
     if "--probe" in sys.argv[1:]:  # the first call on a new kernel: stop here
         return 0
+    if "--gnn-only" in sys.argv[1:]:  # a rehearsal of the GNN phase: no result line
+        say("kernel_check", card, ok=True, cases=check_wide_routes(device, gen),
+            versus="plain PyTorch versions")
+        _, routes = gnn_path(device, card)
+        say("gnn_routes", card, **routes)
+        return 0
     cases, row_ratio = check_kernels(device, gen)
     say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
         versus="plain PyTorch versions")
@@ -1825,6 +2410,13 @@ def main() -> int:
 
     if "--graph-only" in sys.argv[1:]:  # a rehearsal of the graph kernels: stop here
         return finish(rows, card, t_start)
+    torch.cuda.empty_cache()
+    gnn_launches, routes = gnn_path(device, card)
+    for row in rows:  # the GNN phase's launches and wide-route times
+        row["launches_gnn"] = {k[len(row["name"]) + 1:] or "all": v
+                               for k, v in gnn_launches.items() if k.startswith(row["name"])}
+        row["gnn_routes"] = {k: v for k, v in routes.items() if v["kernel"] == row["name"]}
+    say("memory", card, path="gnn", allocated_after_gb=torch.cuda.memory_allocated() / 1e9)
     lm = lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len,
                  decode_steps, seed, device, card)
     spec = configs.get_spec("autoint")

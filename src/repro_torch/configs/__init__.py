@@ -2,23 +2,30 @@
 
 The JAX package's registry (``repro.configs``) over the architectures the
 port runs so far: the dense LMs (``h2o-danube-1.8b``, ``qwen3-32b``,
-``qwen2.5-32b``) and AutoInt. Each config module is a copy of the JAX
-package's, differing only in the package name. The MoE LMs and the GNNs
-are known ids whose models are not ported yet: asking for them raises
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``qwen2.5-32b``), the four GNNs (forward) and AutoInt. Each config module
+is a copy of the JAX package's, differing only in the package name.
+``resolve_gnn_config`` binds the shape-dependent dims (d_feat, n_classes)
+that GNN configs leave open. The MoE LMs are known ids whose model is not
+ported yet: asking for them raises ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.configs.common import ArchSpec
+from repro_torch.configs.common import ArchSpec, GNN_SHAPE_CLASSES
 
 _MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "pna": "repro_torch.configs.pna",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "graphcast": "repro_torch.configs.graphcast",
+    "gat-cora": "repro_torch.configs.gat_cora",
     "autoint": "repro_torch.configs.autoint",
 }
 
@@ -26,10 +33,6 @@ _MODULES = {
 _NOT_PORTED = {
     "qwen3-moe-235b-a22b": "the MoE transformer (ROADMAP A7)",
     "deepseek-moe-16b": "the MoE transformer (ROADMAP A7)",
-    "pna": "the GNN models (ROADMAP A5)",
-    "graphsage-reddit": "the GNN models (ROADMAP A5)",
-    "graphcast": "the GNN models (ROADMAP A5)",
-    "gat-cora": "the GNN models (ROADMAP A5)",
 }
 
 
@@ -46,3 +49,15 @@ def get_spec(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id]).spec()
+
+
+def resolve_gnn_config(cfg, shape_id: str, shape: Dict):
+    """Bind shape-dependent dims (d_in from d_feat, n_out from the dataset's
+    class count) into a GNN config."""
+    d_in = shape.get("d_feat", cfg.d_in)
+    updates = {"d_in": d_in}
+    if cfg.n_out < 0:
+        updates["n_out"] = GNN_SHAPE_CLASSES.get(shape_id, 16)
+    if shape.get("kind") == "batched_graphs" and cfg.task == "node_class":
+        updates["task"] = "graph_class"
+    return dataclasses.replace(cfg, **updates)

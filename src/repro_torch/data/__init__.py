@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import recsys_batches
+from repro_torch.data.pipeline import gnn_full_batch, gnn_minibatches, recsys_batches
 
-__all__ = ["recsys_batches"]
+__all__ = ["gnn_full_batch", "gnn_minibatches", "recsys_batches"]

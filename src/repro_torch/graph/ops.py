@@ -22,6 +22,14 @@ Index rules follow the JAX functions exactly, and they differ per op:
 
 A float written into an int32 buffer converts as XLA's does (:func:`to_int32`).
 
+The message-passing wrappers of the GNN layers (:func:`mp_gather`,
+:func:`mp_segment_reduce`, :func:`mp_edge_softmax`) are the JAX functions'
+branch without a mesh: the plain :func:`gather`, :func:`segment_reduce` and
+:func:`edge_softmax`, with the segment ``offsets`` passed through (the card
+needs them). Their mesh branch (``shard_map`` over edge shards with
+replicated node state, ``_pad_rows``, ``_diff_pminmax``) waits for the
+port's ``dist`` layer (ROADMAP A8).
+
 Dtypes stay the JAX package's (x64 off): int32 ids, float32, bool.
 """
 
@@ -251,6 +259,38 @@ def edge_softmax(
         ex, segment_ids, num_segments, "sum", indices_are_sorted, offsets=offsets
     )
     return ex / torch.clamp(gather(denom, ids), min=1e-16)
+
+
+def mp_gather(field: torch.Tensor, idx, fill=None) -> torch.Tensor:
+    """Gather of node state at edge indices (one device: :func:`gather`)."""
+    return gather(field, idx, fill)
+
+
+def mp_segment_reduce(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    op: str = "sum",
+    mask: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Segment reduction of edge values to nodes (one device:
+    :func:`segment_reduce`; sentinel ids ``== num_segments`` are dropped)."""
+    return segment_reduce(values, segment_ids, num_segments, op, mask=mask,
+                          offsets=offsets)
+
+
+def mp_edge_softmax(
+    scores: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax over edges grouped by destination (one device:
+    :func:`edge_softmax`)."""
+    return edge_softmax(scores, segment_ids, num_segments, mask=mask,
+                        offsets=offsets)
 
 
 def in_degrees(graph) -> torch.Tensor:

@@ -72,7 +72,9 @@ def segment_reduce_plain(
 ):
     """The plain PyTorch version: ``scatter_reduce`` with
     ``include_self=True`` into an identity-filled buffer with one extra
-    sentinel row that takes every dropped id."""
+    sentinel row that takes every dropped id and every masked row (the
+    same result as masking the values to the identity, without an
+    ``[E, ...]`` copy of them)."""
     n = num_segments
     if values.dtype == torch.bool:
         if op not in _KERNEL_OPS[torch.bool]:
@@ -85,11 +87,10 @@ def segment_reduce_plain(
     else:
         work = values
     ident = identity(op, values.dtype)
-    if mask is not None:
-        mshape = mask.shape + (1,) * (values.ndim - 1)
-        work = torch.where(mask.reshape(mshape), work, ident)
     ids = segment_ids.long()
     ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    if mask is not None:  # a masked row goes to the sentinel row, as a dropped id
+        ids = torch.where(mask, ids, n)
     index = ids.reshape(ids.shape + (1,) * (values.ndim - 1)).expand(work.shape)
     buf = torch.full(
         (n + 1,) + values.shape[1:], ident, dtype=work.dtype, device=values.device

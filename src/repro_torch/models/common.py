@@ -11,8 +11,9 @@ is where the parameters are made.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +26,18 @@ def dense_init(
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     x = torch.randn((d_in, d_out), generator=gen, device=gen.device)
     return (x * scale).to(dtype)
+
+
+def tensors_from_arrays(tree: Any, device: torch.device) -> Any:
+    """A JAX parameter tree (each leaf a numpy array) as tensors on
+    ``device``, in the same nesting of dicts and lists (``None`` stays)."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: tensors_from_arrays(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tensors_from_arrays(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(device)
 
 
 def stack_init(n: int, init_fn: Callable[[], Dict[str, torch.Tensor]]):

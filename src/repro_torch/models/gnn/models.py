@@ -1,0 +1,205 @@
+"""GNN models: init and forward for the four assigned architectures.
+
+The JAX package's ``repro.models.gnn.models`` on torch tensors, forward
+only (``loss_fn``, ``sage_minibatch_loss`` and training come with ROADMAP
+A8; ``abstract_params`` / ``input_specs`` with A10).
+
+Batch contract (full-graph modes), as in JAX:
+    {"x": [N, Din], "src": [E], "dst": [E], "emask": [E],
+     "labels": [N] or [N, n_out], "lmask": [N]}
+with ``dst`` ascending (the graph's pull ordering) and padding edges
+``src = dst = N``, ``emask = False``. Sampled minibatch (``minibatch_lg``):
+    {"seed_x": [B, Din], "hop0_x": [B*f0, Din], "hop0_mask": [B, f0],
+     "hop1_x": [B*f0*f1, Din], "hop1_mask": [B*f0, f1], "labels": [B]}
+
+:func:`forward` checks once per batch that ``dst`` is ascending and
+computes its segment offsets (``graph.structure.segment_offsets``); every
+layer reuses them, and the padding rows lie past the last offset. On the
+card unsorted ``dst`` raises, as ``graph.ops.segment_reduce`` does; the
+CPU's plain versions read the ids and need no order. The layer stacks that
+JAX runs under ``lax.scan`` (PNA's tail, GraphCast's processor) keep their
+stacked leading dimension here and run as a Python loop over it;
+``jax.checkpoint`` and ``optimization_barrier`` do nothing in a forward
+and have no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.graph.structure import resolve_device, segment_offsets
+from repro_torch.models import common
+from repro_torch.models.common import dense_init
+from repro_torch.models.gnn import layers as L
+from repro_torch.models.gnn.config import GNNConfig
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def init(cfg: GNNConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """Random parameters from a ``torch.Generator`` on ``device``, in the JAX
+    tree's layout, shapes and dtypes: the JAX initialisers' distributions
+    (dense layers N(0, 1/d_in), GAT attention vectors N(0, 0.01), biases
+    0), not their bits."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    p: Dict[str, Any] = {"layers": []}
+    d = cfg.d_hidden
+    if cfg.variant == "sage":
+        dims = [cfg.d_in] + [d] * cfg.n_layers
+        p["layers"] = [
+            L.init_sage_layer(gen, dims[i], dims[i + 1], dtype)
+            for i in range(cfg.n_layers)
+        ]
+    elif cfg.variant == "gat":
+        dims = [cfg.d_in] + [d * cfg.n_heads] * cfg.n_layers
+        p["layers"] = [
+            L.init_gat_layer(gen, dims[i], d, cfg.n_heads, dtype)
+            for i in range(cfg.n_layers)
+        ]
+    elif cfg.variant == "pna":
+        na, nsc = len(cfg.pna_aggregators), len(cfg.pna_scalers)
+        # first layer maps d_in -> d; the uniform tail is stacked
+        p["layer0"] = L.init_pna_layer(gen, cfg.d_in, d, na, nsc, dtype)
+        if cfg.n_layers > 1:
+            p["layers"] = common.stack_init(
+                cfg.n_layers - 1, lambda: L.init_pna_layer(gen, d, d, na, nsc, dtype)
+            )
+        else:
+            p["layers"] = None
+    elif cfg.variant == "graphcast":
+        de = max(cfg.d_edge, d)
+        p["encode_node"] = dense_init(gen, cfg.d_in, d, dtype)
+        p["encode_edge"] = dense_init(gen, 1, de, dtype)  # from edge weight
+        p["layers"] = common.stack_init(
+            cfg.n_layers, lambda: L.init_mpnn_layer(gen, d, de, dtype)
+        )
+    else:
+        raise ValueError(cfg.variant)
+    d_final = d * cfg.n_heads if cfg.variant == "gat" else d
+    p["head"] = dense_init(gen, d_final, cfg.n_out, dtype)
+    return p
+
+
+def params_from_arrays(cfg: GNNConfig, tree: Mapping[str, Any], device="cuda"):
+    """The JAX package's parameter tree (each leaf a numpy array) on
+    ``device``, in the same nesting; stacked layers keep their leading
+    layer dimension, and PNA's ``layers`` of a one-layer config stays
+    ``None``."""
+    return common.tensors_from_arrays(tree, resolve_device(device))
+
+
+def _cast(params, dtype):
+    """Every float32 leaf cast to the compute dtype (else bf16 activations
+    would promote back to f32), as the JAX forward casts."""
+    if params is None:
+        return None
+    if isinstance(params, Mapping):
+        return {k: _cast(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.dtype == torch.float32 else params
+
+
+def _layer(stacked: Mapping[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i`` of a stacked layer tree (one step of JAX's ``lax.scan``)."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
+def dst_offsets(dst: torch.Tensor, n: int) -> Optional[torch.Tensor]:
+    """The segment offsets ``i32[n + 1]`` of a batch's ``dst``, after one
+    check that it is ascending. Unsorted ids raise on the card; on the CPU
+    they give ``None`` (the plain versions read the ids)."""
+    ascending = bool((dst[1:] >= dst[:-1]).all()) if dst.numel() > 1 else True
+    if not ascending:
+        if dst.device.type == "cuda":
+            raise ValueError(
+                "GNN forward on the card needs the batch's dst ascending "
+                "(the graph's pull ordering)"
+            )
+        return None
+    return segment_offsets(dst.to(torch.int32), n)
+
+
+# ---------------------------------------------------------------------------
+# full-graph forward
+
+
+@torch.no_grad()
+def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
+    """Node outputs ``f32[N, n_out]`` of a full-graph batch."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = batch["x"].to(cdt)
+    src, dst, emask = batch["src"], batch["dst"], batch["emask"]
+    n = x.shape[0]
+    off = dst_offsets(dst, n)
+
+    if cfg.variant == "graphcast":
+        cp = _cast(params, cdt)
+        h = F.silu(x @ cp["encode_node"])
+        w = batch.get("ew")
+        w = torch.ones(src.shape, dtype=cdt, device=x.device) if w is None else w.to(cdt)
+        e = F.silu(w[:, None] @ cp["encode_edge"])  # [E, De]
+        for i in range(cp["layers"]["edge_w1"].shape[0]):
+            h, e = L.mpnn_layer(_layer(cp["layers"], i), h, e, src, dst, emask, n,
+                                offsets=off)
+        return (h @ cp["head"]).float()
+
+    if cfg.variant == "pna":
+        cp = _cast(params, cdt)
+
+        def pna_apply(lp, h):
+            return L.pna_layer(lp, h, src, dst, emask, n, cfg.pna_aggregators,
+                               cfg.pna_scalers, cfg.pna_delta, offsets=off)
+
+        h = pna_apply(cp["layer0"], x)
+        if cp.get("layers") is not None:
+            for i in range(cp["layers"]["w"].shape[0]):
+                h = pna_apply(_layer(cp["layers"], i), h)
+        return (h @ cp["head"]).float()
+
+    h = x
+    for lp in params["layers"]:
+        if cfg.variant == "sage":
+            h = L.sage_layer(lp, h, src, dst, emask, n, cfg.aggregator, offsets=off)
+        elif cfg.variant == "gat":
+            h = L.gat_layer(lp, h, src, dst, emask, n, cfg.n_heads, cfg.d_hidden,
+                            offsets=off)
+    return (h @ params["head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# sampled-minibatch SAGE (GraphSAGE's native mode)
+
+
+@torch.no_grad()
+def sage_minibatch_forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
+    """Two-hop sampled forward with padded blocks (fanouts f0, f1)."""
+    assert cfg.variant == "sage" and len(cfg.fanouts) == 2
+    f0, f1 = cfg.fanouts
+    seed_x = batch["seed_x"]  # [B, Din]
+    hop0_x = batch["hop0_x"]  # [B*f0, Din]
+    hop1_x = batch["hop1_x"]  # [B*f0*f1, Din]
+    m0 = batch["hop0_mask"]  # [B, f0]
+    m1 = batch["hop1_mask"]  # [B*f0, f1]
+    b = seed_x.shape[0]
+    l1, l2 = params["layers"]
+
+    def masked_mean(vals, mask):
+        w = mask[..., None].to(vals.dtype)
+        return (vals * w).sum(dim=-2) / torch.clamp(w.sum(dim=-2), min=1.0)
+
+    # layer 1 at hop-0 nodes: aggregate their sampled hop-1 neighbors
+    nbr1 = masked_mean(hop1_x.reshape(b * f0, f1, -1), m1)
+    h0 = F.relu(hop0_x @ l1["w_self"] + nbr1 @ l1["w_nbr"] + l1["b"])
+    # layer 1 at seeds (self transform with their own neighbors = hop0 raw)
+    nbr_seed = masked_mean(hop0_x.reshape(b, f0, -1), m0)
+    h_seed = F.relu(seed_x @ l1["w_self"] + nbr_seed @ l1["w_nbr"] + l1["b"])
+    # layer 2 at seeds: aggregate hop-0 hidden states
+    nbr2 = masked_mean(h0.reshape(b, f0, -1), m0)
+    h = F.relu(h_seed @ l2["w_self"] + nbr2 @ l2["w_nbr"] + l2["b"])
+    return h @ params["head"]

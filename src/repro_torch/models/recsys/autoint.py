@@ -14,7 +14,6 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Mapping
 
-import numpy as np
 import torch
 
 from repro_torch.graph.structure import resolve_device
@@ -58,16 +57,7 @@ def init(cfg: AutoIntConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
 def params_from_arrays(cfg: AutoIntConfig, tree: Mapping[str, Any], device="cuda"):
     """The JAX package's parameter tree (each leaf a numpy array) on
     ``device``, in the same nesting."""
-    dev = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, Mapping):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        return torch.from_numpy(np.array(x)).to(dev)
-
-    return conv(tree)
+    return common.tensors_from_arrays(tree, resolve_device(device))
 
 
 def _interact(params, emb, cfg: AutoIntConfig):

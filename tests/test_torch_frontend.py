@@ -44,14 +44,21 @@ def test_copy_matches_original_source(module):
 
 
 #: modules outside ``core`` copied from the JAX package, by path under the
-#: package: the model slices' configs and the partition statistics
+#: package: the model slices' configs, the GNN package's head and the
+#: partition statistics
 COPIED_MODELS = (
     "configs/common.py",
     "configs/h2o_danube_1_8b.py",
     "configs/qwen3_32b.py",
     "configs/qwen2_5_32b.py",
     "configs/autoint.py",
+    "configs/graphsage_reddit.py",
+    "configs/gat_cora.py",
+    "configs/pna.py",
+    "configs/graphcast.py",
     "models/recsys/config.py",
+    "models/gnn/config.py",
+    "models/gnn/__init__.py",
     "graph/partition/stats.py",
 )
 
@@ -59,8 +66,8 @@ COPIED_MODELS = (
 @pytest.mark.parametrize("path", COPIED_MODELS)
 def test_model_copy_matches_original_source(path):
     """A copied module differs from the JAX package's only in the package
-    name (``configs/common.py`` and ``models/recsys/config.py`` import
-    nothing of it and are byte copies)."""
+    name (``configs/common.py``, ``models/recsys/config.py`` and
+    ``models/gnn/config.py`` import nothing of it and are byte copies)."""
     port = (SRC / "repro_torch" / path).read_text()
     orig = (SRC / "repro" / path).read_text()
     assert port.replace("repro_torch.", "repro.") == orig
@@ -102,7 +109,7 @@ def test_superstep_report_matches(name):
 def test_port_imports_without_jax():
     """``repro_torch`` imports with ``jax`` and ``repro`` unimportable, and
     runs the graph path in both placements (the partitioned one on one
-    shard)."""
+    shard), a GNN forward and a sampled GraphSAGE minibatch."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -110,7 +117,9 @@ def test_port_imports_without_jax():
         "import repro_torch, repro_torch.core, repro_torch.graph, "
         "repro_torch.pregel, repro_torch.kernels, repro_torch.configs, "
         "repro_torch.models, repro_torch.models.transformer, "
-        "repro_torch.models.recsys, repro_torch.launch.serve, repro_torch.data\n"
+        "repro_torch.models.recsys, repro_torch.launch.serve, repro_torch.data, "
+        "repro_torch.models.gnn, repro_torch.graph.sampler, "
+        "repro_torch.data.pipeline\n"
         "from repro_torch.graph import generators\n"
         "from repro_torch.core import compile_program, algorithms\n"
         "g = generators.chain(8, device='cpu')\n"
@@ -126,6 +135,16 @@ def test_port_imports_without_jax():
         "b = next(repro_torch.data.recsys_batches(4, cfg.n_fields, "
         "cfg.vocab_per_field, device='cpu'))\n"
         "autoint.forward(p, b, cfg)\n"
+        "from repro_torch.models.gnn import models as gm\n"
+        "gcfg = configs.resolve_gnn_config(configs.get_spec('gat-cora').reduced, "
+        "'full_graph_sm', {'d_feat': 6})\n"
+        "gb = repro_torch.data.gnn_full_batch(32, 3.0, 6, 3, device='cpu')\n"
+        "assert gm.forward(gm.init(gcfg, device='cpu'), gb, gcfg).shape == (32, 3)\n"
+        "scfg = configs.get_spec('graphsage-reddit').reduced\n"
+        "mb = next(repro_torch.data.gnn_minibatches(g, gb['x'][:8], gb['labels'][:8], "
+        "4, scfg.fanouts, __import__('torch').Generator()))\n"
+        "assert gm.sage_minibatch_forward(gm.init(scfg, device='cpu'), mb, scfg).shape "
+        "== (4, 3)\n"
         "import repro_torch.graph.partition, repro_torch.dist\n"
         "from repro_torch.pregel import run_bsp\n"
         "cp = compile_program(algorithms.WCC, g)\n"
