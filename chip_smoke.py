@@ -28,9 +28,13 @@ does, in order, and fails on the first thing that is wrong:
    values at odd storage offsets, plus a float sum of random values held
    to ``TOL`` · Σ|x| of a float64 sum, and repeated bit for bit; both at
    the GNN layers' widths on their wide routes (``gather_rows`` ``scalar``,
-   ``segment_reduce`` ``cols``: f32 and bf16 rows of 8 to 512, a
-   ``[V, 8, 8]`` table, sum/max/min masked and not, a 163,558-row segment
-   among short ones, random float sums at ``TOL`` · Σ|x|);
+   ``segment_reduce`` ``cols``: f32 and bf16 rows of 8 to 1,433, a
+   ``[V, 8, 8]`` table, int32 and bool rows, table views at storage
+   offsets 1-3 with each gather's access width as the C entry reports it,
+   sum/max/min masked and not, prod and every int32 and bool combiner,
+   segments ending on the cols route's tile and chunk edges at each width,
+   a 163,558-row segment among short ones at widths 8 to 512, random float
+   sums at ``TOL`` · Σ|x|, a float sum repeated bit for bit);
    ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
    shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
    32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
@@ -87,8 +91,9 @@ does, in order, and fails on the first thing that is wrong:
    masked neighbours looked up among the graph's in-edges on the host and
    its logits held to a float64 numpy forward; the two wide routes are
    timed at these shapes beside their bounds, plain versions and library
-   calls (``--gnn-only`` runs the wide-route checks and this phase alone,
-   and prints no result line);
+   calls (under 0.1 ms also their device time, from a CUDA graph;
+   ``--gnn-only`` runs the wide-route checks and this phase alone, and
+   prints no result line);
 4. serves h2o-danube-1.8b (24 layers, d 2560, bf16, random weights from
    the seed) through ``repro_torch.launch.serve``: prefill then greedy
    decode over the ring-buffer cache (6144 > the 4096 window, so the window
@@ -219,10 +224,12 @@ def check_kernels(device, gen):
 
 def gather_case(table, idx, fill, device, what):
     """One gather on ``device`` against the plain version on the host, and
-    on the card the route the wrapper counted against ``ops.route``.
+    on the card the route the wrapper counted against ``ops.route`` and, on
+    the scalar route, the access width the C entry reported against
+    ``ops.access_bytes`` (kept in ``gather_rows.last_access_bytes``).
     Returns the route taken (``None`` off the card)."""
     from repro_torch.kernels import gather_rows, gather_rows_plain
-    from repro_torch.kernels.gather_rows.ops import route
+    from repro_torch.kernels.gather_rows.ops import access_bytes, route
 
     t, i = table.to(device), idx.to(device)
     before = gather_rows.launches_vec
@@ -232,7 +239,11 @@ def gather_case(table, idx, fill, device, what):
         took = "vec" if gather_rows.launches_vec > before else "scalar"
         if took != route(got[0].numel() if got.shape[0] else 1):
             raise AssertionError(f"gather_rows {what}: took {took}")
-    if not torch.equal(got.cpu(), gather_rows_plain(table, idx, fill)):
+        want = access_bytes(t[0].numel() * t.element_size(), t.data_ptr(), got.data_ptr())
+        if took == "scalar" and got.numel() and gather_rows.last_access_bytes != want:
+            raise AssertionError(f"gather_rows {what}: {gather_rows.last_access_bytes}-byte "
+                                 f"accesses, not {want}")
+    if not torch.equal(got.cpu(), gather_rows_plain(table.cpu(), idx.cpu(), fill)):
         raise AssertionError(f"gather_rows {what}")
     return took
 
@@ -383,9 +394,9 @@ def check_segment_reduce(device, gen):
     repeated bit for bit."""
     from repro_torch.graph.structure import segment_offsets
     from repro_torch.kernels import segment_reduce
-    from repro_torch.kernels.segment_reduce.ops import kernel_tile_items
+    from repro_torch.kernels.segment_reduce.ops import kernel_tiling
 
-    tile = kernel_tile_items() if device.type == "cuda" else 16  # the CPU has no tiles
+    tile = kernel_tiling(1)[0] if device.type == "cuda" else 16  # the CPU has no tiles
     cases = {"segment_reduce": 0}
     for dt in (torch.float32, torch.bfloat16, torch.int32, torch.bool):
         ops = ("min", "max", "or", "and") if dt == torch.bool else ("sum", "prod", "min", "max")
@@ -451,6 +462,10 @@ def check_segment_reduce(device, gen):
 #: the GNN layers' row widths: GAT's 8 heads (and 8 × 8 = 64), PNA's 75
 #: and the ogb_products features' 100, GraphSAGE's 128, GraphCast's 512
 GNN_WIDTHS = (8, 64, 75, 100, 128, 512)
+#: rows past the cols route's 512-column slice (in slices, each row's piece
+#: staged apart): the minibatch features' 602, the full_graph_sm features'
+#: 1,433
+SLICED_WIDTHS = (602, 1433)
 #: vertex 0's in-degree in the main path's scale-22 R-MAT (PERF.md §4)
 HUB_ROWS = 163_558
 
@@ -459,12 +474,36 @@ def check_wide_routes(device, gen):
     """The two graph kernels at the GNN shapes, on their wide routes
     (``gather_rows`` ``scalar``, ``segment_reduce`` ``cols``), each case
     against its plain version: f32 and bf16 rows of every ``GNN_WIDTHS``
-    width and a ``[V, 8, 8]`` table, gathered in both index modes
-    (negative and sentinel ids included); sum/max/min over them with and
-    without a mask (sums of k/16 and min/max exactly); one ``HUB_ROWS``-row
-    segment among short ones at widths 8 and 100 (f32) and 75 (bf16); and
-    float sums of random values held to ``TOL`` · Σ|x| of a float64 sum."""
-    cases = {"gather_rows_wide": 0, "segment_reduce_wide": 0}
+    and ``SLICED_WIDTHS`` width and a ``[V, 8, 8]`` table, int32 and bool
+    rows, table views at storage offsets 1-3, gathered in both index modes
+    (negative and sentinel ids included; each case's access width, as the C
+    entry reports it, must be ``ops.access_bytes``'s and is listed);
+    sum/max/min over them with and without a mask (sums of k/16 and
+    min/max exactly); segments ending on the edges of the cols route's
+    tiles and of its chunks at every width; one ``HUB_ROWS``-row segment
+    among short ones at widths 8, 64 and 100 (f32), 75 and 512 (bf16);
+    prod in f32/bf16, every int32 and bool combiner at widths 8, 75 and
+    512; float sums of random values held to ``TOL`` · Σ|x| of a float64
+    sum; and a float sum on the cols route repeated bit for bit."""
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import gather_rows, segment_reduce
+    from repro_torch.kernels.segment_reduce.ops import kernel_tiling
+
+    on_card = device.type == "cuda"
+    cases = {"gather_rows_wide": 0, "segment_reduce_wide": 0, "gather_rows_wide_access": {}}
+
+    def gather(table, idx, fill, what):
+        took = gather_case(table, idx, fill, device, what)
+        if on_card and took != "scalar":
+            raise AssertionError(f"gather_rows {what}: took {took}")
+        cases["gather_rows_wide"] += 1
+        if on_card:
+            cases["gather_rows_wide_access"][what.split(" fill=")[0]] = gather_rows.last_access_bytes
+
+    def seg(vals, ids, n, op, mask, what):
+        segment_case(vals, ids, n, op, mask, device, what)
+        cases["segment_reduce_wide"] += 1
+
     shapes = [(700, w) for w in GNN_WIDTHS] + [(700, 8, 8)]
     for dt in (torch.float32, torch.bfloat16):
         for shape in shapes:
@@ -472,10 +511,7 @@ def check_wide_routes(device, gen):
             idx = torch.randint(-700, 1400, (5000,), generator=gen, dtype=torch.int32)
             idx[:4] = torch.tensor([-1, 700, 701, -701])
             for fill in (None, -3):
-                took = gather_case(table, idx, fill, device, f"{dt} {shape} fill={fill}")
-                if device.type == "cuda" and took != "scalar":
-                    raise AssertionError(f"gather_rows {dt} {shape}: took {took}")
-                cases["gather_rows_wide"] += 1
+                gather(table, idx, fill, f"{dt} {shape} fill={fill}")
         for op in ("sum", "max", "min"):
             for shape in shapes:
                 n, e = 600, 9000
@@ -486,8 +522,7 @@ def check_wide_routes(device, gen):
                 vals = segment_values(dt, op, e, gen, width).reshape((e,) + shape[1:])
                 vals[(ids < 0) | (ids >= n)] = float("nan")  # dropped rows: never read
                 for mask in (None, torch.rand(e, generator=gen) < 0.8):
-                    segment_case(vals, ids, n, op, mask, device, f"{dt} {op} {shape[1:]}")
-                    cases["segment_reduce_wide"] += 1
+                    seg(vals, ids, n, op, mask, f"{dt} {op} {shape[1:]}")
             hub = [int(x) for x in torch.randint(0, 40, (50,), generator=gen)]
             hub[7] = HUB_ROWS
             ids = sorted_ids(hub, 50, 5, 9)
@@ -495,9 +530,8 @@ def check_wide_routes(device, gen):
                 vals = segment_values(dt, op, ids.shape[0], gen, width)
                 vals[(ids < 0) | (ids >= 50)] = float("nan")
                 for mask in (None, torch.rand(ids.shape[0], generator=gen) < 0.8):
-                    segment_case(vals, ids, 50, op, mask, device,
-                                 f"{dt} {op}: a {HUB_ROWS}-row segment, width {width}")
-                    cases["segment_reduce_wide"] += 1
+                    seg(vals, ids, 50, op, mask,
+                        f"{dt} {op}: a {HUB_ROWS}-row segment, width {width}")
     hub = [int(x) for x in torch.randint(0, 40, (50,), generator=gen)]
     hub[7] = HUB_ROWS
     uniform = [int(x) for x in torch.randint(1, 41, (1000,), generator=gen)]
@@ -508,6 +542,74 @@ def check_wide_routes(device, gen):
             ("uniform 1-40 rows", uniform, 512, torch.float32),
             ("uniform 1-40 rows", uniform, 8, torch.bfloat16))
     }
+
+    # gathers: rows past a slice, int32 and bool rows, table views off alignment
+    for dt, shape in ((torch.float32, (300, 602)), (torch.bfloat16, (200, 1433)),
+                      (torch.int32, (700, 3)), (torch.int32, (700, 100)),
+                      (torch.bool, (700, 5)), (torch.bool, (700, 64))):
+        table = torch.randn(shape, generator=gen) * 10
+        table = (table > 0) if dt == torch.bool else table.to(dt)
+        idx = torch.randint(-shape[0], 2 * shape[0], (3001,), generator=gen, dtype=torch.int32)
+        for fill in (None, True if dt == torch.bool else -3):
+            gather(table, idx, fill, f"{dt} {shape} fill={fill}")
+    for dt, width in ((torch.float32, 100), (torch.bfloat16, 75), (torch.float32, 602),
+                      (torch.bfloat16, 512), (torch.float32, 8), (torch.bfloat16, 8)):
+        values = (torch.randn((700, width), generator=gen) * 10).to(dt).to(device)
+        idx = torch.randint(-700, 1400, (4001,), generator=gen, dtype=torch.int32)
+        for off in (1, 2, 3):  # a table pointer 4-12 (f32) or 2-6 (bf16) bytes off 16
+            view = table_view(values, off)
+            for fill in (None, -3):
+                gather(view, idx, fill, f"{dt} (700, {width}) table view +{off} fill={fill}")
+
+    # segments on the cols route's tile and chunk edges at every width
+    for width in GNN_WIDTHS + SLICED_WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            tile, chunks = kernel_tiling(width, dt) if on_card else (64, 8)
+            for edge, t in (("tile", tile), ("chunk", tile // chunks)):
+                lengths = tile_edge_lengths(t)
+                n = len(lengths)
+                ids = sorted_ids(lengths, n, 2, 3)
+                e = ids.shape[0]
+                for op in ("sum", "max"):
+                    vals = segment_values(dt, op, e, gen, width)
+                    vals[(ids < 0) | (ids >= n)] = float("nan")
+                    for mask in (None, torch.rand(e, generator=gen) < 0.8):
+                        seg(vals, ids, n, op, mask,
+                            f"{dt} {op} width {width}: segments on {edge} edges ({t} items)")
+    # the hub at widths 8, 64 (f32) and 512 (bf16)
+    ids = sorted_ids(hub, 50, 5, 9)
+    for dt, width in ((torch.float32, 8), (torch.float32, 64), (torch.bfloat16, 512)):
+        for op in ("sum", "max"):
+            vals = segment_values(dt, op, ids.shape[0], gen, width)
+            vals[(ids < 0) | (ids >= 50)] = float("nan")
+            seg(vals, ids, 50, op, torch.rand(ids.shape[0], generator=gen) < 0.8,
+                f"{dt} {op}: a {HUB_ROWS}-row segment, width {width}")
+    # prod, and every int32 and bool combiner on wide rows
+    for dt, ops in ((torch.float32, ("prod",)), (torch.bfloat16, ("prod",)),
+                    (torch.int32, ("sum", "prod", "min", "max")),
+                    (torch.bool, ("min", "max", "or", "and"))):
+        for op in ops:
+            for width in (8, 75, 512):
+                n, e = 600, 9000
+                ids = torch.sort(torch.randint(-3, n + 3, (e,), generator=gen,
+                                               dtype=torch.int32)).values
+                vals = segment_values(dt, op, e, gen, width)
+                if dt.is_floating_point:
+                    vals[(ids < 0) | (ids >= n)] = float("nan")
+                for mask in (None, torch.rand(e, generator=gen) < 0.8):
+                    seg(vals, ids, n, op, mask, f"{dt} {op} width {width}")
+    # a float sum on the cols route is the same bits from launch to launch
+    ids = sorted_ids(hub, 50, 5, 9)
+    off = segment_offsets(ids, 50).to(device)
+    for dt, width in ((torch.float32, 100), (torch.bfloat16, 75)):
+        vals = (torch.randn((ids.shape[0], width), generator=gen) * 100).to(dt).to(device)
+        first = segment_reduce(vals, ids.to(device), 50, "sum", offsets=off)
+        for _ in range(3):
+            again = segment_reduce(vals, ids.to(device), 50, "sum", offsets=off)
+            if not torch.equal(first.view(torch.int16), again.view(torch.int16)):
+                raise AssertionError(f"segment_reduce cols: a {dt} sum of width {width} "
+                                     "changed bits from one launch to the next")
+    cases["segment_reduce_wide_repeat_bitwise"] = 6
     return cases
 
 
@@ -1559,12 +1661,38 @@ def route_row(fn, nbytes, nops, launches, shape, plain=None, library=None, libra
               reps=10):
     """One wide-route time at a GNN shape: :func:`timed` against the bound
     of ``nbytes`` and ``nops``, and the plain version's and the library
-    call's ms where given."""
+    call's ms where given. Under 0.1 ms a call's time is mostly the host's
+    (the wrapper's Python, the allocation and the launch), so there the
+    kernel's and the library call's device time is added, each from a
+    CUDA graph of the calls (:func:`graph_ms`)."""
     b_ms, by = bound(nbytes, nops)
-    return {**timed(fn, (b_ms, nbytes), reps), "bound_by": by, "launches_per_pass": launches,
-            "plain_ms": None if plain is None else cuda_ms(plain, reps=3),
-            "library_ms": None if library is None else cuda_ms(library, reps=3),
-            "library": library_name, "shape": shape}
+    row = {**timed(fn, (b_ms, nbytes), reps), "bound_by": by, "launches_per_pass": launches,
+           "plain_ms": None if plain is None else cuda_ms(plain, reps=3),
+           "library_ms": None if library is None else cuda_ms(library, reps=3),
+           "library": library_name, "shape": shape}
+    if row["ms"] < 0.1:
+        row["graph_ms"] = graph_ms(fn)
+        row["library_graph_ms"] = None if library is None else graph_ms(library)
+    return row
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """The device's time for one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph (their launches on the capture stream, their allocations
+    in its pool), replayed, by :func:`cuda_ms`. Only for small calls: the
+    graph holds ``reps`` outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5) / reps
+    del graph
+    return ms
 
 
 def gnn_route_rows(batch, per_model, graphcast=False, hop1_read=None):

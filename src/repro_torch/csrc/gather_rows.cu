@@ -38,8 +38,28 @@
 //          hot low ids of a power-law graph hit (an L2 evict-last policy on
 //          them and an L1 evict-first on cold ids did not pay, and
 //          L1::no_allocate made them slower).
-//   scalar rows of more than one element (no graph program reads them):
-//          one thread per output element.
+//   scalar rows of more than one element (the GNN layers' feature reads:
+//          rows of 16 to 2,408 bytes). What bounds a row copy on this card
+//          is the count of memory instructions and of bytes in flight: one
+//          2- or 4-byte access an element (and a 64-bit division by the row
+//          length to find it) cannot keep 3.35 TB/s busy. So a group of
+//          lanes copies a row (gather_units): the C entry takes the widest
+//          access of 16, 8, 4, 2 or 1 bytes that divides the row's bytes and
+//          both base addresses (access_bytes; SAGE's 400-byte and
+//          GraphCast's 1,024-byte rows take 16, PNA's 200-byte bf16 rows and
+//          the minibatch's 2,408-byte f32 rows 8), and reports it. A row is
+//          `units` accesses; its group is the power of two of lanes at or
+//          above that, up to a warp (several rows a warp for short rows), so
+//          the row comes from the thread's group by a shift, and the group
+//          reads the row's index once. Where a row is at most one access a
+//          lane, a group takes kRowsInFlight = 4 neighbouring rows at once
+//          and issues their index loads, then their row loads, before any
+//          store; a wider row (the minibatch's: 301 accesses) keeps ten
+//          accesses a lane in flight alone and takes one row (measured at
+//          the GNN shapes on the H100: 4 rows 7.9 against 9.0 ms at PNA's,
+//          1 row 0.478 against 0.566 ms at the minibatch's). Table reads
+//          through L1 (__ldg), index and output streams evict-first, as the
+//          vec route.
 // A launch never falls back from one route to the other.
 
 #include <cuda_runtime.h>
@@ -102,20 +122,54 @@ gather_vec(const uint8_t* __restrict__ table, const int32_t* __restrict__ idx,
 
 // ---- scalar route -------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gather_scalar(const T* __restrict__ table, const int32_t* __restrict__ idx,
-              T* __restrict__ out, int64_t n_rows, int64_t n_out,
-              int64_t row_len, int mode, T fill) {
-  const int64_t total = n_out * row_len;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x; t < total;
-       t += stride) {
-    const int64_t i = t / row_len;
-    const int64_t c = t - i * row_len;
-    bool ok;
-    const int64_t j = resolve(idx[i], n_rows, mode, &ok);
-    out[t] = ok ? table[j * row_len + c] : fill;
+constexpr int kUnitThreads = 256;
+// rows a group copies at once where a row is at most one access a lane;
+// a wider row is several accesses a lane already, and takes one row
+constexpr int kRowsInFlight = 4;
+
+template <int A> struct Unit;  // one access of A bytes
+template <> struct Unit<16> { using V = uint4; };
+template <> struct Unit<8> { using V = uint2; };
+template <> struct Unit<4> { using V = unsigned int; };
+template <> struct Unit<2> { using V = unsigned short; };
+template <> struct Unit<1> { using V = unsigned char; };
+
+// the fill element repeated over an access (w: over 32 bits)
+template <typename V> __device__ __forceinline__ V splat(uint32_t w);
+template <> __device__ __forceinline__ uint4 splat(uint32_t w) { return make_uint4(w, w, w, w); }
+template <> __device__ __forceinline__ uint2 splat(uint32_t w) { return make_uint2(w, w); }
+template <> __device__ __forceinline__ unsigned int splat(uint32_t w) { return w; }
+template <> __device__ __forceinline__ unsigned short splat(uint32_t w) { return (unsigned short)w; }
+template <> __device__ __forceinline__ unsigned char splat(uint32_t w) { return (unsigned char)w; }
+
+// Rows of `units` accesses of A bytes; groups of 2^gshift lanes, K
+// neighbouring rows a group at a time.
+template <int A, int MODE, int K>
+__global__ void __launch_bounds__(kUnitThreads)
+gather_units(const typename Unit<A>::V* __restrict__ table, const int32_t* __restrict__ idx,
+             typename Unit<A>::V* __restrict__ out, int64_t n_rows, int64_t n_out,
+             int64_t units, int gshift, uint32_t fill_word) {
+  using V = typename Unit<A>::V;
+  const int lane = threadIdx.x & ((1 << gshift) - 1);
+  const int64_t n_groups = ((int64_t)gridDim.x * kUnitThreads) >> gshift;
+  const int64_t group = ((int64_t)blockIdx.x * kUnitThreads + threadIdx.x) >> gshift;
+  const V fill = splat<V>(fill_word);
+  for (int64_t i0 = group * K; i0 < n_out; i0 += n_groups * K) {
+    const V* src[K];  // nullptr: fill (or no row)
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      bool ok = false;
+      const int64_t j = i0 + r < n_out ? resolve(__ldcs(idx + i0 + r), n_rows, MODE, &ok) : 0;
+      src[r] = ok ? table + j * units : nullptr;
+    }
+    for (int64_t u = lane; u < units; u += (1 << gshift)) {
+      V v[K];
+#pragma unroll
+      for (int r = 0; r < K; ++r) v[r] = src[r] ? __ldg(src[r] + u) : fill;
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+        if (i0 + r < n_out) __stcs(out + (i0 + r) * units + u, v[r]);
+    }
   }
 }
 
@@ -145,25 +199,61 @@ int launch_vec(const void* table, const int32_t* idx, void* out,
                    : launch_vec<E, 1>(table, idx, out, n_rows, n_out, fill, s);
 }
 
-template <typename T>
-int launch_scalar(const void* table, const int32_t* idx, void* out,
-                  int64_t n_rows, int64_t n_out, int64_t row_len, int mode,
-                  uint32_t fill, cudaStream_t s) {
-  const int64_t blocks = grid_for(n_out * row_len, int64_t(1) << 20);
-  gather_scalar<T><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(table), idx, static_cast<T*>(out), n_rows, n_out,
-      row_len, mode, static_cast<T>(fill));
+// the widest access of 16, 8, 4, 2 or 1 bytes that divides the row's bytes
+// and both base addresses
+int access_bytes(int64_t row_bytes, const void* table, const void* out) {
+  const uintptr_t t = reinterpret_cast<uintptr_t>(table), o = reinterpret_cast<uintptr_t>(out);
+  int a = 16;
+  while (a > 1 && (row_bytes % a || t % a || o % a)) a >>= 1;
+  return a;
+}
+
+template <int A, int K>
+int launch_units(const void* table, const int32_t* idx, void* out, int64_t n_rows,
+                 int64_t n_out, int64_t units, int gshift, int mode, uint32_t fill_word,
+                 cudaStream_t s) {
+  using V = typename Unit<A>::V;
+  const int64_t groups = (n_out + K - 1) / K;
+  int64_t blocks = ((groups << gshift) + kUnitThreads - 1) / kUnitThreads;
+  if (blocks > (int64_t(1) << 20)) blocks = int64_t(1) << 20;
+  if (mode == 0)
+    gather_units<A, 0, K><<<(unsigned)blocks, kUnitThreads, 0, s>>>(
+        static_cast<const V*>(table), idx, static_cast<V*>(out), n_rows, n_out, units, gshift,
+        fill_word);
+  else
+    gather_units<A, 1, K><<<(unsigned)blocks, kUnitThreads, 0, s>>>(
+        static_cast<const V*>(table), idx, static_cast<V*>(out), n_rows, n_out, units, gshift,
+        fill_word);
   return (int)cudaGetLastError();
+}
+
+template <int A>
+int launch_units(const void* table, const int32_t* idx, void* out, int64_t n_rows,
+                 int64_t n_out, int64_t row_bytes, int mode, uint32_t fill_word,
+                 cudaStream_t s) {
+  const int64_t units = row_bytes / A;
+  int gshift = 0;
+  while (gshift < 5 && (int64_t(1) << gshift) < units) ++gshift;
+  return units <= 32 ? launch_units<A, kRowsInFlight>(table, idx, out, n_rows, n_out, units,
+                                                      gshift, mode, fill_word, s)
+                     : launch_units<A, 1>(table, idx, out, n_rows, n_out, units, gshift, mode,
+                                          fill_word, s);
 }
 
 }  // namespace
 
-// Returns 0 on success, else the cudaError_t of the launch.
+// table [n_rows, row_len] of elem_size-byte elements, idx int32 [n_out],
+// out [n_out, row_len]; mode 0 clips, mode 1 fills with fill_bits. Writes
+// the bytes of one access to *access_out (the element's on the vec route;
+// 0 when nothing launched). Returns 0 on success, else the cudaError_t of
+// the launch.
 extern "C" int gather_rows_launch(int device, const void* table,
                                   const int32_t* idx, void* out,
                                   long long n_rows, long long n_out,
                                   long long row_len, int elem_size, int mode,
-                                  unsigned int fill_bits, void* stream) {
+                                  unsigned int fill_bits, void* stream,
+                                  int* access_out) {
+  *access_out = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_out * row_len == 0) return 0;
@@ -172,19 +262,26 @@ extern "C" int gather_rows_launch(int device, const void* table,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t fill =  // one element's bits
       elem_size == 4 ? fill_bits : fill_bits & ((1u << (8 * elem_size)) - 1);
+  int rc;
   if (row_len == 1) {
     switch (elem_size) {
-      case 1: return launch_vec<1>(table, idx, out, n_rows, n_out, mode, fill, s);
-      case 2: return launch_vec<2>(table, idx, out, n_rows, n_out, mode, fill, s);
-      default: return launch_vec<4>(table, idx, out, n_rows, n_out, mode, fill, s);
+      case 1: rc = launch_vec<1>(table, idx, out, n_rows, n_out, mode, fill, s); break;
+      case 2: rc = launch_vec<2>(table, idx, out, n_rows, n_out, mode, fill, s); break;
+      default: rc = launch_vec<4>(table, idx, out, n_rows, n_out, mode, fill, s);
     }
+    if (rc == 0) *access_out = elem_size;
+    return rc;
   }
-  switch (elem_size) {
-    case 1:
-      return launch_scalar<uint8_t>(table, idx, out, n_rows, n_out, row_len, mode, fill, s);
-    case 2:
-      return launch_scalar<uint16_t>(table, idx, out, n_rows, n_out, row_len, mode, fill, s);
-    default:
-      return launch_scalar<uint32_t>(table, idx, out, n_rows, n_out, row_len, mode, fill, s);
+  const int64_t row_bytes = row_len * elem_size;
+  const uint32_t word = elem_size == 4 ? fill : (elem_size == 2 ? fill * 0x10001u : fill * 0x01010101u);
+  const int a = access_bytes(row_bytes, table, out);
+  switch (a) {
+    case 16: rc = launch_units<16>(table, idx, out, n_rows, n_out, row_bytes, mode, word, s); break;
+    case 8: rc = launch_units<8>(table, idx, out, n_rows, n_out, row_bytes, mode, word, s); break;
+    case 4: rc = launch_units<4>(table, idx, out, n_rows, n_out, row_bytes, mode, word, s); break;
+    case 2: rc = launch_units<2>(table, idx, out, n_rows, n_out, row_bytes, mode, word, s); break;
+    default: rc = launch_units<1>(table, idx, out, n_rows, n_out, row_bytes, mode, word, s);
   }
+  if (rc == 0) *access_out = a;
+  return rc;
 }

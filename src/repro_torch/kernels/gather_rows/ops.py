@@ -13,15 +13,19 @@ On a CUDA tensor the wrapper launches the kernel or raises; the plain
 version is taken only for tensors on the CPU or the meta device. The
 kernel has two routes, chosen by row length alone (:func:`route`):
 ``"vec"`` (rows of one element, a warp over 32 neighbouring outputs) and
-``"scalar"`` (wider rows, one thread per element), counted in
+``"scalar"`` (wider rows, a group of lanes a row, copied in the widest
+access of 16, 8, 4, 2 or 1 bytes that the row's bytes and both base
+addresses allow: :func:`access_bytes`), counted in
 ``gather_rows.launches_vec`` and ``gather_rows.launches_scalar`` beside
-``gather_rows.launches``.
+``gather_rows.launches``. The C entry reports the access width it took;
+the wrapper keeps the last one in ``gather_rows.last_access_bytes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -75,6 +79,18 @@ def route(row_len: int) -> str:
     return "vec" if row_len == 1 else "scalar"
 
 
+#: the scalar route's access widths, widest first
+ACCESS_BYTES = (16, 8, 4, 2, 1)
+
+
+def access_bytes(row_bytes: int, table_ptr: int, out_ptr: int) -> int:
+    """The bytes of one access of the scalar route (the C entry's rule):
+    the widest of :data:`ACCESS_BYTES` that divides the row's bytes and
+    both base addresses."""
+    return next(a for a in ACCESS_BYTES
+                if row_bytes % a == 0 and table_ptr % a == 0 and out_ptr % a == 0)
+
+
 @functools.cache
 def _entry():
     """The C entry point of the kernel's library, typed."""
@@ -83,28 +99,32 @@ def _entry():
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int),
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(table, idx, out, mode, fill_bits):
-    fn = _entry()
-    rc = fn(
+def _launch(table, idx, out, row_len, mode, fill_bits):
+    """Launches the kernel; returns the access width the C entry took."""
+    took = ctypes.c_int(0)
+    rc = _entry()(
         table.device.index or 0,
         table.data_ptr(),
         idx.data_ptr(),
         out.data_ptr(),
         table.shape[0],
         idx.shape[0],
-        out[0].numel() if out.shape[0] else 0,
+        row_len,
         table.element_size(),
         mode,
         fill_bits,
         torch.cuda.current_stream(table.device).cuda_stream,
+        ctypes.byref(took),
     )
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
+    return took.value
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
@@ -129,9 +149,11 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
     )
     if out.numel() == 0:
         return out
-    _launch(table, idx, out, 0 if fill is None else 1, _fill_bits(fill, table.dtype))
+    row_len = math.prod(table.shape[1:])
+    gather_rows.last_access_bytes = _launch(
+        table, idx, out, row_len, 0 if fill is None else 1, _fill_bits(fill, table.dtype))
     gather_rows.launches += 1
-    if route(out[0].numel()) == "vec":
+    if route(row_len) == "vec":
         gather_rows.launches_vec += 1
     else:
         gather_rows.launches_scalar += 1
@@ -141,3 +163,4 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
 gather_rows.launches = 0
 gather_rows.launches_vec = 0
 gather_rows.launches_scalar = 0
+gather_rows.last_access_bytes = None

@@ -14,11 +14,14 @@ return the input dtype; int32 sums wrap.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
 version is taken only for tensors on the CPU or the meta device. The
-kernel has two routes, by width alone (:func:`route`): rows of one element
-(the message combiner's) take the merge-path tiles, counted in
-``segment_reduce.launches_rows``; wider rows take one warp per segment,
-counted in ``segment_reduce.launches_cols``. The wrapper sizes the rows
-route's scratch with :func:`n_tiles` at the built kernel's tile size.
+kernel has two routes, by width alone (:func:`route`), both merge-path
+tiles over the rows and the segment ends: rows of one element (the message
+combiner's) take tiles of one chunk, counted in
+``segment_reduce.launches_rows``; wider rows take tiles of several chunks
+sized by the row's bytes, counted in ``segment_reduce.launches_cols``. The
+wrapper sizes both routes' scratch (:func:`scratch_words`) with
+:func:`n_tiles` at the built kernel's tiling for the width
+(:func:`kernel_tiling`).
 """
 
 from __future__ import annotations
@@ -100,16 +103,23 @@ def segment_reduce_plain(
 
 
 def route(width: int) -> str:
-    """The kernel's route for rows of ``width`` elements: ``"rows"`` (merge-
-    path tiles) for one element, else ``"cols"`` (one warp per segment)."""
+    """The kernel's route for rows of ``width`` elements: ``"rows"`` for one
+    element, else ``"cols"``."""
     return "rows" if width == 1 else "cols"
 
 
 def n_tiles(max_rows: int, num_segments: int, tile_items: int) -> int:
-    """Tiles of ``tile_items`` merge items (rows + segment ends) the rows
-    route needs for at most ``max_rows`` rows: every item the offsets can
-    name, rounded up (tiles past the last item do nothing)."""
+    """Tiles of ``tile_items`` merge items (rows + segment ends) the kernel
+    needs for at most ``max_rows`` rows: every item the offsets can name,
+    rounded up (tiles past the last item do nothing)."""
     return max(1, -(-(max_rows + num_segments) // tile_items))
+
+
+def scratch_words(tiles: int, chunks: int, width: int) -> int:
+    """The 4-byte words of scratch either route takes: the merge-path split
+    at every chunk edge (``tiles * chunks + 1``), each tile's carried
+    segment, and its carry and head partials, ``width`` words each."""
+    return tiles * (chunks + 1 + 2 * width) + 1
 
 
 @functools.cache
@@ -119,28 +129,33 @@ def _entry():
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def kernel_tile_items() -> int:
-    """Merge items per tile of the rows route, as the built kernel has them
-    (``kTile`` of csrc/segment_reduce.cu)."""
+def kernel_tiling(width: int, dtype: torch.dtype = torch.float32) -> tuple:
+    """``(tile_items, chunks)``: merge items a tile and chunks a tile for
+    rows of ``width`` elements of ``dtype``, as the built kernel has them
+    (``segment_reduce_tile_items`` of csrc/segment_reduce.cu: the rows
+    route's ``kTile`` in one chunk, the cols route's ``kColsChunks`` chunks
+    of as many rows as ``kColsChunkBytes`` hold)."""
     fn = build.library("segment_reduce").segment_reduce_tile_items
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    chunks = ctypes.c_int(0)
+    items = fn(width, _DTYPE_CODE[dtype], ctypes.byref(chunks))
+    return int(items), chunks.value
 
 
-def _launch(values, mask, offsets, out, op):
-    width = out[0].numel() if out.shape[0] else 0
-    tiles = n_tiles(values.shape[0], out.shape[0], kernel_tile_items())
-    scratch = (
-        torch.empty(4 * tiles + 1, dtype=torch.int32, device=values.device)
-        if route(width) == "rows" else None
-    )
+def _launch(values, mask, offsets, out, op, width):
+    tile, chunks = kernel_tiling(width, values.dtype)
+    tiles = n_tiles(values.shape[0], out.shape[0], tile)
+    words = scratch_words(tiles, chunks, width)
+    scratch = torch.empty(words, dtype=torch.int32, device=values.device)
     fn = _entry()
     rc = fn(
         values.device.index or 0,
@@ -152,8 +167,9 @@ def _launch(values, mask, offsets, out, op):
         width,
         _DTYPE_CODE[values.dtype],
         _OP_CODE[op],
-        None if scratch is None else scratch.data_ptr(),
+        scratch.data_ptr(),
         tiles,
+        words,
         torch.cuda.current_stream(values.device).cuda_stream,
     )
     if rc != 0:
@@ -199,9 +215,10 @@ def segment_reduce(
     out = torch.empty((num_segments,) + values.shape[1:], dtype=values.dtype, device=values.device)
     if out.numel() == 0:
         return out
-    _launch(values, mask, offsets, out, op)
+    width = math.prod(values.shape[1:])
+    _launch(values, mask, offsets, out, op, width)
     segment_reduce.launches += 1
-    if route(out[0].numel()) == "rows":
+    if route(width) == "rows":
         segment_reduce.launches_rows += 1
     else:
         segment_reduce.launches_cols += 1

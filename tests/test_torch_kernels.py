@@ -493,10 +493,12 @@ from repro_torch.kernels.segment_reduce import ops as seg_ops  # noqa: E402
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1003])
 def test_gather_route_rule(offset, n):
     """The route depends on the row length alone: rows of one element (1 or
-    4 bytes) take the vec route, rows of 5·4 and 40·4 bytes the scalar
-    route, whatever N and the ``idx`` view's storage offset. Both compute
-    the rows ``repro.graph.ops.gather`` computes on the same ``idx`` view,
-    in clip and fill mode (here through the plain version)."""
+    4 bytes) take the vec route, wider rows (5·4, 40·4, 75·2 and 602·4
+    bytes) the scalar route, whatever N, the ``idx`` view's storage offset
+    and, for the wider rows, the table view's storage offset (``offset``
+    elements: a table off 16-byte alignment, so a narrower access). Both
+    compute the rows ``repro.graph.ops.gather`` computes on the same ``idx``
+    view, in clip and fill mode (here through the plain version)."""
     rng = np.random.default_rng(23)
     base_np = rng.integers(-100, 100, 1100).astype(np.int32)
     base = torch.from_numpy(base_np)
@@ -504,14 +506,35 @@ def test_gather_route_rule(offset, n):
     assert idx.data_ptr() - base.data_ptr() == 4 * offset
     jidx = jnp.asarray(base_np[offset:offset + n])
     for dtype, shape in (("bool", (97,)), ("int32", (97,)), ("float32", (97, 5)),
-                         ("float32", (97, 40))):
+                         ("float32", (97, 40)), ("bfloat16", (97, 75)),
+                         ("float32", (97, 602))):
         table_np = _values(rng, dtype, shape, "sum")
         jtable, table = _both(table_np, dtype)
+        if len(shape) > 1:  # the same rows as a view ``offset`` elements into its storage
+            table = _table_view(table_np, dtype, offset)
         row_len = int(np.prod(shape[1:], dtype=np.int64))
         assert gather_ops.route(row_len) == ("vec" if row_len == 1 else "scalar")
         for fill in (None, False if dtype == "bool" else 7):
             want = jops.gather(jtable, jidx, fill)
             np.testing.assert_array_equal(_np(gather_rows(table, idx, fill)), _np(want))
+
+
+@pytest.mark.parametrize("table_offset", range(16))
+def test_gather_access_rule(table_offset):
+    """The scalar route's access width (``ops.access_bytes``, the C entry's
+    rule) over row bytes 2 to 4,096 and table and output addresses 0 to 15
+    bytes past a 16-byte boundary: it divides the row's bytes and both
+    addresses, and no wider access of 16, 8, 4, 2 does. The rows the model
+    shapes take: SAGE's 400-byte and GraphCast's 1,024-byte rows 16 bytes,
+    PNA's 200-byte and the minibatch's 2,408-byte rows 8."""
+    for row_bytes in range(2, 4097):
+        for out_offset in range(16):
+            t, o = 4096 + table_offset, 8192 + out_offset
+            a = gather_ops.access_bytes(row_bytes, t, o)
+            assert row_bytes % a == 0 and t % a == 0 and o % a == 0
+            assert all(row_bytes % w or t % w or o % w for w in (16, 8, 4, 2) if w > a)
+    for row_bytes, want in ((400, 16), (1024, 16), (200, 8), (2408, 8), (150, 2), (3, 1)):
+        assert gather_ops.access_bytes(row_bytes, 256, 512) == want
 
 
 # The rows route's tiling in plain PyTorch, as csrc/segment_reduce.cu cuts
@@ -543,7 +566,7 @@ def merge_tiles(offsets: torch.Tensor, tile_items: int):
 
 
 def segment_reduce_tiled(values, offsets, op, mask, tile_items):
-    """The rows route's arithmetic, tile by tile: returns ``(out, tiles)``.
+    """Both routes' arithmetic, tile by tile: returns ``(out, tiles)``.
     Within a tile, a segment that ends there gets the fold of its rows in
     the tile; the one it starts with, if an earlier tile holds rows of it,
     leaves that fold as the tile's ``head`` partial; the segment open at the
@@ -551,28 +574,31 @@ def segment_reduce_tiled(values, offsets, op, mask, tile_items):
     ``carry``. Then each run of tiles that carry one segment is folded in
     tile order, followed by the head partial of the tile that ends the
     segment. ``tiles`` lists, per tile, ``(first_segment, end_segment,
-    row_begin, row_end, carry_segment or None, has_head)``. Values of one
-    element per row; masked rows fold as the identity; bf16 folds in f32."""
+    row_begin, row_end, carry_segment or None, has_head)``. Rows of one
+    element (the rows route) or of W (the cols route: W-wide partials, heads
+    and carries); masked rows fold as the identity; bf16 folds in f32."""
     n = offsets.shape[0] - 1
     ident = identity(op, values.dtype)
     work = values.float() if values.dtype == torch.bfloat16 else values
     if mask is not None:
-        work = torch.where(mask, work, ident)
+        work = torch.where(mask.reshape((-1,) + (1,) * (work.ndim - 1)), work, ident)
     off = offsets.long().tolist()
+    empty = torch.full(work.shape[1:], ident, dtype=work.dtype)
 
     def fold(rows):  # one partial over rows, in the plain version's arithmetic
+        if rows.shape[0] == 0:
+            return empty
         ids = torch.zeros(rows.shape[0], dtype=torch.int32)
         return seg_ops.segment_reduce_plain(rows, ids, 1, op)[0]
 
-    out = torch.full((n,), ident, dtype=work.dtype)
+    out = torch.full((n,) + work.shape[1:], ident, dtype=work.dtype)
     carry, head, tiles = {}, {}, []
     for k, (s0, s1, rb, re_) in enumerate(merge_tiles(offsets, tile_items)):
         for s in range(s0, s1):  # segments that end in this tile
-            part = fold(work[max(off[s], rb):off[s + 1]])
             if s == s0 and rb > off[s0]:
-                head[k] = part
-            else:
-                out[s] = part
+                head[k] = fold(work[rb:off[s + 1]])
+            elif off[s + 1] > off[s]:
+                out[s] = fold(work[off[s]:off[s + 1]])
         carried = s1 < n and re_ > off[s1]
         if carried:
             carry[k] = (s1, fold(work[max(off[s1], rb):re_]))
@@ -589,11 +615,34 @@ def segment_reduce_tiled(values, offsets, op, mask, tile_items):
     return out.to(values.dtype), tiles
 
 
+def _kernel_constants() -> dict:
+    """The ``constexpr int k...`` tile constants of csrc/segment_reduce.cu."""
+    src = (pathlib.Path(seg_ops.__file__).parents[2] / "csrc" / "segment_reduce.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
 def _kernel_tile_items() -> int:
     """``kTile = kThreads * kItems`` as csrc/segment_reduce.cu sets it."""
-    src = (pathlib.Path(seg_ops.__file__).parents[2] / "csrc" / "segment_reduce.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (kThreads|kItems) = (\d+);", src))
-    return int(consts["kThreads"]) * int(consts["kItems"])
+    consts = _kernel_constants()
+    return consts["kThreads"] * consts["kItems"]
+
+
+def _cols_tiling(width: int, elem: int) -> tuple:
+    """``(chunk_items, tile_items)`` of the cols route for rows of ``width``
+    elements of ``elem`` bytes, as ``cols_geom`` of csrc/segment_reduce.cu
+    sizes them: ``lanes`` threads across at most ``kColsSlice`` columns (a
+    power of two up to 32), ``kThreads / lanes`` row groups, a chunk of as
+    many items as ``kColsChunkBytes`` of staged rows hold (at most
+    ``kColsMaxChunkItems``, a multiple of the groups, at least one a group),
+    ``kColsChunks`` chunks a tile."""
+    c = _kernel_constants()
+    slice_ = min(width, c["kColsSlice"])
+    lanes = 32 if slice_ > 32 else 1 << (slice_ - 1).bit_length()
+    groups = c["kThreads"] // lanes
+    rstride = width * elem if width <= slice_ else slice_ * elem + 16
+    items = min(c["kColsChunkBytes"] // rstride, c["kColsMaxChunkItems"])
+    items = max(items - items % groups, groups)
+    return items, items * c["kColsChunks"]
 
 
 def _layout(name, tile):
@@ -691,6 +740,77 @@ def test_segment_tiles_at_kernel_size(layout):
                                           torch.from_numpy(mask), tile)
         _assert_seg_equal(got, _jax_segment_reduce(vals, ids, n, op, dtype, mask), dtype, op)
         assert len(tiles) <= seg_ops.n_tiles(vals.shape[0], n, tile)
+
+
+ELEM = {"float32": 4, "bfloat16": 2, "int32": 4, "bool": 1}
+
+
+def _wide_case(layout, width, op, dtype, masked):
+    """:func:`_tiled_case` with rows of ``width`` elements at the cols
+    route's tile for that width and dtype. Float sums are of k/16 with
+    |k| <= 16, exact in f32 in any order, so that a partial dropped or
+    folded twice shows at these long segments, where random values would
+    differ by rounding alone."""
+    tile = _cols_tiling(width, ELEM[dtype])[1]
+    lengths, below, above = _layout(layout, tile)
+    n = len(lengths)
+    ids = np.concatenate([np.full(below, -1), np.repeat(np.arange(n), lengths),
+                          np.full(above, n)]).astype(np.int32)
+    rng = np.random.default_rng(24 + width)
+    vals = _values(rng, "float32" if dtype == "bfloat16" else dtype, (ids.shape[0], width), op)
+    if op == "sum" and dtype in ("float32", "bfloat16"):  # k/16: exact in any order
+        vals = rng.integers(-16, 17, vals.shape).astype(np.float32) / 16
+    if dtype in ("float32", "bfloat16"):
+        vals[(ids < 0) | (ids >= n)] = np.nan
+    mask = rng.random(ids.shape[0]) < 0.8 if masked else None
+    return tile, vals, ids, n, mask, segment_offsets(torch.from_numpy(ids), n)
+
+
+@pytest.mark.parametrize("layout", ["hub", "tile_edges", "all_empty", "out_of_range"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("width", [8, 64, 75, 100, 512])
+@pytest.mark.parametrize("op,dtype", SEG_KERNEL_CASES)
+def test_wide_segment_tiles_match_jax(op, dtype, width, masked, layout):
+    """The cols route's tiling at its own tile for each GNN width (W-wide
+    heads and carries; a hub over more than three tiles, ends on tile
+    edges, all segments empty, rows outside ``[offsets[0], offsets[n])``
+    planted with NaN) == ``repro.graph.ops.segment_reduce`` on the same
+    inputs; float sums and products at TOL, the rest exactly."""
+    tile, vals, ids, n, mask, off = _wide_case(layout, width, op, dtype, masked)
+    tvals = torch.from_numpy(vals).to(TORCH[dtype])
+    got, tiles = segment_reduce_tiled(tvals, off, op,
+                                      None if mask is None else torch.from_numpy(mask), tile)
+    _assert_seg_equal(got, _jax_segment_reduce(vals, ids, n, op, dtype, mask), dtype, op)
+    assert len(tiles) <= seg_ops.n_tiles(vals.shape[0], n, tile)
+    carried = [t[4] for t in tiles]
+    if layout == "hub":  # a run of carries and the head that ends it
+        hub = max(set(carried) - {None}, key=carried.count)
+        assert carried.count(hub) >= 3 and sum(t[5] for t in tiles) >= 1
+
+
+def test_cols_tiling_rule():
+    """The cols route's chunks at the GNN shapes (the notes of
+    csrc/segment_reduce.cu): SAGE's 400-byte rows 80 items a chunk, GAT's
+    32-byte ones 1,024, PNA's 150-byte bf16 ones 216, GraphCast's 1,024-byte
+    bf16 ones 32; eight chunks a tile; a chunk never stages more than
+    ``kColsChunkBytes`` of rows beyond one a group; and the W-wide scratch
+    at SAGE's [61,886,476, 100] f32 over 4,194,304 segments stays near
+    0.1 GB (the rows route's: ``4 * n_tiles + 1`` words)."""
+    c = _kernel_constants()
+    for width, elem, chunk in ((100, 4, 80), (8, 4, 1024), (75, 2, 216), (512, 2, 32),
+                               (128, 4, 64), (64, 4, 128)):
+        assert _cols_tiling(width, elem) == (chunk, chunk * c["kColsChunks"])
+    for width in range(2, 2100, 7):
+        for elem in (1, 2, 4):
+            chunk, tile = _cols_tiling(width, elem)
+            row = width * elem if width <= c["kColsSlice"] else c["kColsSlice"] * elem + 16
+            # within the chunk's bytes, or one item for each of the 8 row groups
+            assert chunk * row <= c["kColsChunkBytes"] or chunk == c["kThreads"] // 32
+    e, n = 61_886_476, 4_194_304
+    tiles = seg_ops.n_tiles(e, n, _cols_tiling(100, 4)[1])
+    assert 4 * seg_ops.scratch_words(tiles, c["kColsChunks"], 100) < 0.12e9
+    rows_tiles = seg_ops.n_tiles(e, n, _kernel_tile_items())
+    assert seg_ops.scratch_words(rows_tiles, 1, 1) == 4 * rows_tiles + 1
 
 
 @pytest.mark.parametrize("layout", ["hub", "tile_edges", "all_empty", "out_of_range"])
