@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Four paths of the port at real size: the Palgol main path on a Graph500
+Five paths of the port at real size: the Palgol main path on a Graph500
 R-MAT of scale 22 (edgefactor 16), GNN serving of the four GNNs at their
 published widths (graphsage-reddit, gat-cora and pna on an
 ogb_products-sized graph, graphcast on the full_graph_sm shape, sampled
 graphsage-reddit minibatches on a Reddit-sized graph), LM serving of
-h2o-danube-1.8b at its published widths (4 requests, 6144-token prompts,
-32 greedy decode steps), and AutoInt serving at its published widths (39
-fields × 10⁶ rows × 16) at the ``RECSYS_SHAPES`` serve shapes. What it
-does, in order, and fails on the first thing that is wrong:
+h2o-danube-1.8b and of the MoE deepseek-moe-16b at their published widths
+and depths (4 requests, 6144-token prompts, 32 greedy decode steps each),
+and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
+at the ``RECSYS_SHAPES`` serve shapes. What it does, in order, and fails
+on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of ``src/repro_torch/csrc`` from the checkout (one ``nvcc``
@@ -105,6 +106,34 @@ does, in order, and fails on the first thing that is wrong:
    the greedy tokens wherever that reference's top-2 margin exceeds the
    tolerance; exactly 24 flash launches per prefill, all on the
    tensor-core route;
+4b. serves deepseek-moe-16b (28 layers, d 2048, 16 heads of 128, 64
+   routed experts top-6 of width 1408 and 2 shared, 16.9 B parameters in
+   bf16, random weights from the seed) through ``launch.serve`` with the
+   same traffic, twice (the same tokens), and asserts the launches
+   exactly: a prefill 28 ``flash_attention`` (all tensor-core), 56
+   ``gather_rows`` ``scalar`` (dispatch in fill mode, combine read in
+   clip mode) and 28 ``segment_reduce`` ``cols``; a decode step the same
+   but no flash; none on ``vec`` or ``rows``. Prints ``moe_serve``
+   (prefill and decode tokens/s, first and warm, peak GB, init seconds,
+   the share of the prefill's expert slots dropped, from ``moe_ffn``'s
+   counters) and ``device_busy`` of a prefill and of a decode step.
+   Checks: (a) layer 0's real q/k/v (D = 128, causal) through flash
+   against its plain version row by row, and the smallest window cut
+   (64 keys, doubling) that the row check fails; (b) layer 0's MoE FFN on
+   its real ``ln2`` input against the same FFN with both graph kernels'
+   wrappers pointed at their plain versions (3e-2·max|y|), against a
+   float64 oracle over 256 tokens, and its keep mask on the host (each
+   expert keeps its first ``cap`` slots in (token, slot) order); (c) a
+   second serve at ``capacity_factor = E/k`` (no slot dropped) against
+   one teacher-forced prefill with the routing pinned to the served one
+   (bf16 roundings flip near-tied experts between the two; the flips and
+   their margins are printed), as the LM check does, on the dense
+   attention path (2048-token prompts; there position 0, prefill against
+   prefill, measures the rounding floor), and printed unchecked on the
+   served flash path. Before (c) it times the three kernels at this
+   path's shapes beside their bounds, plain versions and library calls
+   (with ``--moe-only`` this phase runs alone after the build, and prints
+   no result line);
 5. serves AutoInt (random tables from the seed): ``serve_p99`` (batch 512)
    logits against an independent float64 numpy forward, ``serve_bulk``
    (batch 262,144), and ``retrieval_cand`` (one query, 10⁶ candidates)
@@ -126,6 +155,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -2220,6 +2250,488 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
             "scale": scale, "max_abs_err": err}
 
 
+# -- 4b. MoE serving: deepseek-moe-16b ------------------------------------------
+
+#: prefill tokens held to the float64 oracle in check (b)
+MOE_ORACLE_TOKENS = 256
+#: the prompt length of check (c) on the dense path: its reference prefill
+#: holds f32 scores [B, H, S, S], 9.8 GB a layer at 6144 tokens, 1.1 at 2048
+MOE_TF_PROMPT = 2048
+
+
+def moe_counters(zero: bool = False) -> dict:
+    """The MoE path's launch counters (``flash_attention`` and the two graph
+    kernels, per route) and ``moe_ffn``'s routed and dropped slots, all set
+    to 0 first with ``zero``."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.transformer import moe
+
+    out = graph_counters(zero)
+    for counter in ("launches", "launches_tc", "launches_simt"):
+        if zero:
+            setattr(flash_attention, counter, 0)
+        out["flash_attention" + counter[8:]] = getattr(flash_attention, counter)
+    if zero:
+        moe.moe_ffn.slots, moe.moe_ffn.dropped = 0, 0
+    out["moe_slots"] = moe.moe_ffn.slots
+    out["moe_dropped"] = int(moe.moe_ffn.dropped)
+    return out
+
+
+def require_moe_launches(counts: dict, what: str, n_layers: int, prefills: int, steps: int):
+    """Exactly ``n_layers`` flash launches a prefill, all on the tensor
+    cores, and ``2·n_layers`` ``gather_rows`` ``scalar`` and ``n_layers``
+    ``segment_reduce`` ``cols`` launches a prefill and a decode step; none
+    on ``vec``, ``rows`` or the SIMT flash route."""
+    passes = prefills + steps
+    want = {
+        "flash_attention": n_layers * prefills, "flash_attention_tc": n_layers * prefills,
+        "flash_attention_simt": 0,
+        "gather_rows": 2 * n_layers * passes, "gather_rows_scalar": 2 * n_layers * passes,
+        "gather_rows_vec": 0,
+        "segment_reduce": n_layers * passes, "segment_reduce_cols": n_layers * passes,
+        "segment_reduce_rows": 0,
+    }
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"moe {what}: launches {got}, want {want}")
+
+
+@contextlib.contextmanager
+def moe_routes(log: list, pins=None):
+    """``moe.route`` wrapped, restored on the way out. Without ``pins``
+    each call appends its expert ids to ``log``. With ``pins``, call ``i``
+    routes to the ids ``pins[i]`` in place of its own, each gate its own
+    probability at that id, normalised over the k as ``route`` does, and
+    appends to ``log`` the tokens whose own top-k set differs from the
+    pinned one and each token's own log-probability gap between its k-th
+    and (k+1)-th expert."""
+    from repro_torch.models.transformer import moe
+
+    route, calls = moe.route, iter(pins or ())
+
+    def wrapped(x, router_w, mcfg):
+        idx, gate, aux = route(x, router_w, mcfg)
+        if pins is None:
+            log.append(idx)
+            return idx, gate, aux
+        pin = next(calls)
+        probs = torch.softmax(x.float() @ router_w, dim=-1)
+        top = probs.topk(mcfg.top_k + 1, dim=-1).values.log()
+        log.append(((idx.sort(1).values != pin.sort(1).values).any(1),
+                    top[:, -2] - top[:, -1]))
+        pg = probs.gather(1, pin.long())
+        return pin, pg / pg.sum(dim=-1, keepdim=True).clamp_min(1e-9), aux
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
+    """Serve ``cfg`` (deepseek-moe-16b: 28 layers, d 2048, 64 routed experts
+    top-6 and 2 shared, random weights from ``seed``) through
+    ``repro_torch.launch.serve``: a prefill of ``batch`` random prompts and
+    ``steps`` greedy decode steps, twice (the same tokens), with the launches
+    of one serve, one prefill and one decode step asserted exactly. Checks:
+    (a) layer 0's real q/k/v through ``flash_attention`` against its plain
+    version row by row, and the smallest window cut (from 64 keys, doubling)
+    that the row check catches; (b) layer 0's MoE FFN on its real ``ln2``
+    input against the same ``moe_ffn`` on the plain versions, against a
+    float64 oracle over ``MOE_ORACLE_TOKENS`` tokens, and its keep mask on
+    the host; (c) a second serve with ``capacity_factor = E / k`` (no slot
+    dropped) against one teacher-forced prefill over the prompts and the
+    fed tokens, the prefill's routing pinned to the serve's (see
+    :func:`moe_teacher_forced`): checked on the dense attention path at
+    ``MOE_TF_PROMPT`` tokens, printed unchecked on the served flash path.
+    Returns the kernel rows at this path's shapes on the card, else
+    ``[]``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import common
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
+
+    t_phase = time.perf_counter()
+    mcfg = cfg.moe
+    n_layers, e, k = cfg.n_layers, mcfg.n_experts, mcfg.top_k
+    reset_peak(device)
+    sync(device)
+    t0 = time.perf_counter()
+    params = tm.init(cfg, seed=seed, device=device)
+    prompts = srv.random_prompts(cfg, batch, prompt_len, seed + 1, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    init_peak = peak_gb(device)
+    reset_peak(device)
+
+    moe_counters(zero=True)
+    res = srv.serve(params, cfg, prompts, steps)
+    serve_counts = moe_counters()
+    peak = peak_gb(device)
+    warm = srv.serve(params, cfg, prompts, steps)  # every kernel loaded
+    if not torch.equal(warm.tokens, res.tokens):
+        raise AssertionError("moe: a second greedy run gave other tokens")
+
+    # one prefill and one decode step alone: their launches, the prefill's
+    # drops, and on the card where their time goes
+    def profiled(fn, what):
+        return device_busy(fn, what, card) if device.type == "cuda" else fn()
+
+    moe_counters(zero=True)
+    _, cache = profiled(lambda: tm.prefill(params, prompts, cfg, capacity=res.capacity,
+                                           full_logits=False), "moe prefill")
+    prefill_counts = moe_counters()
+    moe_counters(zero=True)
+    profiled(lambda: tm.decode_step_(params, cache, res.tokens[:, :1], cfg), "moe decode step")
+    step_counts = moe_counters()
+    del cache
+    if device.type == "cuda":
+        require_moe_launches(serve_counts, "serve", n_layers, 1, steps)
+        require_moe_launches(prefill_counts, "prefill", n_layers, 1, 0)
+        require_moe_launches(step_counts, "decode step", n_layers, 0, 1)
+    if step_counts["moe_dropped"] != 0:
+        raise AssertionError(f"moe: a decode step of {batch} tokens dropped "
+                             f"{step_counts['moe_dropped']} slots")
+    n_prompt, n_dec = batch * prompt_len, batch * steps
+    say(
+        "moe_serve", card, arch=cfg.name, n_layers=n_layers, d_model=cfg.d_model,
+        n_experts=e, top_k=k, n_shared_experts=mcfg.n_shared_experts,
+        n_params=cfg.n_params(), n_active_params=cfg.n_active_params(), batch=batch,
+        prompt_len=prompt_len, decode_steps=steps, cache_capacity=res.capacity,
+        expert_capacity_prefill=moe.capacity(n_prompt, mcfg),
+        expert_capacity_decode=moe.capacity(batch, mcfg), params_init_s=init_s,
+        init_peak_allocated_gb=init_peak,
+        prefill_s=[res.prefill_s, warm.prefill_s],
+        prefill_tok_s=[n_prompt / res.prefill_s, n_prompt / warm.prefill_s],
+        decode_s=[res.decode_s, warm.decode_s],
+        decode_tok_s=[n_dec / res.decode_s, n_dec / warm.decode_s],
+        peak_allocated_gb=peak, prefill_slots=prefill_counts["moe_slots"],
+        prefill_dropped=prefill_counts["moe_dropped"],
+        prefill_dropped_share=prefill_counts["moe_dropped"] / prefill_counts["moe_slots"],
+        launches_serve=serve_counts, launches_prefill=prefill_counts,
+        launches_decode_step=step_counts, first_stream=res.tokens[0, :12].tolist(),
+    )
+
+    # (a) layer 0's real q/k/v through the kernel and its plain version
+    lp = params.layer(0)
+    x = params.embed[prompts.long()].to(cfg.cdtype)
+    pos = torch.arange(prompt_len, dtype=torch.int32, device=device)
+    q, kk, v = tm.project_qkv(lp, common.rms_norm(x, lp["ln1"]), pos, cfg)
+    q, kk, v = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
+    scale = cfg.head_dim**-0.5
+    attn = flash_attention(q, kk, v, True, None, scale)
+    want = flash_attention_plain(q, kk, v, True, None, scale)
+    flash_err = (attn.float() - want.float()).abs().max().item()
+    row_ratio = flash_row_check(attn, want, "at the MoE prefill's layer 0")
+    # the row check must see a window cut at the last rows: the plain version
+    # with window S - cut, from 64 keys doubling, must fail it
+    cut = 64
+    while True:
+        if cut >= prompt_len:
+            raise AssertionError("the flash row check passes every window cut")
+        cut_worst, cut_ratio = flash_rows(
+            flash_attention_plain(q, kk, v, True, prompt_len - cut, scale), want)
+        if cut_worst > 1.0:
+            break
+        cut *= 2
+    del want
+
+    # (b) layer 0's MoE FFN on its real ln2 input
+    a = attn.transpose(1, 2).reshape(batch, prompt_len, -1) @ lp["wo"]
+    hn = common.rms_norm(x + a, lp["ln2"]).reshape(n_prompt, cfg.d_model)
+    del a, x
+    mp = tm.moe_params(lp)
+    y, _ = moe.moe_ffn(hn, mp, mcfg)
+    with plain_graph_kernels():
+        y_plain, _ = moe.moe_ffn(hn, mp, mcfg)
+    y_scale = y_plain.abs().max().item()
+    y_err = (y.float() - y_plain.float()).abs().max().item()
+    if not y_err <= TOL[cfg.cdtype] * y_scale:
+        raise AssertionError(f"moe_ffn on the kernels against the plain versions: max|Δ| "
+                             f"{y_err} > {TOL[cfg.cdtype]}·{y_scale}")
+    del y_plain
+    cap = moe.capacity(n_prompt, mcfg)
+    idx, gate, _ = moe.route(hn, mp["router"], mcfg)
+    pos_e, keep = moe.dispatch_indices(idx, e, cap)
+    # the keep mask on the host: each expert keeps min(count, cap) slots,
+    # its first cap in (token, slot) order, at positions 0, 1, ...
+    flat_h, keep_h, pos_h = (t.cpu().numpy() for t in (idx.reshape(-1), keep, pos_e))
+    for ex in range(e):
+        mine = np.flatnonzero(flat_h == ex)
+        if not (np.array_equal(keep_h[mine], np.arange(mine.size) < cap)
+                and np.array_equal(pos_h[mine], np.arange(mine.size))):
+            raise AssertionError(f"moe: expert {ex}'s keep mask is not its first {cap} slots")
+    counts_e = np.bincount(flat_h, minlength=e)
+    # float64 oracle: each kept (token, expert) SwiGLU densely from the
+    # weights, gate-weighted, plus the shared experts
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    toks = torch.randperm(n_prompt, generator=gen, device=device)[:MOE_ORACLE_TOKENS]
+    xs = hn[toks].double()
+    ids, gs = idx[toks], gate[toks].double()
+    ks = keep.reshape(n_prompt, k)[toks]
+    oracle = torch.zeros_like(xs)
+    for ex in range(e):
+        rows, slots = ((ids == ex) & ks).nonzero(as_tuple=True)
+        if rows.numel():
+            xe = xs[rows]
+            h = F.silu(xe @ mp["w1"][ex].double()) * (xe @ mp["w3"][ex].double())
+            oracle.index_add_(0, rows, gs[rows, slots, None] * (h @ mp["w2"][ex].double()))
+    sh = {name: w.double() for name, w in mp["shared"].items()}
+    oracle += common.swiglu(xs, sh["w1"], sh["w3"], sh["w2"])
+    o_scale = oracle.abs().max().item()
+    o_err = (y[toks].double() - oracle).abs().max().item()
+    if not o_err <= TOL[cfg.cdtype] * o_scale:
+        raise AssertionError(f"moe_ffn against the float64 oracle: max|Δ| {o_err} > "
+                             f"{TOL[cfg.cdtype]}·{o_scale}")
+    del oracle, xs, sh, y
+    layer = {"hn": hn, "idx": idx, "gate": gate, "pos": pos_e, "keep": keep, "cap": cap,
+             "params": mp, "q": q, "k": kk, "v": v, "scale": scale, "flash_err": flash_err}
+    say("moe_checks", card, ok=True, flash_max_abs_err=flash_err,
+        flash_max_row_ratio=row_ratio, flash_row_limit=list(FLASH_ROW[cfg.cdtype]),
+        window_cut_caught=cut, window_cut_row_ratio=cut_ratio,
+        window_cut_worst_over_limit=cut_worst,
+        ffn_versus_plain_max_abs_diff=y_err, ffn_max_abs=y_scale,
+        ffn_tol=TOL[cfg.cdtype], oracle_tokens=MOE_ORACLE_TOKENS,
+        oracle_max_abs_diff=o_err, oracle_max_abs=o_scale,
+        layer0_expert_capacity=cap, layer0_dropped=int((~keep).sum()),
+        layer0_largest_expert=int(counts_e.max()), layer0_smallest_expert=int(counts_e.min()))
+
+    rows = moe_kernel_rows(layer, serve_counts) if device.type == "cuda" else []
+    say("moe_kernels", card, rows=rows)
+    del layer
+
+    # (c) The comparison can be no tighter than two prefills of the same
+    # tokens at two batch shapes, which differ by roundings that 28 bf16
+    # layers amplify to a few % of a logit row. On the served flash path
+    # the prefills score attention in f32 and the decode step in bf16 (the
+    # JAX package's attention_dense), so position 0 (prefill against
+    # prefill) shows none of that step's share; it is printed unchecked.
+    # On the dense path, which the step itself takes, all three score
+    # alike and position 0 measures the floor: that run is the check.
+    served = moe_teacher_forced(params, cfg, prompts, steps)
+    say("moe_teacher_forced", card, checked=False, **served)
+    dense = moe_teacher_forced(params, dataclasses.replace(cfg, attn_impl="dense"),
+                               prompts[:, :MOE_TF_PROMPT], steps)
+    say("moe_teacher_forced", card, checked=True, **dense)
+    if not dense["within_limit"]:
+        raise AssertionError(f"moe decode against the teacher-forced dense prefill: {dense}")
+    del params
+    say("moe_phase", card, seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def moe_teacher_forced(params, cfg, prompts, steps):
+    """Serve ``prompts`` with ``cfg`` at ``capacity_factor = E / k`` (every
+    expert's capacity ≥ T: no slot dropped, which the counters confirm),
+    then compare each decode step's logits and the greedy tokens with one
+    teacher-forced prefill over the prompts and the fed tokens, as the LM
+    path does. In bf16 a decode step and the prefill differ by roundings,
+    and a token whose k-th and (k+1)-th experts are that close takes the
+    other expert in one of them; the output then jumps by that expert's
+    gated difference. So the prefill's routing is pinned to the serve's
+    (:func:`moe_routes`: its own probabilities at the served experts), and
+    the flips it would have made are counted with their margins. Returns
+    the comparison's numbers; ``within_limit`` is the LM path's test (every
+    logit within ``TOL``·max|ref|, the greedy tokens equal where the
+    reference's top-2 margin is larger)."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.models.transformer import model as tm
+
+    b, prompt_len = prompts.shape
+    n_layers, k = cfg.n_layers, cfg.moe.top_k
+    nd = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / k))
+    log = []
+    moe_counters(zero=True)
+    with moe_routes(log):
+        res = srv.serve(params, nd, prompts, steps)
+    # a prefill's ids per layer, then each decode step's, over (b, position)
+    pins = [torch.cat([log[i].reshape(b, prompt_len, k)]
+                      + [log[n_layers * (1 + s) + i].reshape(b, 1, k) for s in range(steps)],
+                      dim=1).reshape(-1, k) for i in range(n_layers)]
+    del log
+    fed = torch.cat([prompts, res.tokens[:, :steps]], dim=1)
+    flips = []
+    with moe_routes(flips, pins):
+        ref = tm.prefill(params, fed, nd, full_logits=True)[0]
+    dropped = moe_counters()["moe_dropped"]
+    if dropped != 0:
+        raise AssertionError(f"moe (c): {dropped} slots dropped at capacity factor E/k")
+    del pins
+    ref = ref[:, prompt_len - 1:].float()  # [B, steps + 1, V]
+    got = torch.stack([lg.float() for lg in res.logits], dim=1)
+    scale = ref.abs().max().item()
+    atol = TOL[cfg.cdtype] * scale
+    diff = (got - ref).abs()
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > atol
+    agree = ref.argmax(-1).to(torch.int32) == res.tokens
+    differ = torch.stack([f for f, _ in flips]).reshape(n_layers, b, -1)  # [L, B, S + steps]
+    gap = torch.stack([g for _, g in flips]).reshape(n_layers, b, -1)
+    dec, pro = differ[:, :, prompt_len:], differ[:, :, :prompt_len]
+    # per position, the largest ‖Δ‖ / ‖ref‖ over the batch; position 0 is
+    # the serve's prefill against the reference (no decode step between)
+    row_rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).amax(0)
+    return {
+        "within_limit": diff.max().item() <= atol and bool(agree[decided].all()),
+        "attn_impl": cfg.attn_impl, "capacity_factor": nd.moe.capacity_factor,
+        "prompt_len": prompt_len, "steps": steps, "dropped": dropped,
+        "logits_max_abs_diff": diff.max().item(), "logits_tol": atol, "logits_max_abs": scale,
+        "row_rel_err_max": row_rel[1:].max().item(), "row_rel_err_position0": row_rel[0].item(),
+        "positions": int(decided.numel()), "greedy_checked": int(decided.sum().item()),
+        "greedy_agree_all": int(agree.sum().item()),
+        "flips_decoded_pairs": int(dec.sum()), "decoded_pairs": dec.numel(),
+        "flips_decoded_positions": int(dec.any(0).sum()), "decoded_positions": dec[0].numel(),
+        "flips_prompt_pairs": int(pro.sum()), "prompt_pairs": pro.numel(),
+        "flip_gap_max": float(gap[differ].max()) if bool(differ.any()) else None,
+        "gap_median": float(gap.median()),
+    }
+
+
+#: each kernel's source and the TPU kernel it replaces
+KERNEL_FILES = {
+    "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
+                    "src/repro/kernels/gather_rows/kernel.py:20"),
+    "segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce/kernel.py:55"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:103"),
+}
+
+
+def moe_kernel_rows(layer, launches):
+    """The three kernels at the MoE prefill's layer-0 shapes, each first
+    held to its plain version: ``gather_rows`` ``scalar`` of the dispatch
+    (fill mode, ``[E·C, 2048]`` bf16 from the ``[T, 2048]`` ``ln2``
+    input, the inverse map built here by a boolean index and held to
+    ``moe.dispatch``), of the combine read (clip mode, ``[T·k, 2048]`` from
+    the expert outputs), ``segment_reduce`` ``cols`` of the gate-weighted
+    rows (``[T·k, 2048]`` → ``[T, 2048]``, k rows a segment) and
+    ``flash_attention`` on layer 0's q/k/v (``[4, 16, 6144, 128]``,
+    causal). Each beside its bound (a gather reads each distinct row once),
+    its plain version and its library call (``index_select``, on a table
+    padded with a zero row for the fill mode; ``index_add_`` in place;
+    ``scaled_dot_product_attention``, causal). ``launches`` are one serve's;
+    a gather row takes half of ``gather_rows``', one launch a layer a pass
+    for each of the two gathers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_plain, gather_rows, gather_rows_plain,
+        segment_reduce, segment_reduce_plain,
+    )
+    from repro_torch.models.transformer import moe
+
+    hn, idx, gate, pos, keep, cap, mp = (layer[name] for name in (
+        "hn", "idx", "gate", "pos", "keep", "cap", "params"))
+    t, d = hn.shape
+    e, k = mp["w1"].shape[0], idx.shape[1]
+    elem = hn.element_size()
+    token_id = torch.arange(t, dtype=torch.int32, device="cuda").repeat_interleave(k)
+    slot = torch.where(keep, idx.reshape(-1) * cap + pos, e * cap)
+    src = torch.full((e * cap,), t, dtype=torch.int32, device="cuda")
+    src[slot[keep].long()] = token_id[keep]
+
+    def row(name, case, fn, plain, library, library_name, nbytes, nops, n_launches, err,
+            shape, kernel_route, ops_per_s=SCALAR_OPS_PER_S, **extra):
+        b_ms, by = bound(nbytes, nops, ops_per_s)
+        ms = cuda_ms(fn, reps=10)
+        source, replaces = KERNEL_FILES[name]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "path": "moe", "case": case, "launches": n_launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": cuda_ms(plain, reps=3), "bound_ms": b_ms, "bound_by": by,
+            "library_ms": cuda_ms(library, reps=10), "library": library_name,
+            "shape": shape, "kernel_route": kernel_route, "bound_share": b_ms / ms,
+            "gb_s": nbytes / ms / 1e6, **extra,
+        }
+
+    # dispatch: the expert input, zero rows where no token landed
+    got = gather_rows(hn, src, 0)
+    want = gather_rows_plain(hn, src, 0)
+    if not (torch.equal(got, want) and torch.equal(got, moe.dispatch(hn, slot, token_id, e * cap))):
+        raise AssertionError("gather_rows (moe dispatch) disagrees with its plain version")
+    distinct = int(torch.unique(src[src < t]).numel())
+    padded = torch.cat([hn, hn.new_zeros((1, d))])
+    rows = [row("gather_rows", "moe dispatch, fill mode", lambda: gather_rows(hn, src, 0),
+                lambda: gather_rows_plain(hn, src, 0),
+                lambda: torch.index_select(padded, 0, src), "index_select on a padded table",
+                distinct * d * elem + src.numel() * (4 + d * elem), 0,
+                launches["gather_rows_scalar"] // 2, float((got - want).abs().max()),
+                f"table bf16[{t}, {d}], idx i32[{e * cap}] ({e} experts × {cap})", "scalar",
+                distinct_rows=distinct)]
+    del padded, want
+
+    # the experts, then the combine read of each (token, slot)'s row
+    xin = got.reshape(e, cap, d)
+    h = F.silu(torch.bmm(xin, mp["w1"])) * torch.bmm(xin, mp["w3"])
+    out_slots = torch.bmm(h, mp["w2"]).reshape(e * cap, d)
+    del xin, h, got
+    cidx = slot.clamp(max=e * cap - 1)
+    got = gather_rows(out_slots, cidx)
+    want = gather_rows_plain(out_slots, cidx)
+    if not torch.equal(got, want):
+        raise AssertionError("gather_rows (moe combine) disagrees with its plain version")
+    distinct = int(torch.unique(cidx).numel())
+    rows.append(row("gather_rows", "moe combine read, clip mode",
+                    lambda: gather_rows(out_slots, cidx),
+                    lambda: gather_rows_plain(out_slots, cidx),
+                    lambda: torch.index_select(out_slots, 0, cidx), "index_select",
+                    distinct * d * elem + cidx.numel() * (4 + d * elem), 0,
+                    launches["gather_rows_scalar"] // 2, float((got - want).abs().max()),
+                    f"table bf16[{e * cap}, {d}], idx i32[{t * k}]", "scalar",
+                    distinct_rows=distinct))
+    del out_slots, want
+
+    # the combine: k gate-weighted rows a token
+    vals = got.mul_((gate.reshape(-1) * keep).to(hn.dtype)[:, None])
+    offsets = torch.arange(0, k * (t + 1), k, dtype=torch.int32, device="cuda")
+    sgot = segment_reduce(vals, token_id, t, "sum", offsets=offsets)
+    swant = segment_reduce_plain(vals, token_id, t, "sum")
+    mag = segment_reduce(vals.abs(), token_id, t, "sum", offsets=offsets).float()
+    if not bool(((sgot.float() - swant.float()).abs() <= TOL[hn.dtype] * mag).all()):
+        raise AssertionError("segment_reduce (moe combine) disagrees with its plain version")
+    err = float((sgot.float() - swant.float()).abs().max())
+    del swant, mag
+    buf = torch.zeros((t, d), dtype=hn.dtype, device="cuda")
+    rows.append(row("segment_reduce", "moe combine sum",
+                    lambda: segment_reduce(vals, token_id, t, "sum", offsets=offsets),
+                    lambda: segment_reduce_plain(vals, token_id, t, "sum"),
+                    lambda: buf.index_add_(0, token_id, vals), "index_add_ in place",
+                    vals.numel() * elem + offsets.numel() * 4 + t * d * elem, vals.numel(),
+                    launches["segment_reduce_cols"], err,
+                    f"values bf16[{t * k}, {d}] sum, {t} segments of {k} rows", "cols"))
+    del buf, vals, sgot, got
+
+    # flash on layer 0's q/k/v: causal, no window, D = 128, MHA
+    q, kk, v, scale = layer["q"], layer["k"], layer["v"], layer["scale"]
+    b, nh, sq, dh = q.shape
+    pairs = sq * (sq + 1) // 2
+    flops = pairs * b * nh * 4 * dh
+    lib = F.scaled_dot_product_attention(q, kk, v, is_causal=True, scale=scale)
+    lib_err = float((lib.float() - flash_attention(q, kk, v, True, None, scale).float())
+                    .abs().max())
+    del lib
+    rows.append(row("flash_attention", "moe prefill attention",
+                    lambda: flash_attention(q, kk, v, True, None, scale),
+                    lambda: flash_attention_plain(q, kk, v, True, None, scale),
+                    lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True, scale=scale),
+                    "scaled_dot_product_attention(is_causal)",
+                    (q.numel() * 2 + kk.numel() + v.numel()) * elem, flops,
+                    launches["flash_attention"], layer["flash_err"],
+                    f"q bf16[{b},{nh},{sq},{dh}], kv the same, causal, no window",
+                    "tc (TMA + wgmma)",
+                    ops_per_s=BF16_TENSOR_OPS_PER_S, library_max_abs_diff=lib_err,
+                    kept_pairs_per_head=pairs))
+    rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
+    return rows
+
+
 # -- 5. AutoInt serving --------------------------------------------------------
 
 
@@ -2518,6 +3030,10 @@ def main() -> int:
         max_rel_err=tc_probe(gen))
     if "--probe" in sys.argv[1:]:  # the first call on a new kernel: stop here
         return 0
+    if "--moe-only" in sys.argv[1:]:  # a rehearsal of the MoE phase: no result line
+        moe_path(configs.get_spec("deepseek-moe-16b").config, lm_batch, prompt_len,
+                 decode_steps, seed, device, card)
+        return 0
     if "--gnn-only" in sys.argv[1:]:  # a rehearsal of the GNN phase: no result line
         say("kernel_check", card, ok=True, cases=check_wide_routes(device, gen),
             versus="plain PyTorch versions")
@@ -2547,6 +3063,10 @@ def main() -> int:
     say("memory", card, path="gnn", allocated_after_gb=torch.cuda.memory_allocated() / 1e9)
     lm = lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len,
                  decode_steps, seed, device, card)
+    torch.cuda.empty_cache()
+    rows += moe_path(configs.get_spec("deepseek-moe-16b").config, lm_batch, prompt_len,
+                     decode_steps, seed, device, card)
+    torch.cuda.empty_cache()
     spec = configs.get_spec("autoint")
     rec = autoint_path(spec.config, spec.shapes, seed, device, card)
     rows += model_kernel_rows(lm, rec)

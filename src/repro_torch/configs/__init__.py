@@ -1,13 +1,11 @@
 """Architecture registry: ``get_spec(arch_id)`` / ``all_arch_ids()``.
 
-The JAX package's registry (``repro.configs``) over the architectures the
-port runs so far: the dense LMs (``h2o-danube-1.8b``, ``qwen3-32b``,
-``qwen2.5-32b``), the four GNNs (forward) and AutoInt. Each config module
-is a copy of the JAX package's, differing only in the package name.
-``resolve_gnn_config`` binds the shape-dependent dims (d_feat, n_classes)
-that GNN configs leave open. The MoE LMs are known ids whose model is not
-ported yet: asking for them raises ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The JAX package's registry (``repro.configs``), all ten of its ids: the
+dense LMs (``h2o-danube-1.8b``, ``qwen3-32b``, ``qwen2.5-32b``), the MoE
+LMs (``deepseek-moe-16b``, ``qwen3-moe-235b-a22b``), the four GNNs
+(forward) and AutoInt. Each config module is a copy of the JAX package's,
+differing only in the package name. ``resolve_gnn_config`` binds the
+shape-dependent dims (d_feat, n_classes) that GNN configs leave open.
 """
 
 from __future__ import annotations
@@ -22,6 +20,8 @@ _MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "pna": "repro_torch.configs.pna",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "graphcast": "repro_torch.configs.graphcast",
@@ -29,23 +29,13 @@ _MODULES = {
     "autoint": "repro_torch.configs.autoint",
 }
 
-#: ids of the JAX registry whose models the port does not run yet
-_NOT_PORTED = {
-    "qwen3-moe-235b-a22b": "the MoE transformer (ROADMAP A7)",
-    "deepseek-moe-16b": "the MoE transformer (ROADMAP A7)",
-}
-
 
 def all_arch_ids() -> List[str]:
-    """The ids the port runs."""
+    """Every architecture id of the registry."""
     return list(_MODULES)
 
 
 def get_spec(arch_id: str) -> ArchSpec:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} needs {_NOT_PORTED[arch_id]}, not ported yet"
-        )
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id]).spec()

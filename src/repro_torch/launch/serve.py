@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --batch 4 --prompt-len 6144 --decode-steps 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --batch 4 --prompt-len 6144 --decode-steps 32          # MoE, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 The JAX package's ``repro.launch.serve`` on the port: prefill of random
@@ -9,7 +11,9 @@ prompts (last-position logits) with the ring-buffer KV cache sized for
 prompt + decode, then one ``decode_step_`` per token. The parameters are
 random, from ``--seed``. ``--temperature 0`` decodes greedily; above 0 it
 samples from a ``torch.Generator`` (not JAX's bits). Runs on
-``--device cuda`` unless told otherwise.
+``--device cuda`` unless told otherwise. Every LM id of the registry
+serves, the MoE ones (deepseek-moe-16b: 16.9 B parameters, 33.8 GB in
+bf16, on one 80 GB card) included.
 """
 
 from __future__ import annotations

@@ -42,9 +42,16 @@ def tensors_from_arrays(tree: Any, device: torch.device) -> Any:
 
 def stack_init(n: int, init_fn: Callable[[], Dict[str, torch.Tensor]]):
     """Call ``init_fn`` ``n`` times and stack each leaf along a new axis 0
-    (the layer-stacked layout of the JAX package's ``stack_init``)."""
-    layers = [init_fn() for _ in range(n)]
-    return {name: torch.stack([lp[name] for lp in layers]) for name in layers[0]}
+    (the layer-stacked layout of the JAX package's ``stack_init``). Each
+    ``[n, ...]`` leaf is allocated once and filled layer by layer, so the
+    peak is the stacked leaves plus one layer, not twice the leaves."""
+    out = {}
+    for i in range(n):
+        for name, t in init_fn().items():
+            if i == 0:
+                out[name] = t.new_empty((n,) + t.shape)
+            out[name][i] = t
+    return out
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

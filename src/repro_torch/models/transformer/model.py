@@ -15,7 +15,12 @@ in-place methods: it writes the new K/V and the advanced length into the
 cache's own tensors and returns only the logits. The JAX function returns
 a new cache; a copy of the whole ``[L, B, C, Hkv, Dh]`` cache per token is
 what the port saves. A caller that needs the cache from before a step
-clones it first. MoE configs raise ``NotImplementedError`` (ROADMAP A7).
+clones it first.
+
+MoE configs (``cfg.moe``) take :mod:`moe`'s FFN in every layer, its
+dispatch and combine on the ``gather_rows`` and ``segment_reduce``
+kernels; ``forward`` returns the balance loss summed over the layers, as
+the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
 """
 
 from __future__ import annotations
@@ -29,14 +34,8 @@ from torch import nn
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import common
 from repro_torch.models.transformer import attention as attn_mod
+from repro_torch.models.transformer import moe as moe_mod
 from repro_torch.models.transformer.config import TransformerConfig
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE transformer is not ported yet (ROADMAP A7)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +45,8 @@ def _dense_only(cfg: TransformerConfig) -> None:
 class TransformerParams(nn.Module):
     """``embed [V, D]``, ``unembed [V, D]`` (``None`` when tied), ``ln_f [D]``
     and ``layers``: the JAX tree's per-layer leaves stacked on axis 0, named
-    by their path (``ffn/w1`` → ``ffn_w1``). Inference only: no gradients."""
+    by their path (``ffn/w1`` → ``ffn_w1``, ``moe/shared/w1`` →
+    ``moe_shared_w1``). Inference only: no gradients."""
 
     def __init__(self, tensors: Mapping[str, Any]):
         super().__init__()
@@ -82,17 +82,20 @@ def init_layer(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, torch.
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
         p["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
-    p["ffn_w1"] = common.dense_init(gen, d, cfg.d_ff, dt)
-    p["ffn_w3"] = common.dense_init(gen, d, cfg.d_ff, dt)
-    p["ffn_w2"] = common.dense_init(gen, cfg.d_ff, d, dt)
+    if cfg.moe is None:
+        p["ffn_w1"] = common.dense_init(gen, d, cfg.d_ff, dt)
+        p["ffn_w3"] = common.dense_init(gen, d, cfg.d_ff, dt)
+        p["ffn_w2"] = common.dense_init(gen, cfg.d_ff, d, dt)
+    else:
+        p.update(_flatten(moe_mod.init_moe_params(gen, d, cfg.moe, dt), "moe_"))
     return p
 
 
 def init(cfg: TransformerConfig, seed: int = 0, device="cuda") -> TransformerParams:
     """Random parameters from a ``torch.Generator`` on ``device``: the JAX
     initialisers' distributions (embeddings N(0, 0.02²), dense layers
-    N(0, 1/d_in), norms 1, biases 0), not their bits."""
-    _dense_only(cfg)
+    N(0, 1/d_in), norms 1, biases 0; :func:`moe.init_moe_params`), not
+    their bits."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -132,7 +135,6 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 def params_from_arrays(cfg: TransformerConfig, tree: Mapping[str, Any], device="cuda"):
     """The JAX package's parameter tree (``init``'s output, each leaf as a
     numpy array) as :class:`TransformerParams` on ``device``."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     tensors = {
         name: _tensor(tree[name], dev)
@@ -187,8 +189,25 @@ def _attn_block(p, x, q_pos, k_pos, cfg, k_cache=None, v_cache=None, kv_mask=Non
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"], new_k, new_v
 
 
+def moe_params(p) -> Dict[str, Any]:
+    """A layer's ``moe_*`` leaves, nested as :func:`moe.init_moe_params`
+    names them (``moe_shared_w1`` → ``["shared"]["w1"]``)."""
+    out: Dict[str, Any] = {}
+    for name, t in p.items():
+        if name.startswith("moe_shared_"):
+            out.setdefault("shared", {})[name[len("moe_shared_"):]] = t
+        elif name.startswith("moe_"):
+            out[name[len("moe_"):]] = t
+    return out
+
+
 def _ffn_block(p, x, cfg):
-    return common.swiglu(x, p["ffn_w1"], p["ffn_w3"], p["ffn_w2"])
+    """The FFN sub-block: (y, aux), aux the MoE balance loss (0.0 dense)."""
+    if cfg.moe is None:
+        return common.swiglu(x, p["ffn_w1"], p["ffn_w3"], p["ffn_w2"]), 0.0
+    b, s, d = x.shape
+    y, aux = moe_mod.moe_ffn(x.reshape(b * s, d), moe_params(p), cfg.moe)
+    return y.reshape(b, s, d), aux
 
 
 def _embed(params: TransformerParams, tokens, cfg):
@@ -198,16 +217,18 @@ def _embed(params: TransformerParams, tokens, cfg):
 @torch.no_grad()
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig):
     """Full forward over ``tokens [B, S]``. Returns (hidden [B, S, D], aux);
-    ``aux`` (the MoE balance loss) is 0."""
-    _dense_only(cfg)
+    ``aux`` is the MoE balance loss summed over the layers (0.0 dense)."""
     x = _embed(params, tokens, cfg)
     pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+    aux = 0.0
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
         x = x + a
-        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
-    return common.rms_norm(x, params.ln_f), 0.0
+        f, aux_l = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
+        x = x + f
+        aux = aux + aux_l
+    return common.rms_norm(x, params.ln_f), aux
 
 
 def logits_from_hidden(params: TransformerParams, hidden, cfg):
@@ -249,7 +270,6 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
     attention; ``length`` advances by one at the end. Every cache tensor is
     updated in place.
     """
-    _dense_only(cfg)
     b = tokens.shape[0]
     c = cache["k"].shape[2]
     length = cache["length"]  # [B] int32
@@ -277,7 +297,7 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
             k_cache=kc, v_cache=vc, kv_mask=kv_mask_full,
         )
         x = x + a
-        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
+        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]
         kc[bidx, slot] = nk[:, 0]
         vc[bidx, slot] = nv[:, 0]
     x = common.rms_norm(x, params.ln_f)
@@ -297,7 +317,6 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     positions. ``full_logits=False`` (serving) unembeds only the final
     position.
     """
-    _dense_only(cfg)
     b, s = tokens.shape
     c = capacity or cache_len(cfg, s)
     keep = min(s, c)
@@ -312,7 +331,7 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
         lp = params.layer(i)
         a, nk, nv = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
         x = x + a
-        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
+        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]
         ks[i][:, kept_slots] = nk[:, s - keep:]
         vs[i][:, kept_slots] = nv[:, s - keep:]
     x = common.rms_norm(x, params.ln_f)

@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN with sort-based token dispatch, on one device.
+
+The one-device half of ``repro.models.transformer.moe``: ``route``,
+``dispatch_indices``, ``capacity`` and ``_moe_ffn_local`` as
+:func:`moe_ffn`. Its expert-parallel ``moe_ffn_ep`` waits for the port's
+``dist`` layer (ROADMAP A8).
+
+The JAX module builds its dispatch on the Pregel substrate's gather and
+scatter-with-combiner primitives; here those primitives are the kernels
+(tokens flattened to T = B·S, k = top_k, E = n_experts, C = capacity):
+
+1. the router in float32, softmax, top-k, gates normalised over the k;
+2. each (token, slot)'s position in its expert by a stable sort of the
+   expert ids; slots past C are dropped (the GShard policy);
+3. dispatch: an inverse map ``src [E·C]`` (token of each expert slot, the
+   sentinel T where no token landed) read by ``graph.ops.gather`` in fill
+   mode — one ``gather_rows`` launch gives the ``[E·C, D]`` expert input
+   with zero rows for the empty slots, the JAX module's zero buffer plus
+   scatter-add of ``x[token_id]`` (each kept slot is written once);
+4. per-expert SwiGLU by ``torch.bmm`` over ``[E, C, D] × [E, D, F]``;
+5. combine: ``graph.ops.gather`` of each (token, slot)'s expert row in
+   clip mode (a dropped slot reads the last row and is weighted 0, so a
+   NaN there still spreads, as in JAX), times its gate, then
+   ``graph.ops.segment_reduce`` "sum" over the k rows of each token
+   (sorted ids, offsets ``k·arange(T+1)``): one ``gather_rows`` and one
+   ``segment_reduce`` launch. The segment sum accumulates in float32 and
+   rounds once; JAX's scatter-add accumulates in the input dtype.
+
+Shared experts (DeepSeekMoE) are a dense SwiGLU over all tokens, added in.
+:func:`moe_ffn` counts the slots it routed and dropped in
+``moe_ffn.slots`` and ``moe_ffn.dropped`` (the latter a device tensor once
+anything is added, so that counting costs no host sync).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.graph import ops as graph_ops
+from repro_torch.models import common
+from repro_torch.models.transformer.config import MoEConfig
+
+
+def init_moe_params(gen: torch.Generator, d_model: int, mcfg: MoEConfig, dtype):
+    """Random MoE parameters from ``gen`` on its device, with the JAX
+    module's leaf names and distributions (not its bits): ``router``
+    float32 ``[D, E]`` N(0, 1/D); ``w1``/``w3`` ``[E, D, F]`` N(0, 1/D);
+    ``w2`` ``[E, F, D]`` N(0, 1/F); with shared experts ``shared/{w1,w3,w2}``
+    likewise at the shared width. Each draw is float32, then cast."""
+    e, f = mcfg.n_experts, mcfg.d_ff_expert
+
+    def normal(shape, scale, dt):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dt)
+
+    s = 1.0 / math.sqrt(d_model)
+    params: Dict = {
+        "router": normal((d_model, e), s, torch.float32),
+        "w1": normal((e, d_model, f), s, dtype),
+        "w3": normal((e, d_model, f), s, dtype),
+        "w2": normal((e, f, d_model), 1.0 / math.sqrt(f), dtype),
+    }
+    if mcfg.n_shared_experts:
+        sf = mcfg.shared_ff
+        params["shared"] = {
+            "w1": normal((d_model, sf), s, dtype),
+            "w3": normal((d_model, sf), s, dtype),
+            "w2": normal((sf, d_model), 1.0 / math.sqrt(sf), dtype),
+        }
+    return params
+
+
+def capacity(n_tokens: int, mcfg: MoEConfig) -> int:
+    """Slots an expert takes: ``ceil(T·k·capacity_factor / E)``, at least 8
+    and rounded up to a multiple of 8, as the JAX module computes it."""
+    c = int(math.ceil(n_tokens * mcfg.top_k * mcfg.capacity_factor / mcfg.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, mcfg: MoEConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing of ``x [T, D]``: (expert_idx int32 [T, k], gate f32
+    [T, k], aux). The top k are taken by a stable descending sort, so equal
+    probabilities keep the lower expert first, as ``jax.lax.top_k`` does
+    (``torch.topk`` leaves their order open). ``aux`` is the Switch-style
+    balance loss: E · Σ_e (share of tokens whose first choice is e) · (mean
+    probability of e)."""
+    probs = torch.softmax(x.float() @ router_w, dim=-1)  # [T, E]
+    gate, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_idx = gate[:, :mcfg.top_k], expert_idx[:, :mcfg.top_k]
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    density = F.one_hot(expert_idx[:, 0], mcfg.n_experts).float().mean(dim=0)
+    aux = (density * probs.mean(dim=0)).sum() * mcfg.n_experts
+    return expert_idx.to(torch.int32), gate, aux
+
+
+def dispatch_indices(expert_idx: torch.Tensor, n_experts: int, cap: int):
+    """Position of each (token, slot) within its expert, by a stable sort
+    of the flattened ids ``[T·k]`` (token-major), so an expert's slots
+    go to its tokens in (token, slot) order. Returns (pos int32 [T·k],
+    keep bool [T·k]); ``keep = pos < cap``. The stable sort is what JAX's
+    ``jnp.argsort`` gives; an unstable one would drop other slots."""
+    flat = expert_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    counts = torch.zeros(n_experts, dtype=torch.int32, device=flat.device)
+    counts.index_add_(0, flat.long(), torch.ones_like(flat))  # bincount, no host sync
+    starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    rank = torch.arange(flat.shape[0], dtype=torch.int32, device=flat.device)
+    rank = rank - starts[sorted_e.long()]
+    pos = torch.empty_like(rank)
+    pos[order] = rank
+    return pos, pos < cap
+
+
+def dispatch(x: torch.Tensor, slot: torch.Tensor, token_id: torch.Tensor,
+             n_slots: int) -> torch.Tensor:
+    """The expert input ``[n_slots, D]``: row ``s`` is ``x`` of the token
+    whose kept (token, slot) pair has ``slot == s``, 0 where none has.
+    ``slot`` is ``n_slots`` for a dropped pair. An inverse map ``src`` of
+    the tokens (the sentinel T where no token landed; dropped pairs write
+    one extra entry, cut off) read by one fill-mode gather."""
+    src = torch.full((n_slots + 1,), x.shape[0], dtype=torch.int32, device=x.device)
+    src.scatter_(0, slot.long(), token_id)
+    return graph_ops.gather(x, src[:-1], fill=0)
+
+
+def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
+    """``x [T, D]`` → (y [T, D], aux): the JAX ``_moe_ffn_local`` on the
+    port's ``graph.ops`` (see module)."""
+    t, d = x.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    cap = capacity(t, mcfg)
+    expert_idx, gate, aux = route(x, params["router"], mcfg)
+    pos, keep = dispatch_indices(expert_idx, e, cap)
+    moe_ffn.slots += keep.numel()
+    moe_ffn.dropped = moe_ffn.dropped + (keep.numel() - keep.sum())
+
+    dev = x.device
+    # the token of each (token, slot), sorted: each of arange(T) k times
+    token_id = torch.arange(t, dtype=torch.int32, device=dev)[:, None].expand(t, k).reshape(-1)
+    slot = torch.where(keep, expert_idx.reshape(-1) * cap + pos, e * cap)  # [T·k]
+    expert_in = dispatch(x, slot, token_id, e * cap).reshape(e, cap, d)
+
+    h = torch.bmm(expert_in, params["w1"])
+    g = torch.bmm(expert_in, params["w3"])
+    del expert_in
+    h = F.silu(h, inplace=True).mul_(g)  # silu(h) * g, each rounded as in JAX
+    del g
+    out_slots = torch.bmm(h, params["w2"]).reshape(e * cap, d)
+    del h
+
+    vals = graph_ops.gather(out_slots, slot.clamp(max=e * cap - 1))  # [T·k, D]
+    del out_slots
+    vals.mul_((gate.reshape(-1) * keep).to(x.dtype)[:, None])
+    offsets = torch.arange(0, k * (t + 1), k, dtype=torch.int32, device=dev)
+    y = graph_ops.segment_reduce(vals, token_id, t, "sum", offsets=offsets)
+
+    if "shared" in params:
+        sh = params["shared"]
+        y = y + common.swiglu(x, sh["w1"], sh["w3"], sh["w2"])
+    return y, aux
+
+
+moe_ffn.slots = 0
+moe_ffn.dropped = 0

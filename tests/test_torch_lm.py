@@ -1,7 +1,8 @@
 """The port's LM serving path against the JAX package, on the CPU.
 
 The reduced h2o-danube (sliding window 32: the ring buffer wraps), qwen3-32b
-(qk-norm) and qwen2.5-32b (qkv bias) configs, f32, with the JAX package's
+(qk-norm), qwen2.5-32b (qkv bias), deepseek-moe-16b (MoE, shared experts)
+and qwen3-moe-235b-a22b (MoE, qk-norm) configs, f32, with the JAX package's
 own initialised parameters carried across as numpy arrays — norms and
 biases perturbed first, so that ``ln``/``q_norm``/``k_norm``/``bq..bv`` are
 not all ones and zeros. On the CPU the port's prefill attention is the
@@ -9,6 +10,8 @@ not all ones and zeros. On the CPU the port's prefill attention is the
 functions at 2e-5 (``TOL`` of tests/test_kernels.py, f32); logits and the
 cache through two layers at rtol = atol = 1e-4, because the JAX package
 runs an online softmax over KV chunks and the port one softmax per row.
+The MoE prefill's 80 tokens overflow some experts' capacity, so the same
+slots are dropped in both packages; a decode step's 2 tokens never do.
 """
 
 import dataclasses
@@ -30,8 +33,10 @@ from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models.transformer import MoEConfig, TransformerConfig  # noqa: E402
 from repro_torch.models.transformer import attention as tattn  # noqa: E402
 from repro_torch.models.transformer import model as ttm  # noqa: E402
+from repro_torch.models.transformer import moe as tmoe  # noqa: E402
 
-LM_ARCHS = ("h2o-danube-1.8b", "qwen3-32b", "qwen2.5-32b")
+LM_ARCHS = ("h2o-danube-1.8b", "qwen3-32b", "qwen2.5-32b", "deepseek-moe-16b",
+            "qwen3-moe-235b-a22b")
 ALL_LM = [a for a in jconfigs.all_arch_ids() if jconfigs.get_spec(a).family == "lm"]
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -83,20 +88,8 @@ def test_registry_resolves_ported(arch):
     assert arch in tconfigs.all_arch_ids()
 
 
-@pytest.mark.parametrize(
-    "arch,item",
-    [("qwen3-moe-235b-a22b", "A7"), ("deepseek-moe-16b", "A7")],
-)
-def test_registry_refuses_unported(arch, item):
-    assert arch in jconfigs.all_arch_ids()
-    with pytest.raises(NotImplementedError, match=item):
-        tconfigs.get_spec(arch)
-
-
-def test_moe_model_raises():
-    cfg = _port_config(jconfigs.get_spec("deepseek-moe-16b").reduced)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttm.init(cfg, device="cpu")
+def test_registry_holds_every_jax_id():
+    assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
 
 
 def test_entry_points_default_to_the_card():
@@ -115,6 +108,27 @@ def test_entry_points_default_to_the_card():
 
 
 # -- building blocks -------------------------------------------------------------
+
+
+def test_stack_init_equals_stacked_draws():
+    """``stack_init`` fills each ``[n, ...]`` leaf layer by layer with the
+    same draws, in the same order, as ``torch.stack`` of the layers."""
+    def layers(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return lambda: {"w": tcommon.dense_init(gen, 6, 5, torch.bfloat16),
+                        "b": torch.randn(3, generator=gen),
+                        "n": torch.ones(4, dtype=torch.int32)}
+
+    got = tcommon.stack_init(4, layers(2))
+    fn = layers(2)
+    drawn = [fn() for _ in range(4)]
+    assert sorted(got) == ["b", "n", "w"]
+    for name in got:
+        want = torch.stack([lp[name] for lp in drawn])
+        assert got[name].dtype == want.dtype and got[name].shape == want.shape
+        assert torch.equal(got[name], want), name
+    assert torch.equal(tcommon.stack_init(1, layers(3))["w"][0], layers(3)()["w"])
+
 
 
 def test_rms_norm_rounding_order():
@@ -254,9 +268,17 @@ def test_params_from_arrays_layout(pair):
     for name, t in own.named_parameters():
         assert t.shape == carried[name].shape and t.dtype == carried[name].dtype
     np.testing.assert_array_equal(pair.tparams.layers["wq"].numpy(), pair.tree["layers"]["wq"])
-    np.testing.assert_array_equal(
-        pair.tparams.layers["ffn_w2"].numpy(), pair.tree["layers"]["ffn"]["w2"]
-    )
+    if pair.cfg.moe is None:
+        np.testing.assert_array_equal(
+            pair.tparams.layers["ffn_w2"].numpy(), pair.tree["layers"]["ffn"]["w2"]
+        )
+    else:
+        np.testing.assert_array_equal(
+            pair.tparams.layers["moe_w2"].numpy(), pair.tree["layers"]["moe"]["w2"]
+        )
+        if pair.cfg.moe.n_shared_experts:
+            np.testing.assert_array_equal(pair.tparams.layers["moe_shared_w1"].numpy(),
+                                          pair.tree["layers"]["moe"]["shared"]["w1"])
 
 
 def test_params_from_arrays_bf16():
@@ -274,21 +296,31 @@ def test_params_from_arrays_bf16():
 
 
 def test_forward_matches(pair):
-    want, _ = jtm.forward(pair.jparams, jnp.asarray(pair.prompt), pair.cfg)
+    """Hidden states, and the MoE balance loss summed over the layers (0
+    for a dense model)."""
+    want, want_aux = jtm.forward(pair.jparams, jnp.asarray(pair.prompt), pair.cfg)
     got, aux = ttm.forward(pair.tparams, _t(pair.prompt), pair.tcfg)
-    assert aux == 0.0
+    if pair.cfg.moe is None:
+        assert aux == 0.0
+    else:
+        assert float(want_aux) > 0
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
 
 
 def test_prefill_matches(pair):
     """Full and last-only logits and the cache — for h2o-danube the last
-    ``capacity`` positions at slot ``pos % capacity`` — equal JAX's."""
+    ``capacity`` positions at slot ``pos % capacity`` — equal JAX's; an
+    MoE prefill drops slots."""
     tokens = jnp.asarray(pair.prompt)
     jfull, jcache = jtm.prefill(pair.jparams, tokens, pair.cfg, capacity=pair.capacity)
     jlast, _ = jtm.prefill(pair.jparams, tokens, pair.cfg, capacity=pair.capacity,
                            full_logits=False)
+    dropped = tmoe.moe_ffn.dropped
     tfull, tcache = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
                                 capacity=pair.capacity)
+    if pair.cfg.moe is not None:  # some experts overflow: the drops are compared too
+        assert int(tmoe.moe_ffn.dropped - dropped) > 0
     tlast, _ = ttm.prefill(pair.tparams, _t(pair.prompt), pair.tcfg,
                            capacity=pair.capacity, full_logits=False)
     np.testing.assert_allclose(tfull.numpy(), np.asarray(jfull), **LM_TOL)
@@ -357,3 +389,17 @@ def test_serve_entry_point_on_cpu(capsys):
         np.testing.assert_array_equal(logits.argmax(-1).numpy(), tok.numpy())
     out = capsys.readouterr().out
     assert "prefill 2×40" in out and "decode 6 steps" in out
+
+
+def test_serve_moe_entry_point_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve --arch deepseek-moe-16b --reduced
+    --device cpu`` serves the MoE model: greedy int32 tokens, the cache
+    sized for prompt + decode (no window)."""
+    res = serve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "40", "--decode-steps", "6"])
+    assert res.tokens.dtype == torch.int32 and tuple(res.tokens.shape) == (2, 7)
+    assert len(res.logits) == 7 and res.capacity == 46
+    for logits, tok in zip(res.logits, res.tokens.T):
+        np.testing.assert_array_equal(logits.argmax(-1).numpy(), tok.numpy())
+    assert "prefill 2×40" in capsys.readouterr().out
+
