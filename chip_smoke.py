@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five paths of the port at real size: the Palgol main path on a Graph500
+Six paths of the port at real size: the Palgol main path on a Graph500
 R-MAT of scale 22 (edgefactor 16), GNN serving of the four GNNs at their
 published widths (graphsage-reddit, gat-cora and pna on an
 ogb_products-sized graph, graphcast on the full_graph_sm shape, sampled
@@ -11,7 +11,9 @@ graphsage-reddit minibatches on a Reddit-sized graph), LM serving of
 h2o-danube-1.8b and of the MoE deepseek-moe-16b at their published widths
 and depths (4 requests, 6144-token prompts, 32 greedy decode steps each),
 and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
-at the ``RECSYS_SHAPES`` serve shapes. What it does, in order, and fails
+at the ``RECSYS_SHAPES`` serve shapes, and training of four of those
+models (h2o-danube-1.8b, gat-cora, graphsage-reddit, AutoInt) at full
+width. What it does, in order, and fails
 on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
@@ -144,6 +146,31 @@ on the first thing that is wrong:
    that computes the same function (``embedding_bag``'s bound counts each
    distinct row once; ``--bag-shapes`` builds and times only
    ``embedding_bag`` over four shapes, and prints no result line).
+
+7. trains (``train_path``), gradients on: first each backward against its
+   plain twin on the card over a sweep (``check_backward_kernels``: the
+   flash backward ``csrc/flash_attention_bwd.cu`` at D = 80 with 32/8
+   heads and D = 128 with 16/16, S on its tile edges and past the window,
+   bf16 and f32, row by row within ``FLASH_ROW``; the gather's and the
+   bag's table gradients with a hub id 163,558 times, Zipf ids and dropped
+   ids, exact for k/16 values, else within ``TOL`` · Σ|x| of a float64
+   host sum; segment max/min with planted ties bit-equal to the CPU's;
+   each run twice, bit-equal); then, through
+   ``repro_torch.launch.train.build`` and its step (loss and gradients →
+   cosine schedule → AdamW with f32 moments), ``TRAIN_STEPS`` steps of
+   h2o-danube-1.8b at full width and depth (bf16, remat, 4 × 4,096
+   tokens: ``train_4k``'s global batch of 256 cut to one card), gat-cora
+   at the Cora shape, graphsage-reddit on sampled minibatches of the GNN
+   phase's graph and AutoInt on ``train_batch`` (65,536 rows). Each: step
+   0's loss and global gradient norm against the same with every kernel's
+   plain version (``TRAIN_TOL``), the launches per route forward and
+   backward exact, every loss finite and step 0's batch's loss lower
+   after the steps; warm step ms, throughput, busy share, top kernels and
+   peak GB printed. Then the backwards' rows: the flash backward against
+   its bound and SDPA's backward, the composed gather, segment and bag
+   backwards against theirs and ``index_add_``/``index_select``
+   (``--train-only`` runs the build, the probe and this phase alone, and
+   prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -1660,13 +1687,50 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
     del batch
 
     # sampled GraphSAGE on a Reddit-sized graph
+    minibatch = minibatch_graph(device, card, seed, shapes, degrees)
+    cfg, graph, feats, labels, batch_nodes = minibatch
+    per_model["graphsage-reddit minibatch"], hop1_read = minibatch_serve(
+        cfg, graph, feats, labels, batch_nodes, n_batches, seed, device, card)
+    add_launches(total, per_model["graphsage-reddit minibatch"])
+    if device.type == "cuda":
+        routes.update(gnn_route_rows(None, per_model, hop1_read=hop1_read))
+    del graph, feats, labels, hop1_read
+    say("launches", card, path="gnn", **total, per_model=per_model)
+    say("gnn_phase", card, seconds=time.perf_counter() - t_phase, build_s=build_s)
+    return total, routes, minibatch
+
+
+def park(minibatch, device):
+    """The minibatch phases' ``(cfg, graph, features, labels, seeds)`` with
+    every tensor moved to ``device``: kept in host memory between the GNN
+    phase and the training phase, so that the serving phases between them
+    run beside none of its 2.1 GB (their peaks as before)."""
+    cfg, graph, feats, labels, batch_nodes = minibatch
+    moved = {f.name: getattr(graph, f.name).to(device) for f in dataclasses.fields(graph)
+             if isinstance(getattr(graph, f.name), torch.Tensor)}
+    return (cfg, dataclasses.replace(graph, **moved), feats.to(device), labels.to(device),
+            batch_nodes)
+
+
+def minibatch_graph(device, card, seed, shapes=None, degrees=None):
+    """The sampled GraphSAGE phases' graph: a Reddit-sized R-MAT
+    (``minibatch_lg``, its edges cut by ``GNN_EDGE_CUT``), f32 features
+    [N, 602] and labels from ``seed``; ``(cfg, graph, features, labels,
+    seeds a batch)``, built once for serving and training."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.graph import generators as G
+
+    shapes = shapes or GNN_SHAPES
+    degrees = degrees or GNN_AVG_DEGREE
     mb = shapes["minibatch_lg"]
-    cfg = cfg_for("graphsage-reddit", "minibatch_lg")
+    cfg = configs.resolve_gnn_config(configs.get_spec("graphsage-reddit").config,
+                                     "minibatch_lg", mb)
     scale = max(2, int(math.ceil(math.log2(mb["n_nodes"]))))
     t0 = time.perf_counter()
     graph = G.rmat(scale, degrees["minibatch_lg"], directed=False, seed=seed, device=device)
     sync(device)
-    build_s["minibatch_lg"] = time.perf_counter() - t0
+    build_s = time.perf_counter() - t0
     edges_near("minibatch_lg", graph.n_edges, mb["n_edges"])
     gen = torch.Generator(device=device).manual_seed(seed)
     feats = torch.randn((graph.n_vertices, mb["d_feat"]), generator=gen, device=device)
@@ -1675,16 +1739,8 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
     say("gnn_graph", card, shape="minibatch_lg", n_nodes=graph.n_vertices,
         n_edges=graph.n_edges, target_nodes=mb["n_nodes"], target_edges=mb["n_edges"],
         edge_cut=GNN_EDGE_CUT["minibatch_lg"], avg_degree=degrees["minibatch_lg"],
-        scale=scale, build_s=build_s["minibatch_lg"])
-    per_model["graphsage-reddit minibatch"], hop1_read = minibatch_serve(
-        cfg, graph, feats, labels, mb["batch_nodes"], n_batches, seed, device, card)
-    add_launches(total, per_model["graphsage-reddit minibatch"])
-    if device.type == "cuda":
-        routes.update(gnn_route_rows(None, per_model, hop1_read=hop1_read))
-    del graph, feats, labels, hop1_read
-    say("launches", card, path="gnn", **total, per_model=per_model)
-    say("gnn_phase", card, seconds=time.perf_counter() - t_phase, build_s=build_s)
-    return total, routes
+        scale=scale, build_s=build_s)
+    return cfg, graph, feats, labels, mb["batch_nodes"]
 
 
 def route_row(fn, nbytes, nops, launches, shape, plain=None, library=None, library_name=None,
@@ -2987,6 +3043,569 @@ def bag_bytes(table, idx, weighted: bool = False):
     return distinct, nbytes
 
 
+# -- 7. training: the backward kernels and four trainers -------------------------
+
+TRAIN_STEPS = 8
+#: LM_SHAPES["train_4k"]'s 4,096-token sequences at a batch of 4: its global
+#: batch of 256 cut to one card (JAX's trainer has no accumulation)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4096
+#: gat-cora's training batch: ``build``'s full graph of 16 · 256 nodes at
+#: the Cora shape (1,433 features, 7 classes)
+GAT_TRAIN_BATCH = 256
+#: AdamW's rate (JAX's trainer default) and a short warmup; the LM takes a
+#: tenth of it: at 3e-4 its first AdamW steps move every one of a 2,560-wide
+#: layer's weights by the rate in a concerted direction, and from random
+#: weights its loss spikes within eight steps
+TRAIN_LR, LM_TRAIN_LR, TRAIN_WARMUP = 3e-4, 3e-5, 2
+#: step 0 with the kernels against the same step with every kernel's plain
+#: version: loss and global gradient norm, relative. bf16 (h2o-danube):
+#: both attentions round P to bf16 at the same place, the sums run in other
+#: orders through 24 layers (measured 2e-5); f32: summation orders only
+TRAIN_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+#: flash backward sweep (b, h, hkv, s, d, window): h2o-danube's heads (D =
+#: 80, 32/8) and deepseek-moe's (D = 128, 16/16) at S on the 64-row tiles'
+#: edges, S past the window, and D = 72 (8/2), whose bf16 backward takes the
+#: f32 units (``bwd_route``)
+FLASH_BWD_CASES = [
+    (1, 32, 8, 63, 80, None), (1, 32, 8, 64, 80, 4096), (2, 32, 8, 129, 80, 4096),
+    (1, 32, 8, 700, 80, 200), (1, 16, 16, 65, 128, None), (1, 16, 16, 256, 128, None),
+    (1, 16, 16, 300, 128, 100), (1, 8, 2, 130, 72, 64),
+]
+#: the R-MAT hub's in-degree (vertex 0 at scale 22), as one id of a gather
+HUB_IDS = 163_558
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper, forward and backward, pointed at its plain
+    version (the module attributes ``kernels.autograd`` calls)."""
+    from repro_torch.kernels.embedding_bag import ops as b
+    from repro_torch.kernels.flash_attention import ops as f
+
+    saved = f.flash_attention, f.flash_attention_bwd, b.embedding_bag
+    f.flash_attention, f.flash_attention_bwd, b.embedding_bag = (
+        f.flash_attention_plain, f.flash_attention_bwd_plain, b.embedding_bag_plain)
+    try:
+        with plain_graph_kernels():
+            yield
+    finally:
+        f.flash_attention, f.flash_attention_bwd, b.embedding_bag = saved
+
+
+def train_counters(zero: bool = False) -> dict:
+    """Every kernel's launch counters per route, and the composed
+    backwards' calls (``kernels.autograd``), set to 0 first with ``zero``."""
+    from repro_torch.kernels import autograd as kg
+    from repro_torch.kernels import embedding_bag, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    out = graph_counters(zero)
+    names = {
+        flash_attention: ("launches", "launches_tc", "launches_simt"),
+        flash_attention_bwd: ("launches", "launches_tc", "launches_simt"),
+        embedding_bag: ("launches", "launches_vec", "launches_scalar"),
+        kg.gather_rows_backward: ("calls",),
+        kg.segment_reduce_backward: ("calls",),
+        kg.embedding_bag_backward: ("calls",),
+    }
+    for fn, counters in names.items():
+        for counter in counters:
+            if zero:
+                setattr(fn, counter, 0)
+            key = fn.__name__ + ("" if counter in ("launches", "calls") else counter[8:])
+            out[key] = getattr(fn, counter)
+    return out
+
+
+def host_scatter(g, rows, n, device="cpu"):
+    """``(Σ g, Σ |g|)`` of the rows of ``g`` by ``rows`` into ``n`` rows, in
+    float64 on ``device`` (the host unless told); rows outside ``[0, n)``
+    dropped."""
+    g64 = g.double().to(device).reshape(g.shape[0], -1)
+    rows = rows.long().to(device)
+    ok = (rows >= 0) & (rows < n)
+    out = torch.zeros((n, g64.shape[1]), dtype=torch.float64, device=device)
+    mag = torch.zeros_like(out)
+    out.index_add_(0, rows[ok], g64[ok])
+    mag.index_add_(0, rows[ok], g64[ok].abs())
+    return out, mag
+
+
+def hold_sum(got, want, mag, exact: bool, what: str):
+    """A float sum on the card against its float64 oracle (on the host or
+    the card): exact for k/16 values, else within ``TOL`` · Σ|x| of each
+    element."""
+    got = got.double().to(want.device).reshape(want.shape)
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from the exact sum by "
+                                 f"{float((got - want).abs().max())}")
+        return 0.0
+    err = (got - want).abs()
+    if not bool((err <= TOL[torch.float32] * mag + 1e-30).all()):
+        raise AssertionError(f"{what}: a sum differs by more than TOL · Σ|x|")
+    return float(err.max())
+
+
+def lse_unchanged(with_lse, without, what):
+    """Fails unless the forward's output with ``return_lse=True`` is bit
+    for bit the output without it."""
+    if not torch.equal(with_lse, without):
+        raise AssertionError(f"flash forward {what}: writing the lse changed the output "
+                             f"by {float((with_lse.float() - without.float()).abs().max())}")
+
+
+def grad_row_ratio(got, want) -> float:
+    """The largest ‖got − want‖ / ‖want‖ over the gradient rows whose norm
+    is at least 1e-3 of the largest (rows of keys that almost no query
+    weighs sit at the ``FLASH_ROW`` floor instead)."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    big = ref >= 1e-3 * ref.max()
+    return float((err[big] / ref[big]).max()) if bool(big.any()) else 0.0
+
+
+def check_backward_kernels(device, gen):
+    """Each backward on the card against its plain twin over a sweep, each
+    run twice and bit-equal: flash (``FLASH_BWD_CASES``, bf16 and f32, each
+    gradient row by row within ``FLASH_ROW``); the gather's and the bag's
+    table gradients (a hub id ``HUB_IDS`` times, Zipf ids, ids -1, V and
+    2³¹−1 clipped or dropped; exact for k/16 values, ``TOL`` · Σ|x| of a
+    float64 host sum for random ones; the bag's weights gradient too);
+    segment max and min with planted ties, masked and not, on both routes,
+    bit-equal to the same backward on the CPU. Returns the cases per kernel
+    and flash's largest row ratio per dtype."""
+    from repro_torch.kernels import autograd as kg
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    cases = {"flash_attention_bwd": 0, "gather_rows_bwd": 0, "embedding_bag_bwd": 0,
+             "segment_reduce_bwd": 0}
+    ratio = {}
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen).to(dt).to(device)
+
+    def twice(fn):
+        a, b = fn(), fn()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError("a backward run twice differs")
+        return a
+
+    for b, h, hkv, s, d, window in FLASH_BWD_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = rnd((b, h, s, d), dt), rnd((b, hkv, s, d), dt), rnd((b, hkv, s, d), dt)
+            out, lse = fl.flash_attention(q, k, v, True, window, d**-0.5, return_lse=True)
+            lse_unchanged(out, fl.flash_attention(q, k, v, True, window, d**-0.5),
+                          (b, h, hkv, s, d, window, dt))
+            do = rnd((b, h, s, d), dt)
+            tc_before = fl.flash_attention_bwd.launches_tc
+            got = twice(lambda: fl.flash_attention_bwd(q, k, v, out, lse, do, True, window,
+                                                       d**-0.5))
+            took = "tc" if fl.flash_attention_bwd.launches_tc > tc_before else "simt"
+            if device.type == "cuda" and took != fl.bwd_route(dt, d):
+                raise AssertionError(f"flash backward {(d, dt)} took the {took} route")
+            want = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, True, window, d**-0.5)
+            for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                flash_row_check(g_, w_, f"bwd {name} {(b, h, hkv, s, d, window, dt)}")
+                ratio[str(dt)] = max(ratio.get(str(dt), 0.0), grad_row_ratio(g_, w_))
+            cases["flash_attention_bwd"] += 1
+
+    v, w = 4096, 16
+    zipf = torch.from_numpy(np.random.default_rng(1).zipf(1.2, 200_000) % v).to(torch.int32)
+    ids = torch.cat([torch.zeros(HUB_IDS, dtype=torch.int32), zipf,
+                     torch.tensor([-1, v, 2**31 - 1, -v, -v - 1], dtype=torch.int32)])
+    ids = ids[torch.randperm(ids.shape[0], generator=gen)].to(device)
+    for fill in (None, 0.0):
+        rows = ids.clamp(0, v - 1) if fill is None else torch.where(ids < 0, ids + v, ids)
+        for exact in (True, False):
+            g = (torch.randint(-16, 17, (ids.shape[0], w), generator=gen).float() / 16
+                 if exact else torch.randn((ids.shape[0], w), generator=gen) * 100).to(device)
+            got = twice(lambda: kg.gather_rows_backward(g, ids, v, fill))
+            want, mag = host_scatter(g, rows, v)
+            hold_sum(got, want, mag, exact, f"gather_rows backward fill={fill}")
+            cases["gather_rows_bwd"] += 1
+
+    n_bags = 60_000  # bags of 5 slots take 300,000 of the ids
+    for slots in (1, 5):
+        idx = ids[: n_bags * slots].reshape(n_bags, slots).contiguous()
+        weights = None if slots == 1 else (
+            torch.randint(-16, 17, (n_bags, slots), generator=gen).float() / 16).to(device)
+        table = (torch.randint(-16, 17, (v, w), generator=gen).float() / 16).to(device)
+        for exact in (True, False):
+            g = (torch.randint(-16, 17, (n_bags, w), generator=gen).float() / 16
+                 if exact else torch.randn((n_bags, w), generator=gen) * 100).to(device)
+            got_t, got_w = twice(lambda: kg.embedding_bag_backward(g, table, idx, weights))
+            slot_g = g.repeat_interleave(slots, 0)
+            if weights is not None:
+                slot_g = slot_g * weights.reshape(-1, 1)
+            want, mag = host_scatter(slot_g, idx.reshape(-1).clamp(0, v - 1), v)
+            hold_sum(got_t, want, mag, exact, f"embedding_bag backward, {slots} slots")
+            if weights is not None:
+                prod = table.double()[idx.long().clamp(0, v - 1)] * g.double()[:, None, :]
+                hold_sum(got_w, prod.sum(-1).cpu(), prod.abs().sum(-1).cpu(), exact,
+                         "embedding_bag weights backward")
+            cases["embedding_bag_bwd"] += 1
+
+    n_seg = 5000
+    lengths = torch.randint(0, 9, (n_seg,), generator=gen)
+    lengths[7] = 20_000  # a hub segment
+    seg_ids = torch.repeat_interleave(torch.arange(n_seg, dtype=torch.int32), lengths)
+    offsets = torch.zeros(n_seg + 1, dtype=torch.int32)
+    offsets[1:] = torch.cumsum(lengths, 0)
+    for op in ("max", "min"):
+        for width in (1, 8):
+            shape = (seg_ids.shape[0],) if width == 1 else (seg_ids.shape[0], width)
+            vals = torch.randint(-3, 4, shape, generator=gen).float() / 4  # many ties
+            for masked in (False, True):
+                mask = (torch.rand(seg_ids.shape[0], generator=gen) < 0.7) if masked else None
+                g = torch.randn((n_seg,) + shape[1:], generator=gen)
+                args = (vals, seg_ids, n_seg, op, mask, offsets)
+                out = kg.segment_reduce(*args[:4], mask=mask, offsets=offsets)
+                want = kg.segment_reduce_backward(g, vals, out, seg_ids, n_seg, op, mask,
+                                                  offsets)
+                dev_args = [None if t is None else t.to(device) for t in
+                            (g, vals, out, seg_ids, mask, offsets)]
+                got = twice(lambda: kg.segment_reduce_backward(
+                    dev_args[0], dev_args[1], dev_args[2], dev_args[3], n_seg, op,
+                    dev_args[4], dev_args[5]))
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"segment {op} backward (width {width}, masked "
+                                         f"{masked}) differs from the CPU's")
+                cases["segment_reduce_bwd"] += 1
+    sync(device)
+    return cases, ratio
+
+
+def train_run(name, cfg_dtype, params, loss_fn, batches, items, unit, want, device, card,
+              lr=TRAIN_LR):
+    """``TRAIN_STEPS`` steps of ``launch.train.make_step`` (AdamW, the
+    cosine schedule) on ``batches(i)``: (c) first step 0's loss and global
+    gradient norm with the kernels against the same with every kernel's
+    plain version (``TRAIN_TOL``); every step timed (host clock to the
+    synchronised end); the launches per route of all the steps exactly
+    ``want`` × steps; every loss finite, the last below the first, and
+    the loss of step 0's batch after the steps below its loss before them
+    (the batches differ from step to step, so the last step's loss alone
+    says little); then one more step under the profiler. Prints a
+    ``train`` line."""
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+
+    reset_peak(device)
+    t0 = time.perf_counter()
+    loss_k, g = tr.value_and_grad(loss_fn, params, batches(0))
+    norm_k = float(global_norm(g.values()))
+    del g
+    with plain_kernels():
+        loss_p, g = tr.value_and_grad(loss_fn, params, batches(0))
+        norm_p = float(global_norm(g.values()))
+    del g
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    tol = TRAIN_TOL[cfg_dtype]
+    if not (abs(loss_k - loss_p) <= tol * abs(loss_p) and abs(norm_k - norm_p) <= tol * norm_p):
+        raise AssertionError(f"train {name}: step 0 with the kernels (loss {loss_k}, "
+                             f"|g| {norm_k}) against the plain versions (loss {loss_p}, "
+                             f"|g| {norm_p}) beyond {tol}")
+    check_s = time.perf_counter() - t0
+
+    oc = AdamWConfig(lr=lr)
+    state = {"params": params, "opt": adamw_init(params, oc)}
+    step = tr.make_step(loss_fn, oc, TRAIN_WARMUP, TRAIN_STEPS)
+    sync(device)
+    train_counters(zero=True)
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batches(i))
+        losses.append(float(metrics["loss"]))
+        sync(device)
+        step_s.append(time.perf_counter() - t1)
+    launches = train_counters()
+    peak = peak_gb(device)
+    after = float(loss_fn(params, batches(0)))
+    if (not all(math.isfinite(x) for x in losses + [after]) or not after < loss_k
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"train {name}: losses {losses}, step 0's batch {loss_k} "
+                             f"before and {after} after")
+    if device.type == "cuda":
+        expect = {k: v * TRAIN_STEPS for k, v in want.items()}
+        got = {k: launches.get(k, 0) for k in set(launches) | set(expect)}
+        expect = {k: expect.get(k, 0) for k in got}
+        if got != expect:
+            raise AssertionError(f"train {name}: launches {got}, want {expect}")
+        device_busy(lambda: step(state, batches(TRAIN_STEPS)), f"train {name} step", card)
+    warm = float(np.median(step_s[1:]))
+    say("train", card, arch=name, steps=TRAIN_STEPS, losses=losses,
+        first_step_ms=step_s[0] * 1e3, warm_step_ms=warm * 1e3,
+        **{f"{unit}_per_s": items / warm}, lr=lr, warmup=TRAIN_WARMUP,
+        peak_allocated_gb=peak, launches=launches,
+        step0={"loss": loss_k, "loss_plain": loss_p, "grad_norm": norm_k,
+               "grad_norm_plain": norm_p, "tol": tol, "check_s": check_s,
+               "loss_after_steps": after})
+    del state
+    return launches
+
+
+def train_path(minibatch, seed, device, card, reduced=False):
+    """Train four models at full width (seed ``seed``): h2o-danube-1.8b (24
+    layers, d 2560, bf16, remat; ``launch.train.build``'s parameters and
+    batches) on ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens; gat-cora's
+    published config bound at the Cora shape, on ``gnn_full_batch``;
+    graphsage-reddit through ``sage_minibatch_loss`` on ``TRAIN_STEPS``
+    sampled minibatches of the GNN phase's Reddit-sized graph (``minibatch``: cfg, graph, features,
+    labels, seeds a batch; drawn before the steps); AutoInt on
+    ``RECSYS_SHAPES``' ``train_batch`` (65,536 rows). ``reduced`` takes the
+    reduced configs at small batches: a CPU rehearsal. Returns each
+    model's launches."""
+    from repro_torch import configs
+    from repro_torch.data import gnn_full_batch, gnn_minibatches
+    from repro_torch.launch import train as tr
+    from repro_torch.models import common
+    from repro_torch.models.gnn import models as gm
+
+    t_phase = time.perf_counter()
+    out = {}
+    lm_b, lm_s = (2, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    _, cfg, params, loss_fn, batches = tr.build("h2o-danube-1.8b", reduced, lm_b, lm_s,
+                                                seed, device)
+    n = cfg.n_layers
+    out["h2o-danube-1.8b"] = train_run(
+        "h2o-danube-1.8b", cfg.compute_dtype, params, loss_fn, batches, lm_b * lm_s,
+        "tokens", {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                   "flash_attention_bwd": n, "flash_attention_bwd_tc": n}, device, card,
+        lr=LM_TRAIN_LR)
+    del params, loss_fn, batches
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # gat-cora's published config leaves its dims unbound, which ``build``
+    # (as JAX's) does not take: bound here at the Cora shape, with the full
+    # batch ``build`` would draw for ``GAT_TRAIN_BATCH``
+    spec = configs.get_spec("gat-cora")
+    cfg = spec.reduced if reduced else configs.resolve_gnn_config(
+        spec.config, "full_graph_sm", spec.shapes["full_graph_sm"])
+    params = common.trainable(gm.init(cfg, seed, device))
+    fb = gnn_full_batch(16 * (4 if reduced else GAT_TRAIN_BATCH), 6.0, cfg.d_in, cfg.n_out,
+                        seed=seed, task=cfg.task, n_out=cfg.n_out, device=device)
+
+    def loss_fn(p, b):
+        return gm.loss_fn(p, b, cfg)
+
+    def batches(i):
+        return fb
+
+    layers = cfg.n_layers * (2 if cfg.remat else 1)  # the forward again under remat
+    # a GAT layer's forward: 5 gathers of [N, H(, D)] rows and 3 [E, H(, D)]
+    # segment reductions; its backward: 5 gather backwards (a gather and a
+    # segment sum each), 2 segment-sum backwards (a gather each) and the
+    # softmax's max backward (2 gathers and a segment sum)
+    n_gather = 5 * layers + 9 * cfg.n_layers
+    n_segment = 3 * layers + 6 * cfg.n_layers
+    out["gat-cora"] = train_run(
+        "gat-cora", cfg.compute_dtype, params, loss_fn, batches, batches(0)["x"].shape[0],
+        "nodes", {"gather_rows": n_gather, "gather_rows_scalar": n_gather,
+                  "segment_reduce": n_segment, "segment_reduce_cols": n_segment,
+                  "gather_rows_backward": 5 * cfg.n_layers,
+                  "segment_reduce_backward": 3 * cfg.n_layers}, device, card)
+    del params, fb
+
+    mcfg, graph, feats, labels, batch_nodes = minibatch
+    params = common.trainable(gm.init(mcfg, seed, device))
+    data = gnn_minibatches(graph, feats, labels, batch_nodes, mcfg.fanouts,
+                           torch.Generator(device=device).manual_seed(seed))
+    mbs = [next(data) for _ in range(TRAIN_STEPS + 1)]
+    out["graphsage-reddit"] = train_run(
+        "graphsage-reddit minibatch", mcfg.compute_dtype, params,
+        lambda p, b: gm.sage_minibatch_loss(p, b, mcfg), lambda i: mbs[i], batch_nodes,
+        "seeds", {}, device, card)
+    del params, mbs, data
+
+    _, cfg, params, loss_fn, batches = tr.build("autoint", reduced, 64 if reduced else 65_536,
+                                                0, seed, device)
+    out["autoint"] = train_run(
+        "autoint", cfg.param_dtype, params, loss_fn, batches,
+        batches(0)["fields"].shape[0], "rows",
+        {"embedding_bag": 1, "embedding_bag_vec": 1, "gather_rows": 1,
+         "gather_rows_scalar": 1, "segment_reduce": 1, "segment_reduce_cols": 1,
+         "embedding_bag_backward": 1}, device, card)
+    del params, loss_fn, batches
+    say("train_phase", card, seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def train_kernel_rows(launches, seed, device):
+    """The backward kernels timed at the training path's shapes, each
+    against its plain twin, its bound and its library call:
+    ``flash_attention_bwd`` at h2o-danube's layer shape (bound: the kept
+    pairs × 10·D flops at the bf16 tensor-core rate; library: SDPA's
+    backward, causal, kv expanded); the composed backwards (a sort, then
+    ``gather_rows`` and ``segment_reduce``): the bag's at AutoInt's
+    ``train_batch`` lookup (a dense 39 M-row gradient), the gather's and
+    the segment sum's at gat-cora's ``x[src]`` read (library:
+    ``index_add_`` / ``index_select``). Bytes count each input read once
+    and each output written once."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch import configs
+    from repro_torch.data import gnn_full_batch, recsys_batches
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import autograd as kg
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=device, dtype=dt)
+
+    rows = []
+    b, h, hkv, s, d, window = LM_TRAIN_BATCH, 32, 8, LM_TRAIN_SEQ, 80, 4096
+    scale = d**-0.5
+    q, k, v = rnd((b, h, s, d), torch.bfloat16), rnd((b, hkv, s, d), torch.bfloat16), rnd(
+        (b, hkv, s, d), torch.bfloat16)
+    out, lse = fl.flash_attention(q, k, v, True, window, scale, return_lse=True)
+    lse_unchanged(out, fl.flash_attention(q, k, v, True, window, scale),
+                  "h2o-danube's training shape")
+    do = rnd((b, h, s, d), torch.bfloat16)
+    args = (q, k, v, out, lse, do, True, window, scale)
+    got = fl.flash_attention_bwd(*args)
+    want = fl.flash_attention_bwd_plain(*args)
+    err = max(float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, want))
+    for g_, w_ in zip(got, want):
+        flash_row_check(g_, w_, "bwd at the training shape")
+    ratio = max(grad_row_ratio(g_, w_) for g_, w_ in zip(got, want))
+    del got, want
+    pairs = sum(min(i + 1, window) for i in range(s))
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4  # q, o, dO, dq; k, v, dk, dv
+    f_bound, f_by = bound(nbytes, pairs * b * h * 10 * d, BF16_TENSOR_OPS_PER_S)
+    ms = cuda_ms(lambda: fl.flash_attention_bwd(*args), reps=3)
+    plain_ms = cuda_ms(lambda: fl.flash_attention_bwd_plain(*args), reps=1)
+    kx, vx = (t.repeat_interleave(h // hkv, 1).requires_grad_(True) for t in (k, v))
+    ql = q.detach().requires_grad_(True)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(ql, kx, vx, is_causal=True, scale=scale)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kx, vx), do,
+                                                 retain_graph=True), reps=3)
+    del kx, vx, ql, lib_out, args, q, k, v, out, lse, do
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/transformer/attention.py:188",
+        "launches": launches["h2o-danube-1.8b"]["flash_attention_bwd"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": f_bound,
+        "bound_by": f_by, "library_ms": lib_ms,
+        "library": "scaled_dot_product_attention backward (FLASH backend, is_causal, "
+                   "kv expanded to 32 heads; no window: it computes the same pairs here)",
+        "shape": f"q bf16[{b},{h},{s},{d}], kv [{b},{hkv},{s},{d}], causal, window {window}",
+        "kernel_route": "tc (mma.sync)" if fl.bwd_route(torch.bfloat16, d) == "tc" else "simt",
+        "max_row_ratio": ratio,
+        "tflops": pairs * b * h * 10 * d / ms / 1e9, "bound_share": f_bound / ms,
+    })
+
+    def hold_scatter(fn, g, rows, n, what):
+        """``fn(g)``, a gradient summed by ``rows`` into ``n`` rows, held to
+        its float64 sum on the card: within ``TOL`` · Σ|x| for the row's
+        random ``g``, exact for k/16 values of its shape."""
+        for exact in (False, True):
+            g_ = (torch.randint(-16, 17, g.shape, generator=gen, device=device).float() / 16
+                  if exact else g)
+            want, mag = host_scatter(g_, rows, n, device)
+            hold_sum(fn(g_), want, mag, exact,
+                     f"{what}, {'k/16' if exact else 'random'} values")
+            del want, mag, g_
+
+    def composed_row(name, fn, plain, library, nbytes, replaces, n_launches, shape, lib_name):
+        got = fn()
+        with plain_kernels():
+            want = plain()
+        t_bound, t_by = bound(nbytes, 0)
+        ms = cuda_ms(fn, reps=5)
+        return {
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/autograd.py",
+            "replaces": replaces, "launches": n_launches,
+            "max_abs_err": float((got.float() - want.float()).abs().max()), "ms": ms,
+            "plain_ms": cuda_ms(lambda: _plain_call(plain), reps=2), "bound_ms": t_bound,
+            "bound_by": t_by, "library_ms": cuda_ms(library, reps=5), "library": lib_name,
+            "shape": shape, "bound_share": t_bound / ms,
+            "composed_of": "torch.sort of the int32 ids, csrc/gather_rows.cu, "
+                           "csrc/segment_reduce.cu" if name != "segment_reduce_bwd"
+                           else "csrc/gather_rows.cu",
+        }
+
+    spec = configs.get_spec("autoint")
+    cfg = spec.config
+    fields = next(recsys_batches(spec.shapes["train_batch"]["batch"], cfg.n_fields,
+                                 cfg.vocab_per_field, seed=seed, device=device))["fields"]
+    vrows = cfg.n_fields * cfg.vocab_per_field
+    idx = (fields + torch.arange(cfg.n_fields, dtype=torch.int32, device=device)
+           * cfg.vocab_per_field).reshape(-1, 1).contiguous()
+    table = torch.empty((vrows, cfg.embed_dim), device=device)
+    g = rnd((idx.shape[0], cfg.embed_dim))
+    flat = idx.reshape(-1).long()
+    hold_scatter(lambda g_: kg.embedding_bag_backward(g_, table, idx, None)[0], g, flat,
+                 vrows, "embedding_bag backward at AutoInt's train_batch")
+    rows.append(composed_row(
+        "embedding_bag_bwd", lambda: kg.embedding_bag_backward(g, table, idx, None)[0],
+        lambda: kg.embedding_bag_backward(g, table, idx, None)[0],
+        lambda: torch.zeros_like(table).index_add_(0, flat, g),
+        (g.numel() + idx.numel() + table.numel()) * 4,
+        "src/repro/kernels/embedding_bag/kernel.py:42",
+        launches["autoint"]["embedding_bag_backward"],
+        f"d_table f32[{vrows},{cfg.embed_dim}] from {idx.shape[0]} one-slot bags "
+        "(AutoInt train_batch lookup)", "zeros + index_add_"))
+    del table, g, flat, idx, fields
+
+    gcfg = configs.resolve_gnn_config(configs.get_spec("gat-cora").config, "full_graph_sm",
+                                      configs.get_spec("gat-cora").shapes["full_graph_sm"])
+    batch = gnn_full_batch(16 * GAT_TRAIN_BATCH, 6.0, gcfg.d_in, gcfg.n_out, seed=seed,
+                           device=device)
+    n, src, dst = batch["x"].shape[0], batch["src"], batch["dst"]
+    width = gcfg.n_heads * gcfg.d_hidden
+    g = rnd((src.shape[0], gcfg.n_heads, gcfg.d_hidden))
+    src_l = src.long().clamp(0, n - 1)
+    hold_scatter(lambda g_: kg.gather_rows_backward(g_, src, n, None), g, src_l, n,
+                 "gather_rows backward at gat-cora's h[src]")
+    rows.append(composed_row(
+        "gather_rows_bwd", lambda: kg.gather_rows_backward(g, src, n, None),
+        lambda: kg.gather_rows_backward(g, src, n, None),
+        lambda: torch.zeros((n, gcfg.n_heads, gcfg.d_hidden), device=device).index_add_(
+            0, src_l, g),
+        (g.numel() + src.numel() + n * width) * 4,
+        "src/repro/kernels/gather_rows/kernel.py:20",
+        launches["gat-cora"]["gather_rows_backward"],
+        f"d_h f32[{n},{gcfg.n_heads},{gcfg.d_hidden}] from {src.shape[0]} rows "
+        "(gat-cora's h[src], Cora shape)", "zeros + index_add_"))
+    go = rnd((n, gcfg.n_heads, gcfg.d_hidden))
+    vals = rnd((src.shape[0], gcfg.n_heads, gcfg.d_hidden))
+    dst_l = dst.long().clamp(0, n - 1)
+    offsets = segment_offsets(dst, n)
+    # the sum's backward is a gather: exactly the cotangent of each kept row
+    keep = ((dst >= 0) & (dst < n) & batch["emask"]).reshape(-1, 1, 1)
+    hold_sum(kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"], offsets),
+             torch.where(keep, go.index_select(0, dst_l), 0.0).double(), None, True,
+             "segment sum backward at gat-cora's aggregation")
+    del keep
+    rows.append(composed_row(
+        "segment_reduce_bwd",
+        lambda: kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"],
+                                           offsets),
+        lambda: kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"],
+                                           offsets),
+        lambda: go.index_select(0, dst_l),
+        (go.numel() + dst.numel() + vals.numel()) * 4 + batch["emask"].numel(),
+        "src/repro/kernels/segment_reduce/kernel.py:55",
+        launches["gat-cora"]["segment_reduce_backward"],
+        f"d_vals f32[{src.shape[0]},{gcfg.n_heads},{gcfg.d_hidden}] from {n} segments "
+        "(gat-cora's aggregation, a sum)", "index_select"))
+    return rows
+
+
+def _plain_call(fn):
+    with plain_kernels():
+        return fn()
+
+
 def main() -> int:
     scale, edgefactor, seed = 22, 16.0, 0  # Graph500 R-MAT at scale 22
     lm_batch, prompt_len, decode_steps = 4, 6144, 32
@@ -3001,6 +3620,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     device = torch.device("cuda")
+    # serving runs without gradients; the training phase turns them on per step
+    torch.set_grad_enabled(False)
     # f32 results are compared with f32/f64 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3037,8 +3658,16 @@ def main() -> int:
     if "--gnn-only" in sys.argv[1:]:  # a rehearsal of the GNN phase: no result line
         say("kernel_check", card, ok=True, cases=check_wide_routes(device, gen),
             versus="plain PyTorch versions")
-        _, routes = gnn_path(device, card)
+        _, routes, _ = gnn_path(device, card)
         say("gnn_routes", card, **routes)
+        return 0
+    if "--train-only" in sys.argv[1:]:  # a rehearsal of the training phase: no result line
+        cases, ratio = check_backward_kernels(device, gen)
+        say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
+            versus="plain PyTorch versions")
+        launches = train_path(minibatch_graph(device, card, seed), seed, device, card)
+        for row in train_kernel_rows(launches, seed, device):
+            say("train_kernel", card, **row)
         return 0
     cases, row_ratio = check_kernels(device, gen)
     say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
@@ -3055,7 +3684,8 @@ def main() -> int:
     if "--graph-only" in sys.argv[1:]:  # a rehearsal of the graph kernels: stop here
         return finish(rows, card, t_start)
     torch.cuda.empty_cache()
-    gnn_launches, routes = gnn_path(device, card)
+    gnn_launches, routes, minibatch = gnn_path(device, card)
+    minibatch = park(minibatch, torch.device("cpu"))
     for row in rows:  # the GNN phase's launches and wide-route times
         row["launches_gnn"] = {k[len(row["name"]) + 1:] or "all": v
                                for k, v in gnn_launches.items() if k.startswith(row["name"])}
@@ -3070,6 +3700,14 @@ def main() -> int:
     spec = configs.get_spec("autoint")
     rec = autoint_path(spec.config, spec.shapes, seed, device, card)
     rows += model_kernel_rows(lm, rec)
+    del rec
+    torch.cuda.empty_cache()
+    cases, ratio = check_backward_kernels(device, gen)
+    say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
+        versus="plain PyTorch versions")
+    launches = train_path(park(minibatch, device), seed, device, card)
+    del minibatch
+    rows += train_kernel_rows(launches, seed, device)
     return finish(rows, card, t_start)
 
 

@@ -75,7 +75,8 @@
 //     and 2), so one's softmax overlaps the other's products. The ring
 //     has 3 stages, because a warpgroup now holds two tiles at once.
 //   - Epilogue: O / l (0 where l = 0), bf16, rows >= Sq and columns >= D
-//     not stored.
+//     not stored; with an lse pointer, each row's f32 logsumexp of the
+//     scaled scores, (m + log2 l) ln 2, or +inf where no key is kept.
 //   Tile sizes: BQ = BK = 128 (the S accumulator is 64 registers a thread;
 //   the ring of 3 stages at D = 128 takes 225 KB of the 227 KB).
 //   Layer 0 of the prefill on one H100 SXM at 700 W (chip_smoke.py; see
@@ -88,6 +89,13 @@
 //   owns query rows 4ty..4ty+3, keys tx, tx+8, ... and output columns tx,
 //   tx+8, ...; a row's max and sum are three shuffles; scores and products
 //   on the f32 units.
+//
+// The logsumexp (lse, f32 [B, H, Sq], natural log of the row's sum of
+// exp(scale * q.k) over its kept keys) is stored only where the caller
+// passes a pointer for it: the training forward, whose backward
+// (csrc/flash_attention_bwd.cu) recomputes P = exp(scale * q.k - lse) from
+// it, as the JAX package's _flash_bwd does. A row with no key kept gets
+// +inf, so every P of it is 0. Storing it changes no bit of O.
 //
 // All element offsets are 64-bit in the SIMT kernel; the tensor-core
 // kernel takes Sq, Sk < 2^31 (TMA coordinates are 32-bit).
@@ -123,7 +131,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(
 template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int n_heads,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int n_heads,
                      int n_rep, int64_t sq, int64_t sk, int d, int causal,
                      int has_window, int64_t window, float scale) {
   extern __shared__ float smem[];
@@ -266,6 +275,8 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t row = q_start + r0 + i;
     if (row >= sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && tx == 0)
+      lse[bh * sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     T* orow = o + (bh * sq + row) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -276,7 +287,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t batch,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t batch,
            int n_heads, int n_kv_heads, int64_t sq, int64_t sk, int d,
            int causal, int has_window, int64_t window, float scale,
            cudaStream_t stream) {
@@ -290,19 +302,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t batch,
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_heads,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n_heads,
       n_heads / n_kv_heads, sq, sk, d, causal, has_window, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
              int64_t sk, int d, int causal, int has_window, int64_t window,
              float scale, cudaStream_t s) {
   const int nj = (d + 7) / 8;
 #define FLASH_CASE(N)                                                        \
-  return launch<T, N>(q, k, v, o, batch, n_heads, n_kv_heads, sq, sk, d,    \
+  return launch<T, N>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk, d, \
                       causal, has_window, window, scale, s)
   if (nj <= 1) FLASH_CASE(1);
   if (nj <= 2) FLASH_CASE(2);
@@ -766,7 +778,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
-                 __nv_bfloat16* __restrict__ o, int n_heads, int n_rep, int sq,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int n_heads, int n_rep, int sq,
                  int sk, int d, int causal, int has_window, int window,
                  float scale_log2) {
   constexpr int NC = DP / CHUNK;
@@ -898,6 +911,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && t == 0 && row < sq)  // m is in log2 units
+        lse[(long long)bh * sq + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
       l[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     }
 #pragma unroll
@@ -1030,7 +1047,8 @@ constexpr size_t smem_bytes(int dp, int tiles) {
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, long long batch,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           long long batch,
            int n_heads, int n_kv_heads, long long sq, long long sk, int d,
            int causal, int has_window, long long window, float scale,
            cudaStream_t stream) {
@@ -1057,7 +1075,7 @@ int launch(const void* q, const void* k, const void* v, void* o, long long batch
   const int win = (int)(window > lim ? lim : (window < -lim ? -lim : window));
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_tc<DP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), n_heads, n_heads / n_kv_heads,
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, n_heads, n_heads / n_kv_heads,
       (int)sq, (int)sk, d, causal, has_window, win, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -1102,13 +1120,22 @@ extern "C" int flash_attention_uses_tc(int dtype, int d) {
   return dtype == 1 && d >= 8 && d <= 128 && d % 8 == 0;
 }
 
+// Fills n floats with +inf (the lse of rows that keep no key).
+__global__ void fill_inf(float* x, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = INFINITY;
+}
+
 // q [B, H, Sq, D], k/v [B, Hkv, Sk, D], o [B, H, Sq, D], all contiguous and
-// of one type (0 float32, 1 bfloat16); D <= 128, H a multiple of Hkv,
+// of one type (0 float32, 1 bfloat16), lse f32 [B, H, Sq] or null (not
+// stored); D <= 128, H a multiple of Hkv,
 // Sq <= 65535 * 64; on the tensor-core route besides Sq, Sk and B*H below
 // 2^31 and q, k, v 16-byte aligned. Returns 0 on success, else the
 // cudaError_t.
 extern "C" int flash_attention_launch(int device, const void* q, const void* k,
-                                      const void* v, void* o, long long batch,
+                                      const void* v, void* o, float* lse,
+                                      long long batch,
                                       int n_heads, int n_kv_heads,
                                       long long sq, long long sk, int d,
                                       int dtype, int causal, int has_window,
@@ -1128,17 +1155,23 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-    if (sk == 0)  // no key: every row is 0
+    if (sk == 0) {  // no key: every row is 0, every lse +inf
+      if (lse != nullptr) {
+        fill_inf<<<256, 256, 0, s>>>(lse, batch * n_heads * sq);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
       return (int)cudaMemsetAsync(o, 0, (size_t)(batch * n_heads * sq * d) * 2, s);
-    TC_DISPATCH(d, tc::launch<DP>(q, k, v, o, batch, n_heads, n_kv_heads, sq, sk,
+    }
+    TC_DISPATCH(d, tc::launch<DP>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk,
                                   d, causal, has_window, window, scale, s));
   }
   switch (dtype) {
     case 0:
-      return simt::dispatch<float>(q, k, v, o, batch, n_heads, n_kv_heads, sq,
+      return simt::dispatch<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq,
                                    sk, d, causal, has_window, window, scale, s);
     case 1:
-      return simt::dispatch<__nv_bfloat16>(q, k, v, o, batch, n_heads,
+      return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, n_heads,
                                            n_kv_heads, sq, sk, d, causal,
                                            has_window, window, scale, s);
     default:

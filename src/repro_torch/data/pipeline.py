@@ -1,12 +1,12 @@
 """Synthetic data pipelines (deterministic, seeded).
 
-The port's half of ``repro.data.pipeline`` so far: the recsys generator
-and the full-graph GNN batch, with the JAX package's numpy draws, so that
-one seed gives the same batches in both packages (each returned as tensors
-on ``device``), and the sampled GraphSAGE minibatches, drawn from an
-explicit ``torch.Generator`` (another stream than ``jax.random``), whose
-feature reads run ``kernels.gather_rows`` on the card. The LM generator
-comes with training (ROADMAP A8).
+The port's half of ``repro.data.pipeline``: the LM token stream, the
+recsys generator and the full-graph GNN batch, with the JAX package's
+numpy draws, so that one seed gives the same batches in both packages
+(each returned as tensors on ``device``), and the sampled GraphSAGE
+minibatches, drawn from an explicit ``torch.Generator`` (another stream
+than ``jax.random``), whose feature reads run ``kernels.gather_rows`` on
+the card.
 """
 
 from __future__ import annotations
@@ -21,6 +21,26 @@ from repro_torch.graph import generators as G
 from repro_torch.graph import ops as gops
 from repro_torch.graph.sampler import CSR, sample_khop
 from repro_torch.graph.structure import resolve_device
+
+
+def token_batches(
+    batch: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+    device="cuda",
+) -> Iterator[dict]:
+    """LM batches: next-token labels over a synthetic Zipf(1.3) token
+    stream, int32 ``tokens``/``labels [B, S]`` (the JAX package's draws)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    while True:
+        # Zipf-ish distribution to give the embedding gather realistic skew
+        toks = (rng.zipf(1.3, size=(batch, seq_len + 1)) % vocab).astype(np.int32)
+        yield {
+            "tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev),
+        }
 
 
 def recsys_batches(

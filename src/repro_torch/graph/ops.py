@@ -22,6 +22,12 @@ Index rules follow the JAX functions exactly, and they differ per op:
 
 A float written into an int32 buffer converts as XLA's does (:func:`to_int32`).
 
+Both go through ``kernels.autograd``, so they carry gradients: the
+gather's to its field, the reduction's (sum, max, min) to its values,
+each backward on the same kernels; :func:`edge_softmax` differentiates
+through both, its segment max included, as JAX's does (no stop-gradient).
+The int and bool paths (``to_int32``, or/and) carry none.
+
 The message-passing wrappers of the GNN layers (:func:`mp_gather`,
 :func:`mp_segment_reduce`, :func:`mp_edge_softmax`) are the JAX functions'
 branch without a mesh: the plain :func:`gather`, :func:`segment_reduce` and
@@ -41,7 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.graph.structure import segment_offsets
-from repro_torch.kernels.gather_rows import ops as gather_kernel
+from repro_torch.kernels import autograd as kernel_grad
 from repro_torch.kernels.segment_reduce import ops as segment_kernel
 
 # identity element per combiner, keyed by op name
@@ -138,7 +144,7 @@ def segment_reduce(
                 "(indices_are_sorted=True) or their offsets"
             )
         offsets = segment_offsets(segment_ids.to(torch.int32), num_segments)
-    return segment_kernel.segment_reduce(
+    return kernel_grad.segment_reduce(
         values.contiguous(), segment_ids, num_segments, op,
         mask=None if mask is None else mask.contiguous(), offsets=offsets,
     )
@@ -166,7 +172,7 @@ def gather(field: torch.Tensor, idx, fill=None) -> torch.Tensor:
     if not isinstance(idx, torch.Tensor):
         idx = torch.tensor(idx, dtype=torch.int32)
     idx = to_int32(idx).to(field.device)
-    flat = gather_kernel.gather_rows(
+    flat = kernel_grad.gather_rows(
         field.contiguous(), idx.reshape(-1).contiguous(), fill
     )
     return flat.reshape(idx.shape + field.shape[1:])

@@ -68,10 +68,16 @@ class CSR:
 
 def _span(csr: CSR, nodes: torch.Tensor):
     """(start, degree) of each node's in-neighbor run, the nodes clamped
-    into range (a sentinel frontier entry reads the last node's run)."""
+    into range (a sentinel frontier entry reads the last node's run). Both
+    ``indptr`` reads follow JAX's ``x[ids]``: an id in ``[-(N+1), -1]``
+    wraps over the N + 1 entries, then the clip-mode gather clamps."""
     safe = torch.clamp(nodes, max=csr.n_vertices - 1)
-    start = gops.gather(csr.indptr, safe)
-    return start, gops.gather(csr.indptr, safe + 1) - start
+    start = gops.gather(csr.indptr, _wrap(safe, csr.n_vertices + 1))
+    return start, gops.gather(csr.indptr, _wrap(safe + 1, csr.n_vertices + 1)) - start
+
+
+def _wrap(ids: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.where(ids < 0, ids + n, ids)
 
 
 def draw_offsets(csr: CSR, nodes: torch.Tensor, fanout: int,

@@ -33,7 +33,10 @@ NVCC_FLAGS = (
 )
 
 #: every kernel source of the package (``csrc/<name>.cu``)
-KERNELS = ("gather_rows", "segment_reduce", "flash_attention", "embedding_bag")
+KERNELS = (
+    "gather_rows", "segment_reduce", "flash_attention", "flash_attention_bwd",
+    "embedding_bag",
+)
 
 
 def _nvcc() -> str:

@@ -1,7 +1,15 @@
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_plain,
     keep_mask,
 )
 
-__all__ = ["flash_attention", "flash_attention_plain", "keep_mask"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_plain",
+    "keep_mask",
+]

@@ -17,6 +17,18 @@ bf16 with D % 8 == 0 runs on the tensor cores (TMA + ``wgmma``, counted in
 ``flash_attention.launches_tc``), everything else on the f32 units
 (``flash_attention.launches_simt``); ``flash_attention.launches`` counts
 both. No route stands in for the other when a launch fails.
+
+``return_lse=True`` also returns each row's float32 logsumexp ``[B, H,
+Sq]`` of the scaled scores over its kept keys (+inf for a row with no key
+kept), which both routes then store beside the output, whose bits do not
+change. :func:`flash_attention_bwd` is the backward, the CUDA kernels of
+``csrc/flash_attention_bwd.cu`` or their plain version on the CPU: the
+JAX package's ``_flash_bwd`` recomputing P from that logsumexp. It has two
+routes by dtype and D alone (:func:`bwd_route`): bf16 with D % 16 == 0 on
+the tensor cores (``mma.sync``, counted in
+``flash_attention_bwd.launches_tc``), everything else on the f32 units
+(``flash_attention_bwd.launches_simt``); ``flash_attention_bwd.launches``
+counts both.
 """
 
 from __future__ import annotations
@@ -41,6 +53,16 @@ def route(dtype, d: int) -> str:
     f32 would be TF32, and TMA needs rows of a multiple of 16 bytes. The C
     entry point's ``flash_attention_uses_tc`` states the same rule."""
     return "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+
+
+def bwd_route(dtype, d: int) -> str:
+    """The backward's route for ``dtype`` and head dim ``d``: ``"tc"``
+    (``mma.sync``) for bf16 with ``d % 16 == 0``, else ``"simt"`` (the C
+    entry's ``flash_attention_bwd_uses_tc``). A known gap: the forward's
+    tensor-core rule is ``d % 8 == 0`` (:func:`route`), so a bf16 head dim
+    that is an odd multiple of 8 runs its forward on the tensor cores and
+    its backward on the f32 units (no config of the repo has one)."""
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
 
 
 def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
@@ -83,7 +105,8 @@ def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
     return keep
 
 
-def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0):
+def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
+                          return_lse=False):
     """The plain PyTorch version, one (batch, kv-head group) at a time so
     that no ``[B, H, Sq, Sk]`` score tensor is ever held: f32 scores,
     ``-inf`` where masked, softmax, NaN rows (no key kept) to 0, p rounded
@@ -94,14 +117,46 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0):
     keep = keep_mask(torch.arange(sq, device=q.device),
                      torch.arange(sk, device=q.device), causal, window)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     for bi in range(b):
         for g in range(hkv):
             heads = slice(g * rep, (g + 1) * rep)
             s = (q[bi, heads].float() @ k[bi, g].float().T) * scale
-            p = torch.softmax(s.masked_fill(~keep, -torch.inf), dim=-1)
+            s = s.masked_fill(~keep, -torch.inf)
+            row = torch.logsumexp(s, dim=-1)
+            lse[bi, heads] = torch.where(torch.isinf(row), torch.inf, row)
+            p = torch.softmax(s, dim=-1)
             p = torch.where(torch.isnan(p), 0.0, p).to(q.dtype).float()
             out[bi, heads] = (p @ v[bi, g].float()).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, window=None,
+                              scale=1.0):
+    """The plain PyTorch backward, one (batch, kv-head group) at a time, the
+    JAX package's ``_flash_bwd`` in float32: ``delta = rowsum(dO·O)``,
+    ``P = exp(scale·q·k − lse)`` where kept, ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``,
+    ``dS = P·(dP − delta)·scale``, ``dQ = dS·K``, ``dK = dSᵀ·Q``, the
+    group's heads summed onto their kv head; results in the inputs' dtype."""
+    b, h, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    keep = keep_mask(torch.arange(sq, device=q.device),
+                     torch.arange(sk, device=q.device), causal, window)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for bi in range(b):
+        for g in range(hkv):
+            heads = slice(g * rep, (g + 1) * rep)
+            qf, kf, vf = q[bi, heads].float(), k[bi, g].float(), v[bi, g].float()
+            do = dout[bi, heads].float()
+            delta = (do * out[bi, heads].float()).sum(dim=-1)
+            s = (qf @ kf.T) * scale
+            p = torch.where(keep, torch.exp(s - lse[bi, heads][..., None]), 0.0)
+            ds = p * (do @ vf.T - delta[..., None]) * scale
+            dv[bi, g] = (p.transpose(-1, -2) @ do).sum(dim=0).to(v.dtype)
+            dq[bi, heads] = (ds @ kf).to(q.dtype)
+            dk[bi, g] = (ds.transpose(-1, -2) @ qf).sum(dim=0).to(k.dtype)
+    return dq, dk, dv
 
 
 @functools.cache
@@ -110,10 +165,24 @@ def _entry():
     fn = build.library("flash_attention").flash_attention_launch
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    """The C entry point of the backward kernels' library, typed."""
+    fn = build.library("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [
+        ctypes.c_int, *[ctypes.c_void_p] * 10, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -180,18 +249,21 @@ def _check(q, k, v):
         raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
 
 
-def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
+def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=False):
     """Attention on the card by ``csrc/flash_attention.cu``; see module."""
     if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal, window, scale)
+        return flash_attention_plain(q, k, v, causal, window, scale, return_lse)
     _check(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     rc = _entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
         0 if window is None else int(window), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -203,9 +275,57 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
         flash_attention.launches_tc += 1
     else:
         flash_attention.launches_simt += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale=1.0):
+    """``(dq, dk, dv)`` of :func:`flash_attention` on the card by
+    ``csrc/flash_attention_bwd.cu`` (the plain version for CPU tensors):
+    ``out`` and ``lse`` from the forward with ``return_lse=True``, ``dout``
+    the output's cotangent ``[B, H, Sq, D]``."""
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, window, scale)
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name} must be like q, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd needs a contiguous {name}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError(f"lse must be contiguous float32 [B, H, Sq], got "
+                        f"{lse.dtype} {tuple(lse.shape)}")
+    if -(-k.shape[2] // _BLOCK_Q) > _MAX_Q_TILES:
+        raise ValueError(f"Sk = {k.shape[2]} exceeds the kernel's grid")
+    tc = bwd_route(q.dtype, d) == "tc"
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the backward's tensor-core route needs q, k, v and dout "
+                         "16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    rc = _bwd_entry()(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
+        _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
+        0 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    if tc:
+        flash_attention_bwd.launches_tc += 1
+    else:
+        flash_attention_bwd.launches_simt += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_tc = 0
+flash_attention_bwd.launches_simt = 0

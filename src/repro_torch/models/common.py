@@ -1,9 +1,12 @@
 """Shared NN building blocks (functional, on torch tensors).
 
-The forward half of ``repro.models.common``. The JAX package's
-``optimization_barrier`` (an XLA scheduling hint, the identity) and
-``dist.sharding.constrain`` (a no-op without a mesh) have no counterpart
-here: PyTorch runs eagerly and the port has no mesh yet (ROADMAP A8).
+``repro.models.common`` on torch tensors, the losses with gradients in
+float32 as there. The JAX package's ``optimization_barrier`` needs no
+counterpart: it is the identity, there to stop XLA's loop-invariant code
+motion from hoisting an f32 upcast of the remat carry out of the backward
+scan, and PyTorch runs each layer eagerly, with no such pass.
+``dist.sharding.constrain`` (a no-op without a mesh) has none either: the
+port has no mesh yet (ROADMAP A8c).
 Random initialisers draw from an explicit ``torch.Generator``, whose device
 is where the parameters are made.
 """
@@ -37,7 +40,24 @@ def tensors_from_arrays(tree: Any, device: torch.device) -> Any:
         return {k: tensors_from_arrays(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tensors_from_arrays(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree)).to(device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, bit for bit
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def trainable(tree: Any) -> Any:
+    """Every floating leaf of a parameter tree set to require gradients
+    (in place); returns the tree."""
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            trainable(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            trainable(v)
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        tree.requires_grad_(True)
+    return tree
 
 
 def stack_init(n: int, init_fn: Callable[[], Dict[str, torch.Tensor]]):
@@ -68,7 +88,8 @@ def swiglu(x, w1, w3, w2):
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross-entropy; logits ``[..., V]`` taken in float32."""
+    """Token-mean cross-entropy; logits ``[..., V]`` taken in float32 (the
+    gradient ``softmax − onehot`` over the token count, in float32)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]

@@ -1,9 +1,9 @@
 """GNN layers on the shared segment-op substrate (``repro_torch.graph.ops``).
 
-The JAX package's ``repro.models.gnn.layers`` on torch tensors, forward
-only. Every layer is "one algorithmic superstep" in the paper's model:
+The JAX package's ``repro.models.gnn.layers`` on torch tensors. Every layer is "one algorithmic superstep" in the paper's model:
 gather neighbor state along edges, segment-reduce by destination, update
-locally. On the card the gathers of node rows run ``kernels.gather_rows``
+locally; every layer differentiates through ``graph.ops``. On the card
+the gathers of node rows run ``kernels.gather_rows``
 (its ``scalar`` route: rows of D features) and the reductions run
 ``kernels.segment_reduce`` (its ``cols`` route for ``[E, D]`` values, its
 ``rows`` route for the ``[E]`` degree counts), the same kernels as the
@@ -81,7 +81,10 @@ def gat_layer(p, x, src, dst, emask, n, n_heads, d_out, concat=True, offsets=Non
     att = gops.mp_edge_softmax(scores, dst, n, mask=emask, offsets=offsets)
     del scores
     vals = gops.mp_gather(h, src)  # [E, H, D]
-    vals.mul_(att[..., None])
+    if vals.requires_grad or att.requires_grad:  # the product's backward reads both
+        vals = vals * att[..., None]
+    else:  # serving: no second [E, H, D] buffer
+        vals.mul_(att[..., None])
     del att
     out = gops.mp_segment_reduce(vals, dst, n, "sum", mask=emask,
                                  offsets=offsets)  # [N, H, D]

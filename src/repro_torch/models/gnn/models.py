@@ -1,8 +1,11 @@
-"""GNN models: init and forward for the four assigned architectures.
+"""GNN models: init, forward and loss for the four assigned architectures.
 
-The JAX package's ``repro.models.gnn.models`` on torch tensors, forward
-only (``loss_fn``, ``sage_minibatch_loss`` and training come with ROADMAP
-A8; ``abstract_params`` / ``input_specs`` with A10).
+The JAX package's ``repro.models.gnn.models`` on torch tensors
+(``abstract_params`` / ``input_specs`` come with ROADMAP A10). ``forward``,
+``loss_fn`` (every task branch) and ``sage_minibatch_loss`` carry
+gradients through ``graph.ops`` (``kernels.autograd``) wherever the
+parameters require them; serving calls them with frozen parameters or
+under ``torch.no_grad()``.
 
 Batch contract (full-graph modes), as in JAX:
     {"x": [N, Din], "src": [E], "dst": [E], "emask": [E],
@@ -18,9 +21,10 @@ layer reuses them, and the padding rows lie past the last offset. On the
 card unsorted ``dst`` raises, as ``graph.ops.segment_reduce`` does; the
 CPU's plain versions read the ids and need no order. The layer stacks that
 JAX runs under ``lax.scan`` (PNA's tail, GraphCast's processor) keep their
-stacked leading dimension here and run as a Python loop over it;
-``jax.checkpoint`` and ``optimization_barrier`` do nothing in a forward
-and have no counterpart.
+stacked leading dimension here and run as a Python loop over it, each
+layer checkpointed (``torch.utils.checkpoint``) under ``cfg.remat`` when a
+gradient is wanted, as JAX's ``jax.checkpoint``; ``optimization_barrier``
+has no counterpart (``models.common``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.graph import ops as gops
 from repro_torch.graph.structure import resolve_device, segment_offsets
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
@@ -87,12 +93,14 @@ def init(cfg: GNNConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return p
 
 
-def params_from_arrays(cfg: GNNConfig, tree: Mapping[str, Any], device="cuda"):
+def params_from_arrays(cfg: GNNConfig, tree: Mapping[str, Any], device="cuda",
+                       trainable: bool = False):
     """The JAX package's parameter tree (each leaf a numpy array) on
     ``device``, in the same nesting; stacked layers keep their leading
     layer dimension, and PNA's ``layers`` of a one-layer config stays
-    ``None``."""
-    return common.tensors_from_arrays(tree, resolve_device(device))
+    ``None``. ``trainable`` makes every float leaf require gradients."""
+    tree = common.tensors_from_arrays(tree, resolve_device(device))
+    return common.trainable(tree) if trainable else tree
 
 
 def _cast(params, dtype):
@@ -129,7 +137,13 @@ def dst_offsets(dst: torch.Tensor, n: int) -> Optional[torch.Tensor]:
 # full-graph forward
 
 
-@torch.no_grad()
+def _ckpt(cfg: GNNConfig, fn):
+    """``fn`` checkpointed under ``cfg.remat`` while gradients are on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """Node outputs ``f32[N, n_out]`` of a full-graph batch."""
     cdt = getattr(torch, cfg.compute_dtype)
@@ -144,9 +158,11 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
         w = batch.get("ew")
         w = torch.ones(src.shape, dtype=cdt, device=x.device) if w is None else w.to(cdt)
         e = F.silu(w[:, None] @ cp["encode_edge"])  # [E, De]
+        def gc_body(lp, h, e):
+            return L.mpnn_layer(lp, h, e, src, dst, emask, n, offsets=off)
+
         for i in range(cp["layers"]["edge_w1"].shape[0]):
-            h, e = L.mpnn_layer(_layer(cp["layers"], i), h, e, src, dst, emask, n,
-                                offsets=off)
+            h, e = _ckpt(cfg, gc_body)(_layer(cp["layers"], i), h, e)
         return (h @ cp["head"]).float()
 
     if cfg.variant == "pna":
@@ -156,27 +172,68 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
             return L.pna_layer(lp, h, src, dst, emask, n, cfg.pna_aggregators,
                                cfg.pna_scalers, cfg.pna_delta, offsets=off)
 
-        h = pna_apply(cp["layer0"], x)
+        h = _ckpt(cfg, pna_apply)(cp["layer0"], x)
         if cp.get("layers") is not None:
             for i in range(cp["layers"]["w"].shape[0]):
-                h = pna_apply(_layer(cp["layers"], i), h)
+                h = _ckpt(cfg, pna_apply)(_layer(cp["layers"], i), h)
         return (h @ cp["head"]).float()
+
+    def one_layer(lp, h):
+        if cfg.variant == "sage":
+            return L.sage_layer(lp, h, src, dst, emask, n, cfg.aggregator, offsets=off)
+        return L.gat_layer(lp, h, src, dst, emask, n, cfg.n_heads, cfg.d_hidden,
+                           offsets=off)
 
     h = x
     for lp in params["layers"]:
-        if cfg.variant == "sage":
-            h = L.sage_layer(lp, h, src, dst, emask, n, cfg.aggregator, offsets=off)
-        elif cfg.variant == "gat":
-            h = L.gat_layer(lp, h, src, dst, emask, n, cfg.n_heads, cfg.d_hidden,
-                            offsets=off)
+        h = _ckpt(cfg, one_layer)(lp, h)
     return (h @ params["head"]).float()
+
+
+def loss_fn(params, batch, cfg: GNNConfig) -> torch.Tensor:
+    """The JAX ``loss_fn``'s task branches: regression (masked MSE, or per
+    graph over ``graph_id`` pooling), graph classification (mean-pooled
+    cross-entropy) and node classification (masked cross-entropy). The
+    per-graph pools are segment sums over the ascending ``graph_id``."""
+    out = forward(params, batch, cfg)
+    if cfg.task == "regression":
+        if "graph_id" in batch:
+            pred = _graph_mean(out, batch["graph_id"], batch["labels"].shape[0])
+            return (pred - batch["labels"]).float().square().mean()
+        err = (out - batch["labels"]).float()
+        m = batch.get("lmask")
+        if m is not None:
+            err = err * m[:, None]
+            denom = torch.clamp(m.sum(), min=1.0) * out.shape[-1]
+            return err.square().sum() / denom
+        return err.square().mean()
+    if cfg.task == "graph_class":
+        logits = _graph_mean(out, batch["graph_id"], batch["labels"].shape[0])
+        return common.softmax_cross_entropy(logits, batch["labels"])
+    # node classification with a labeled-node mask
+    logits = out.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    per_node = lse - gold
+    m = batch.get("lmask")
+    if m is not None:
+        return (per_node * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return per_node.mean()
+
+
+def _graph_mean(out, graph_id, n_graphs):
+    """Mean of ``out``'s rows per graph (disjoint-union batching)."""
+    off = dst_offsets(graph_id, n_graphs)
+    pooled = gops.segment_reduce(out, graph_id, n_graphs, "sum", offsets=off)
+    ones = torch.ones(out.shape[:1], dtype=out.dtype, device=out.device)
+    cnt = gops.segment_reduce(ones, graph_id, n_graphs, "sum", offsets=off)
+    return pooled / torch.clamp(cnt[:, None], min=1.0)
 
 
 # ---------------------------------------------------------------------------
 # sampled-minibatch SAGE (GraphSAGE's native mode)
 
 
-@torch.no_grad()
 def sage_minibatch_forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """Two-hop sampled forward with padded blocks (fanouts f0, f1)."""
     assert cfg.variant == "sage" and len(cfg.fanouts) == 2
@@ -203,3 +260,9 @@ def sage_minibatch_forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     nbr2 = masked_mean(h0.reshape(b, f0, -1), m0)
     h = F.relu(h_seed @ l2["w_self"] + nbr2 @ l2["w_nbr"] + l2["b"])
     return h @ params["head"]
+
+
+def sage_minibatch_loss(params, batch, cfg: GNNConfig) -> torch.Tensor:
+    """Cross-entropy of the sampled two-hop forward at the seeds."""
+    logits = sage_minibatch_forward(params, batch, cfg)
+    return common.softmax_cross_entropy(logits, batch["labels"])

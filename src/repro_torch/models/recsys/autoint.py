@@ -1,12 +1,16 @@
 """AutoInt: self-attentive feature interaction over field embeddings.
 
-The JAX package's ``repro.models.recsys.autoint`` on torch tensors, forward
-only. Parameters are the JAX tree's nested dicts, with tensors as leaves.
+The JAX package's ``repro.models.recsys.autoint`` on torch tensors.
+Parameters are the JAX tree's nested dicts, with tensors as leaves.
 The hot path at serving scale is the embedding lookup (39 fields × 10⁶-row
 tables): one ``kernels.embedding_bag`` launch with one-slot bags over the
 flat ``[F·V, D]`` table (the CUDA kernel on the card). Interaction is 3
 small self-attention layers over the 39 field "tokens", then an MLP head.
 ``retrieval_score`` scores one query against N candidates as one matmul.
+:func:`forward` and :func:`loss_fn` carry gradients where the parameters
+require them: the tables' through ``embedding_bag``'s backward
+(``kernels.autograd``: a dense ``[F·V, D]`` gradient, as JAX's); the
+serving entries run without.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Any, Dict, Mapping
 import torch
 
 from repro_torch.graph.structure import resolve_device
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.autograd import embedding_bag
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 from repro_torch.models.recsys.config import AutoIntConfig
@@ -54,10 +58,13 @@ def init(cfg: AutoIntConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return params
 
 
-def params_from_arrays(cfg: AutoIntConfig, tree: Mapping[str, Any], device="cuda"):
+def params_from_arrays(cfg: AutoIntConfig, tree: Mapping[str, Any], device="cuda",
+                       trainable: bool = False):
     """The JAX package's parameter tree (each leaf a numpy array) on
-    ``device``, in the same nesting."""
-    return common.tensors_from_arrays(tree, resolve_device(device))
+    ``device``, in the same nesting; ``trainable`` makes every float leaf
+    require gradients."""
+    tree = common.tensors_from_arrays(tree, resolve_device(device))
+    return common.trainable(tree) if trainable else tree
 
 
 def _interact(params, emb, cfg: AutoIntConfig):
@@ -92,7 +99,6 @@ def lookup(params, indices: torch.Tensor) -> torch.Tensor:
     return rows.reshape(indices.shape + (d,))
 
 
-@torch.no_grad()
 def forward(params, batch, cfg: AutoIntConfig):
     """batch: {"fields": [B, F] int32} → logits [B]."""
     emb = lookup(params, batch["fields"])  # [B, F, D]

@@ -9,13 +9,16 @@ The forward half of ``repro.models.transformer.attention``, layout
 * :func:`attention_chunked` — the prefill/forward attention. Where the JAX
   package runs an online softmax over KV chunks in ``lax.scan``, the port
   calls ``kernels.flash_attention``, which computes that online softmax in
-  one CUDA kernel on the card (its plain version on the CPU).
+  one CUDA kernel on the card (its plain version on the CPU). Its gradient
+  is the JAX package's custom VJP (``_flash_fwd`` saves the logsumexp,
+  ``_flash_bwd`` recomputes P from it): ``kernels.autograd.flash_attention``,
+  whose backward is the kernel of ``csrc/flash_attention_bwd.cu``.
 
 One difference is kept on purpose: a query row with no key kept gives 0
 from the kernel, where ``attention_chunked`` in the JAX package gives the
 mean of V (its mask value ``NEG_INF`` is a finite −1e30). Causal prefill
 from position 0 keeps at least the query's own key, so no model path meets
-such a row. The custom VJP of the JAX function waits for the training slice.
+such a row; there the backward gives a zero gradient.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention, keep_mask
+from repro_torch.kernels.autograd import flash_attention
+from repro_torch.kernels.flash_attention import keep_mask
 
 NEG_INF = -1e30
 

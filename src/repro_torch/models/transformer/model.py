@@ -1,4 +1,5 @@
-"""Decoder-only LM: init, forward, prefill and decode-step (forward only).
+"""Decoder-only LM: init, forward and loss with gradients, prefill and
+decode-step.
 
 The JAX package's ``repro.models.transformer.model`` on torch tensors.
 Parameters live in a :class:`TransformerParams` module with layer-stacked
@@ -17,6 +18,16 @@ a new cache; a copy of the whole ``[L, B, C, Hkv, Dh]`` cache per token is
 what the port saves. A caller that needs the cache from before a step
 clones it first.
 
+:func:`forward` and :func:`loss_fn` (cross-entropy + 0.01·aux, the JAX
+``loss_fn``) are the training entries: with gradients enabled they
+differentiate through the flash kernel's backward and the graph kernels'
+(``kernels.autograd``), and under ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint(use_reentrant=False)``, recomputed in the
+backward as JAX's ``jax.checkpoint(layer_fn)``. The layer stack is
+``unbind``-ed once per forward, so each stacked weight's gradient is
+assembled once. :func:`prefill` and :func:`decode_step_` run without
+gradients.
+
 MoE configs (``cfg.moe``) take :mod:`moe`'s FFN in every layer, its
 dispatch and combine on the ``gather_rows`` and ``segment_reduce``
 kernels; ``forward`` returns the balance loss summed over the layers, as
@@ -25,11 +36,13 @@ the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import common
@@ -46,21 +59,28 @@ class TransformerParams(nn.Module):
     """``embed [V, D]``, ``unembed [V, D]`` (``None`` when tied), ``ln_f [D]``
     and ``layers``: the JAX tree's per-layer leaves stacked on axis 0, named
     by their path (``ffn/w1`` → ``ffn_w1``, ``moe/shared/w1`` →
-    ``moe_shared_w1``). Inference only: no gradients."""
+    ``moe_shared_w1``). Frozen (serving) unless ``trainable``."""
 
-    def __init__(self, tensors: Mapping[str, Any]):
+    def __init__(self, tensors: Mapping[str, Any], trainable: bool = False):
         super().__init__()
-        frozen = lambda t: nn.Parameter(t, requires_grad=False)  # noqa: E731
-        self.embed = frozen(tensors["embed"])
-        self.unembed = frozen(tensors["unembed"]) if "unembed" in tensors else None
-        self.ln_f = frozen(tensors["ln_f"])
+        param = lambda t: nn.Parameter(t, requires_grad=trainable)  # noqa: E731
+        self.embed = param(tensors["embed"])
+        self.unembed = param(tensors["unembed"]) if "unembed" in tensors else None
+        self.ln_f = param(tensors["ln_f"])
         self.layers = nn.ParameterDict(
-            {name: frozen(t) for name, t in tensors["layers"].items()}
+            {name: param(t) for name, t in tensors["layers"].items()}
         )
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s parameters, as views of the stacked tensors."""
         return {name: t[i] for name, t in self.layers.items()}
+
+    def layer_list(self) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's parameters from one ``unbind`` of each stacked
+        tensor (whose backward stacks the layers' gradients once)."""
+        cols = {name: t.unbind(0) for name, t in self.layers.items()}
+        return [{name: c[i] for name, c in cols.items()}
+                for i in range(len(next(iter(cols.values()))))]
 
 
 def init_layer(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
@@ -91,7 +111,8 @@ def init_layer(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, torch.
     return p
 
 
-def init(cfg: TransformerConfig, seed: int = 0, device="cuda") -> TransformerParams:
+def init(cfg: TransformerConfig, seed: int = 0, device="cuda",
+         trainable: bool = False) -> TransformerParams:
     """Random parameters from a ``torch.Generator`` on ``device``: the JAX
     initialisers' distributions (embeddings N(0, 0.02²), dense layers
     N(0, 1/d_in), norms 1, biases 0; :func:`moe.init_moe_params`), not
@@ -110,7 +131,7 @@ def init(cfg: TransformerConfig, seed: int = 0, device="cuda") -> TransformerPar
     }
     if not cfg.tie_embeddings:
         tensors["unembed"] = embedding()
-    return TransformerParams(tensors)
+    return TransformerParams(tensors, trainable)
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -132,9 +153,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def params_from_arrays(cfg: TransformerConfig, tree: Mapping[str, Any], device="cuda"):
+def params_from_arrays(cfg: TransformerConfig, tree: Mapping[str, Any], device="cuda",
+                       trainable: bool = False):
     """The JAX package's parameter tree (``init``'s output, each leaf as a
-    numpy array) as :class:`TransformerParams` on ``device``."""
+    numpy array) as :class:`TransformerParams` on ``device`` (requiring
+    gradients if ``trainable``: a trainer starting from JAX's weights)."""
     dev = resolve_device(device)
     tensors = {
         name: _tensor(tree[name], dev)
@@ -144,7 +167,7 @@ def params_from_arrays(cfg: TransformerConfig, tree: Mapping[str, Any], device="
     tensors["layers"] = {
         name: _tensor(arr, dev) for name, arr in _flatten(tree["layers"]).items()
     }
-    return TransformerParams(tensors)
+    return TransformerParams(tensors, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -214,21 +237,38 @@ def _embed(params: TransformerParams, tokens, cfg):
     return params.embed[tokens.long()].to(cfg.cdtype)
 
 
-@torch.no_grad()
+def _layer_fn(lp, x, pos, cfg):
+    """One layer of the forward: (x after the layer, its MoE aux)."""
+    a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
+    x = x + a
+    f, aux = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
+    return x + f, aux
+
+
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig):
     """Full forward over ``tokens [B, S]``. Returns (hidden [B, S, D], aux);
-    ``aux`` is the MoE balance loss summed over the layers (0.0 dense)."""
+    ``aux`` is the MoE balance loss summed over the layers (0.0 dense).
+    With gradients enabled and ``cfg.remat`` each layer is checkpointed."""
     x = _embed(params, tokens, cfg)
     pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
-    for i in range(cfg.n_layers):
-        lp = params.layer(i)
-        a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
-        x = x + a
-        f, aux_l = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
-        x = x + f
+    for lp in params.layer_list():
+        if remat:
+            x, aux_l = checkpoint(_layer_fn, lp, x, pos, cfg, use_reentrant=False)
+        else:
+            x, aux_l = _layer_fn(lp, x, pos, cfg)
         aux = aux + aux_l
     return common.rms_norm(x, params.ln_f), aux
+
+
+def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy + 0.01 · the MoE balance loss; batch =
+    {tokens [B, S], labels [B, S]}."""
+    hidden, aux = forward(params, batch["tokens"], cfg)
+    logits = logits_from_hidden(params, hidden, cfg)
+    ce = common.softmax_cross_entropy(logits, batch["labels"])
+    return ce + 0.01 * aux
 
 
 def logits_from_hidden(params: TransformerParams, hidden, cfg):

@@ -27,6 +27,9 @@ scatter-with-combiner primitives; here those primitives are the kernels
    rounds once; JAX's scatter-add accumulates in the input dtype.
 
 Shared experts (DeepSeekMoE) are a dense SwiGLU over all tokens, added in.
+Gradients flow through the gates to the router and through both graph
+ops (``kernels.autograd``); the in-place products of serving are taken
+out of place when either factor requires a gradient.
 :func:`moe_ffn` counts the slots it routed and dropped in
 ``moe_ffn.slots`` and ``moe_ffn.dropped`` (the latter a device tensor once
 anything is added, so that counting costs no host sync).
@@ -148,14 +151,18 @@ def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     h = torch.bmm(expert_in, params["w1"])
     g = torch.bmm(expert_in, params["w3"])
     del expert_in
-    h = F.silu(h, inplace=True).mul_(g)  # silu(h) * g, each rounded as in JAX
+    if h.requires_grad or g.requires_grad:  # the backward reads h and g
+        h = F.silu(h) * g
+    else:  # silu(h) * g in place, each rounded as in JAX
+        h = F.silu(h, inplace=True).mul_(g)
     del g
     out_slots = torch.bmm(h, params["w2"]).reshape(e * cap, d)
     del h
 
     vals = graph_ops.gather(out_slots, slot.clamp(max=e * cap - 1))  # [T·k, D]
     del out_slots
-    vals.mul_((gate.reshape(-1) * keep).to(x.dtype)[:, None])
+    weight = (gate.reshape(-1) * keep).to(x.dtype)[:, None]
+    vals = vals * weight if vals.requires_grad or weight.requires_grad else vals.mul_(weight)
     offsets = torch.arange(0, k * (t + 1), k, dtype=torch.int32, device=dev)
     y = graph_ops.segment_reduce(vals, token_id, t, "sum", offsets=offsets)
 

@@ -109,7 +109,8 @@ def test_superstep_report_matches(name):
 def test_port_imports_without_jax():
     """``repro_torch`` imports with ``jax`` and ``repro`` unimportable, and
     runs the graph path in both placements (the partitioned one on one
-    shard), a GNN forward and a sampled GraphSAGE minibatch."""
+    shard), a GNN forward, a sampled GraphSAGE minibatch and one reduced
+    training step (``repro_torch.optim``, ``repro_torch.launch.train``)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -151,6 +152,10 @@ def test_port_imports_without_jax():
         "res = run_bsp(cp.prog, g, cp.init_fields(), placement='partitioned', "
         "n_shards=1)\n"
         "assert res.fields['C'].tolist() == [0] * 8\n"
+        "import repro_torch.optim, repro_torch.launch.train as tr\n"
+        "losses = tr.train('h2o-danube-1.8b', True, steps=1, batch=1, seq=8, "
+        "device='cpu', log=lambda line: None)\n"
+        "assert len(losses) == 1 and losses[0] > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

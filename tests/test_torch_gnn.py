@@ -403,6 +403,26 @@ def test_sampler_selection_matches_jax_draws():
     assert (frontier == 50).any() and (np.asarray(want[1].nodes) == 50).any()
 
 
+@pytest.mark.parametrize("seed", range(-1, -52, -1))
+def test_sampler_negative_seed_matches_jax(seed):
+    """A negative seed reads ``indptr`` as JAX's ``x[ids]`` does (ids in
+    ``[-(N+1), -1]`` wrap over the N + 1 entries, then clamp): fed JAX's
+    draws, the port's block equals JAX's ``sample_khop`` for every seed
+    from −1 to −(N+1) (ROADMAP C-F5)."""
+    jg, tg = _sampler_graphs()
+    jc, tc = jsampler.CSR.from_graph(jg), tsampler.CSR.from_graph(tg)
+    seeds = jnp.asarray([seed], jnp.int32)
+    key = jax.random.PRNGKey(3)
+    (want,) = jsampler.sample_khop(jc, seeds, (4,), key)
+    _, sub = jax.random.split(key)
+    safe = jnp.minimum(seeds, 49)
+    degree = jc.indptr[safe + 1] - jc.indptr[safe]
+    r = jax.random.randint(sub, (1, 4), 0, jnp.maximum(degree, 1)[:, None])
+    got = tsampler._select(tc, _t(np.asarray(seeds)), _t(r).to(torch.int32))
+    assert np.array_equal(got.neighbors.numpy(), np.asarray(want.neighbors))
+    assert np.array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
 def test_sampler_draws_are_in_range_and_neighbors_are_in_neighbors():
     """The port's own draws: every masked neighbor is an in-neighbor of its
     node, every unmasked one the sentinel, and a node with in-neighbors has

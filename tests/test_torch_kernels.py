@@ -366,6 +366,54 @@ def test_flash_route_rule(dtype):
     assert flash_ops.route(torch.bfloat16, 100) == "simt"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_route_rule(dtype):
+    """The backward's route depends on dtype and D alone: bf16 with
+    D % 16 == 0 takes the tensor cores (``mma.sync`` steps of 16 over D),
+    everything else the f32 units."""
+    for d in range(1, 129):
+        want = "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+        assert flash_ops.bwd_route(dtype, d) == want, d
+    assert flash_ops.bwd_route(torch.bfloat16, 80) == "tc"  # h2o-danube's heads
+    assert flash_ops.bwd_route(torch.bfloat16, 128) == "tc"  # deepseek-moe's
+    assert flash_ops.bwd_route(torch.bfloat16, 8) == "simt"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", FLASH_SWEEP)
+def test_flash_lse_and_bwd_sweep(dtype, b, h, hkv, sq, sk, d, causal, window):
+    """Over TestFlashAttention's sweep: the forward's logsumexp is the
+    log-sum-exp of the reference's kept scores (+inf where a row keeps
+    none, so its P is 0), the output is the same with or without it, and
+    the plain backward equals ``jax.vjp`` of ``attention_ref`` on the f32
+    inputs at TOL (scaled by the largest gradient: sums over keys)."""
+    rng = np.random.default_rng(9)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, dtype, b, h, hkv, sq, sk, d)
+    out, lse = flash_ops.flash_attention(tq, tk, tv, causal, window, 1.0, return_lse=True)
+    assert torch.equal(out, flash_attention(tq, tk, tv, causal=causal, window=window))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, sq)
+    f32 = lambda x: x.astype(jnp.float32)  # noqa: E731
+    keep = flash_ops.keep_mask(torch.arange(sq), torch.arange(sk), causal, window)
+    s = np.einsum("bhqd,bhkd->bhqk", _np(tq), np.repeat(_np(tk), h // hkv, axis=1))
+    s = np.where(keep.numpy(), s.astype(np.float64), -np.inf)
+    with np.errstate(divide="ignore"):
+        want_lse = np.logaddexp.reduce(s, axis=-1)
+    want_lse = np.where(np.isneginf(want_lse), np.inf, want_lse)
+    np.testing.assert_allclose(_np(lse), want_lse, **TOL["float32"])
+    dout = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    tdo = torch.from_numpy(dout).to(TORCH[dtype])
+    got = flash_ops.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal, window, 1.0)
+    _, vjp = jax.vjp(lambda q_, k_, v_: attention_ref(q_, k_, v_, causal=causal,
+                                                      window=window),
+                     f32(jq), f32(jk), f32(jv))
+    for g_, w_ in zip(got, vjp(f32(jnp.asarray(_np(tdo))))):
+        w_ = np.asarray(w_)
+        assert g_.dtype == TORCH[dtype]
+        tol = TOL[dtype]["rtol"]
+        np.testing.assert_allclose(_np(g_), w_, rtol=tol,
+                                   atol=tol * max(float(np.abs(w_).max()), 1e-30))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [None, 1, 127, 128, 129, 200, 1000])
 def test_flash_live_tiles_cover_kept_pairs(causal, window):
