@@ -39,7 +39,9 @@ on the first thing that is wrong:
    a 163,558-row segment among short ones at widths 8 to 512, random float
    sums at ``TOL`` · Σ|x|, a float sum repeated bit for bit);
    ``flash_attention`` over tests/test_kernels.py's ``TestFlashAttention``
-   shapes, rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
+   shapes (at scale 1 with f32 scores, as the TPU kernel, and at the
+   model's scale with the scores rounded to bf16, as the model runs),
+   rows with no key, ``scale ≠ 1`` and the model's shape (D = 80,
    32/8 heads, window 4096), plus bf16 cases at the tensor-core route's
    tile edges, NaN in the next kv head's rows, and D = 100 (each case
    must take the route its dtype and D name); ``embedding_bag`` over
@@ -150,10 +152,13 @@ on the first thing that is wrong:
 7. trains (``train_path``), gradients on: first each backward against its
    plain twin on the card over a sweep (``check_backward_kernels``: the
    flash backward ``csrc/flash_attention_bwd.cu`` at D = 80 with 32/8
-   heads and D = 128 with 16/16, S on its tile edges and past the window,
-   bf16 and f32, row by row within ``FLASH_ROW``; the gather's and the
-   bag's table gradients with a hub id 163,558 times, Zipf ids and dropped
-   ids, exact for k/16 values, else within ``TOL`` · Σ|x| of a float64
+   heads, D = 128 with 16/16 and D = 72 and 40 (rounded up to 16 on the
+   tensor-core route), S on its tile edges and past the window, bf16 and
+   f32, with f32 scores and with the scores rounded to bf16 as the model
+   rounds them, row by row within ``FLASH_ROW`` of the plain backward on
+   the same inputs, each case on the route ``bwd_route`` names; the
+   gather's and the bag's table gradients with a hub id 163,558 times,
+   Zipf ids and dropped ids, exact for k/16 values, else within ``TOL`` · Σ|x| of a float64
    host sum; segment max/min with planted ties bit-equal to the CPU's;
    each run twice, bit-equal); then, through
    ``repro_torch.launch.train.build`` and its step (loss and gradients →
@@ -166,11 +171,16 @@ on the first thing that is wrong:
    plain version (``TRAIN_TOL``), the launches per route forward and
    backward exact, every loss finite and step 0's batch's loss lower
    after the steps; warm step ms, throughput, busy share, top kernels and
-   peak GB printed. Then the backwards' rows: the flash backward against
-   its bound and SDPA's backward, the composed gather, segment and bag
-   backwards against theirs and ``index_add_``/``index_select``
+   peak GB printed. Then the backwards' rows: the flash backward at
+   h2o-danube's training shape and at deepseek-moe's D = 128 against its
+   bound and SDPA's backward (each first held row by row to its plain
+   version and bit-equal when run twice), the composed gather, segment and
+   bag backwards against theirs and ``index_add_``/``index_select``
    (``--train-only`` runs the build, the probe and this phase alone, and
-   prints no result line).
+   prints no result line; ``--flash-bwd`` runs the build, the probe, the
+   flash backward's sweep and its two rows, then times what the fixed
+   order of its dQ adds costs against a build without it
+   (``FLASH_BWD_UNORDERED``), and prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -844,11 +854,16 @@ def check_model_kernels(device, gen):
             q = torch.randn((b, h, sq, d), generator=gen).to(dt).to(device)
             k = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
             v = torch.randn((b, hkv, sk, d), generator=gen).to(dt).to(device)
+            # scale 1 as the TPU kernel (f32 scores); the model's scale
+            # with the scores rounded to the inputs' type, as the model runs
             for scale in (1.0, d**-0.5):
+                rnd = scale != 1.0
                 before = flash_attention.launches_tc, flash_attention.launches_simt
-                got = flash_attention(q, k, v, causal, window, scale)
-                want = flash_attention_plain(q, k, v, causal, window, scale)
-                what = f"{dt} {(b, h, hkv, sq, sk, d, causal, window)} scale {scale}"
+                got = flash_attention(q, k, v, causal, window, scale, round_scores=rnd)
+                want = flash_attention_plain(q, k, v, causal, window, scale,
+                                             round_scores=rnd)
+                what = (f"{dt} {(b, h, hkv, sq, sk, d, causal, window)} scale {scale}"
+                        f" round_scores {rnd}")
                 if device.type == "cuda":
                     took = "tc" if flash_attention.launches_tc > before[0] else "simt"
                     if took != route(dt, d):
@@ -2261,15 +2276,16 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
     q, k, v = tm.project_qkv(lp, common.rms_norm(x, lp["ln1"]), pos, cfg)
     q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     scale = cfg.head_dim**-0.5
-    got = flash_attention(q, k, v, True, cfg.swa_window, scale)
-    want = flash_attention_plain(q, k, v, True, cfg.swa_window, scale)
+    got = flash_attention(q, k, v, True, cfg.swa_window, scale, round_scores=True)
+    want = flash_attention_plain(q, k, v, True, cfg.swa_window, scale, round_scores=True)
     tol = TOL[cfg.cdtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     err = (got.float() - want.float()).abs().max().item()
     row_ratio = flash_row_check(got, want, "at the prefill's layer 0")
     # the row check must see one 64-key cut at the window's edge: the plain
     # version with the window cut by 64 keys has to fail it
-    cut = flash_attention_plain(q, k, v, True, cfg.swa_window - 64, scale)
+    cut = flash_attention_plain(q, k, v, True, cfg.swa_window - 64, scale,
+                                round_scores=True)
     cut_worst, cut_ratio = flash_rows(cut, want)
     if not cut_worst > 1.0:
         raise AssertionError("the flash row check passes a window cut by 64 keys")
@@ -2310,9 +2326,6 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
 
 #: prefill tokens held to the float64 oracle in check (b)
 MOE_ORACLE_TOKENS = 256
-#: the prompt length of check (c) on the dense path: its reference prefill
-#: holds f32 scores [B, H, S, S], 9.8 GB a layer at 6144 tokens, 1.1 at 2048
-MOE_TF_PROMPT = 2048
 
 
 def moe_counters(zero: bool = False) -> dict:
@@ -2400,10 +2413,8 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
     the host; (c) a second serve with ``capacity_factor = E / k`` (no slot
     dropped) against one teacher-forced prefill over the prompts and the
     fed tokens, the prefill's routing pinned to the serve's (see
-    :func:`moe_teacher_forced`): checked on the dense attention path at
-    ``MOE_TF_PROMPT`` tokens, printed unchecked on the served flash path.
-    Returns the kernel rows at this path's shapes on the card, else
-    ``[]``."""
+    :func:`moe_teacher_forced`), on the served flash path. Returns the kernel
+    rows at this path's shapes on the card, else ``[]``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
@@ -2480,8 +2491,8 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
     q, kk, v = tm.project_qkv(lp, common.rms_norm(x, lp["ln1"]), pos, cfg)
     q, kk, v = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
     scale = cfg.head_dim**-0.5
-    attn = flash_attention(q, kk, v, True, None, scale)
-    want = flash_attention_plain(q, kk, v, True, None, scale)
+    attn = flash_attention(q, kk, v, True, None, scale, round_scores=True)
+    want = flash_attention_plain(q, kk, v, True, None, scale, round_scores=True)
     flash_err = (attn.float() - want.float()).abs().max().item()
     row_ratio = flash_row_check(attn, want, "at the MoE prefill's layer 0")
     # the row check must see a window cut at the last rows: the plain version
@@ -2491,7 +2502,8 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
         if cut >= prompt_len:
             raise AssertionError("the flash row check passes every window cut")
         cut_worst, cut_ratio = flash_rows(
-            flash_attention_plain(q, kk, v, True, prompt_len - cut, scale), want)
+            flash_attention_plain(q, kk, v, True, prompt_len - cut, scale,
+                                  round_scores=True), want)
         if cut_worst > 1.0:
             break
         cut *= 2
@@ -2563,19 +2575,15 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
 
     # (c) The comparison can be no tighter than two prefills of the same
     # tokens at two batch shapes, which differ by roundings that 28 bf16
-    # layers amplify to a few % of a logit row. On the served flash path
-    # the prefills score attention in f32 and the decode step in bf16 (the
-    # JAX package's attention_dense), so position 0 (prefill against
-    # prefill) shows none of that step's share; it is printed unchecked.
-    # On the dense path, which the step itself takes, all three score
-    # alike and position 0 measures the floor: that run is the check.
+    # layers amplify to a few % of a logit row. The served flash path
+    # rounds each prefill score to bf16 as the decode step's dense
+    # attention does (round_scores, ROADMAP C-F6), so the prefill and the
+    # step score alike and position 0 (prefill against prefill) measures
+    # that floor: the served path is the check.
     served = moe_teacher_forced(params, cfg, prompts, steps)
-    say("moe_teacher_forced", card, checked=False, **served)
-    dense = moe_teacher_forced(params, dataclasses.replace(cfg, attn_impl="dense"),
-                               prompts[:, :MOE_TF_PROMPT], steps)
-    say("moe_teacher_forced", card, checked=True, **dense)
-    if not dense["within_limit"]:
-        raise AssertionError(f"moe decode against the teacher-forced dense prefill: {dense}")
+    say("moe_teacher_forced", card, checked=True, **served)
+    if not served["within_limit"]:
+        raise AssertionError(f"moe decode against the teacher-forced prefill: {served}")
     del params
     say("moe_phase", card, seconds=time.perf_counter() - t_phase)
     return rows
@@ -2770,12 +2778,13 @@ def moe_kernel_rows(layer, launches):
     pairs = sq * (sq + 1) // 2
     flops = pairs * b * nh * 4 * dh
     lib = F.scaled_dot_product_attention(q, kk, v, is_causal=True, scale=scale)
-    lib_err = float((lib.float() - flash_attention(q, kk, v, True, None, scale).float())
-                    .abs().max())
+    lib_err = float((lib.float() - flash_attention(q, kk, v, True, None, scale,
+                                                   round_scores=True).float()).abs().max())
     del lib
     rows.append(row("flash_attention", "moe prefill attention",
-                    lambda: flash_attention(q, kk, v, True, None, scale),
-                    lambda: flash_attention_plain(q, kk, v, True, None, scale),
+                    lambda: flash_attention(q, kk, v, True, None, scale, round_scores=True),
+                    lambda: flash_attention_plain(q, kk, v, True, None, scale,
+                                                  round_scores=True),
                     lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True, scale=scale),
                     "scaled_dot_product_attention(is_causal)",
                     (q.numel() * 2 + kk.numel() + v.numel()) * elem, flops,
@@ -2785,7 +2794,19 @@ def moe_kernel_rows(layer, launches):
                     ops_per_s=BF16_TENSOR_OPS_PER_S, library_max_abs_diff=lib_err,
                     kept_pairs_per_head=pairs))
     rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
+    rows[-1].update(rounding_cost(
+        lambda: flash_attention(q, kk, v, True, None, scale, round_scores=True),
+        lambda: flash_attention(q, kk, v, True, None, scale)))
     return rows
+
+
+def rounding_cost(rounded, f32_scores) -> dict:
+    """The flash forward with its scores rounded to bf16 (the model's) and
+    with f32 scores (the TPU kernel's), timed in turns (rounded, f32, f32,
+    rounded) in this call."""
+    t = [cuda_ms(fn, reps=10) for fn in (rounded, f32_scores, f32_scores, rounded)]
+    return {"rounded_ms": [t[0], t[3]], "f32_scores_ms": [t[1], t[2]],
+            "rounding_cost": (t[0] + t[3]) / (t[1] + t[2]) - 1}
 
 
 # -- 5. AutoInt serving --------------------------------------------------------
@@ -2946,7 +2967,8 @@ def model_kernel_rows(lm, rec):
                                               enable_gqa=True)
 
     lib = sdpa()
-    lib_err = (lib.float() - flash_attention(q, k, v, True, window, scale).float()).abs().max()
+    lib_err = (lib.float() - flash_attention(q, k, v, True, window, scale,
+                                             round_scores=True).float()).abs().max()
     kx, vx = k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1)
     expanded_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, attn_mask=keep, scale=scale), reps=10)
@@ -2968,7 +2990,11 @@ def model_kernel_rows(lm, rec):
             causal[f"{name}_refused"] = str(exc).splitlines()[0][:300]
     del kx, vx
     flops = pairs * b * h * 4 * d
-    ms = cuda_ms(lambda: flash_attention(q, k, v, True, window, scale), reps=10)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, True, window, scale, round_scores=True),
+                 reps=10)
+    rounding = rounding_cost(lambda: flash_attention(q, k, v, True, window, scale,
+                                                     round_scores=True),
+                             lambda: flash_attention(q, k, v, True, window, scale))
     rows = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2977,7 +3003,8 @@ def model_kernel_rows(lm, rec):
         "launches": lm["launches"],
         "max_abs_err": lm["max_abs_err"],
         "ms": ms,
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True, window, scale), reps=3),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True, window, scale,
+                                                          round_scores=True), reps=3),
         "bound_ms": f_bound,
         "bound_by": f_by,
         "library_ms": cuda_ms(sdpa, reps=10),
@@ -2988,6 +3015,7 @@ def model_kernel_rows(lm, rec):
         "library_expanded_kv_ms": expanded_ms,
         **causal,
         "library_causal_pairs_per_head": causal_pairs,
+        **rounding,
         "kept_pairs_per_head": pairs,
         "kernel_route": "tc (TMA + wgmma)" if route(q.dtype, d) == "tc" else "simt",
         "tflops": flops / ms / 1e9,
@@ -3063,13 +3091,14 @@ TRAIN_LR, LM_TRAIN_LR, TRAIN_WARMUP = 3e-4, 3e-5, 2
 #: orders through 24 layers (measured 2e-5); f32: summation orders only
 TRAIN_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 #: flash backward sweep (b, h, hkv, s, d, window): h2o-danube's heads (D =
-#: 80, 32/8) and deepseek-moe's (D = 128, 16/16) at S on the 64-row tiles'
-#: edges, S past the window, and D = 72 (8/2), whose bf16 backward takes the
-#: f32 units (``bwd_route``)
+#: 80, 32/8) and deepseek-moe's (D = 128, 16/16) at S on the 64-row query
+#: and 128-key tiles' edges, S past the window, and D = 72 (8/2) and D = 40
+#: (4/1), odd multiples of 8 that the tensor-core route rounds up to 16
+#: (``bwd_route``: bf16 with D % 8 == 0)
 FLASH_BWD_CASES = [
     (1, 32, 8, 63, 80, None), (1, 32, 8, 64, 80, 4096), (2, 32, 8, 129, 80, 4096),
     (1, 32, 8, 700, 80, 200), (1, 16, 16, 65, 128, None), (1, 16, 16, 256, 128, None),
-    (1, 16, 16, 300, 128, 100), (1, 8, 2, 130, 72, 64),
+    (1, 16, 16, 300, 128, 100), (1, 8, 2, 130, 72, 64), (2, 4, 1, 257, 40, None),
 ]
 #: the R-MAT hub's in-degree (vertex 0 at scale 22), as one id of a gather
 HUB_IDS = 163_558
@@ -3165,16 +3194,19 @@ def grad_row_ratio(got, want) -> float:
     return float((err[big] / ref[big]).max()) if bool(big.any()) else 0.0
 
 
-def check_backward_kernels(device, gen):
+def check_backward_kernels(device, gen, flash_only=False):
     """Each backward on the card against its plain twin over a sweep, each
-    run twice and bit-equal: flash (``FLASH_BWD_CASES``, bf16 and f32, each
-    gradient row by row within ``FLASH_ROW``); the gather's and the bag's
-    table gradients (a hub id ``HUB_IDS`` times, Zipf ids, ids -1, V and
-    2³¹−1 clipped or dropped; exact for k/16 values, ``TOL`` · Σ|x| of a
-    float64 host sum for random ones; the bag's weights gradient too);
-    segment max and min with planted ties, masked and not, on both routes,
-    bit-equal to the same backward on the CPU. Returns the cases per kernel
-    and flash's largest row ratio per dtype."""
+    run twice and bit-equal: flash (``FLASH_BWD_CASES``, bf16 and f32, with
+    f32 scores and with the scores rounded as the model rounds them, each
+    gradient row by row within ``FLASH_ROW`` of the plain backward on the same
+    inputs, each case on the route ``bwd_route`` names, which must be the C
+    entry's rule); the gather's and the bag's table gradients (a hub id
+    ``HUB_IDS`` times, Zipf ids, ids -1, V and 2³¹−1 clipped or dropped; exact
+    for k/16 values, ``TOL`` · Σ|x| of a float64 host sum for random ones; the
+    bag's weights gradient too); segment max and min with planted ties, masked
+    and not, on both routes, bit-equal to the same backward on the CPU
+    (``flash_only``: flash alone). Returns the cases per kernel and flash's
+    largest row ratio per dtype."""
     from repro_torch.kernels import autograd as kg
     from repro_torch.kernels.flash_attention import ops as fl
 
@@ -3192,24 +3224,43 @@ def check_backward_kernels(device, gen):
                 raise AssertionError("a backward run twice differs")
         return a
 
+    if device.type == "cuda":  # the wrapper's route rule is the C entry's
+        import ctypes
+
+        from repro_torch.kernels import build
+
+        uses_tc = build.library("flash_attention_bwd").flash_attention_bwd_uses_tc
+        uses_tc.argtypes, uses_tc.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for d in range(1, 129):
+                if bool(uses_tc(code, d)) != (fl.bwd_route(dt, d) == "tc"):
+                    raise AssertionError(f"backward route rules disagree at {dt}, D={d}")
     for b, h, hkv, s, d, window in FLASH_BWD_CASES:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = rnd((b, h, s, d), dt), rnd((b, hkv, s, d), dt), rnd((b, hkv, s, d), dt)
-            out, lse = fl.flash_attention(q, k, v, True, window, d**-0.5, return_lse=True)
-            lse_unchanged(out, fl.flash_attention(q, k, v, True, window, d**-0.5),
-                          (b, h, hkv, s, d, window, dt))
             do = rnd((b, h, s, d), dt)
-            tc_before = fl.flash_attention_bwd.launches_tc
-            got = twice(lambda: fl.flash_attention_bwd(q, k, v, out, lse, do, True, window,
-                                                       d**-0.5))
-            took = "tc" if fl.flash_attention_bwd.launches_tc > tc_before else "simt"
-            if device.type == "cuda" and took != fl.bwd_route(dt, d):
-                raise AssertionError(f"flash backward {(d, dt)} took the {took} route")
-            want = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, True, window, d**-0.5)
-            for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
-                flash_row_check(g_, w_, f"bwd {name} {(b, h, hkv, s, d, window, dt)}")
-                ratio[str(dt)] = max(ratio.get(str(dt), 0.0), grad_row_ratio(g_, w_))
-            cases["flash_attention_bwd"] += 1
+            args = (True, window, d**-0.5)
+            for rounded in (False, True):
+                what = (b, h, hkv, s, d, window, dt, "rounded" if rounded else "f32 scores")
+                out, lse = fl.flash_attention(q, k, v, *args, return_lse=True,
+                                              round_scores=rounded)
+                lse_unchanged(out, fl.flash_attention(q, k, v, *args, round_scores=rounded),
+                              what)
+                tc_before = fl.flash_attention_bwd.launches_tc
+                got = twice(lambda: fl.flash_attention_bwd(q, k, v, out, lse, do, *args,
+                                                           round_scores=rounded))
+                took = "tc" if fl.flash_attention_bwd.launches_tc > tc_before else "simt"
+                if device.type == "cuda" and took != fl.bwd_route(dt, d):
+                    raise AssertionError(f"flash backward {(d, dt)} took the {took} route")
+                want = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, *args,
+                                                    round_scores=rounded)
+                for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                    flash_row_check(g_, w_, f"bwd {name} {what}")
+                    ratio[str(dt)] = max(ratio.get(str(dt), 0.0), grad_row_ratio(g_, w_))
+                cases["flash_attention_bwd"] += 1
+    if flash_only:
+        sync(device)
+        return cases, ratio
 
     v, w = 4096, 16
     zipf = torch.from_numpy(np.random.default_rng(1).zipf(1.2, 200_000) % v).to(torch.int32)
@@ -3434,74 +3485,144 @@ def train_path(minibatch, seed, device, card, reduced=False):
     return out
 
 
-def train_kernel_rows(launches, seed, device):
-    """The backward kernels timed at the training path's shapes, each
-    against its plain twin, its bound and its library call:
-    ``flash_attention_bwd`` at h2o-danube's layer shape (bound: the kept
-    pairs × 10·D flops at the bf16 tensor-core rate; library: SDPA's
-    backward, causal, kv expanded); the composed backwards (a sort, then
-    ``gather_rows`` and ``segment_reduce``): the bag's at AutoInt's
-    ``train_batch`` lookup (a dense 39 M-row gradient), the gather's and
-    the segment sum's at gat-cora's ``x[src]`` read (library:
-    ``index_add_`` / ``index_select``). Bytes count each input read once
-    and each output written once."""
+def flash_bwd_order_cost(gen, device):
+    """What the backward's fixed order of dQ adds costs, at h2o-danube's
+    training shape: the built kernel timed in turns (ordered, unordered,
+    unordered, ordered) against a build of the same source with
+    ``FLASH_BWD_UNORDERED`` (no waits: every key tile adds onto a zeroed
+    accumulator as it comes, FlashAttention-3's non-deterministic mode),
+    whose gradients are first held row by row to the ordered ones."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    lib = build.library_path("flash_attention_bwd")
+    variant = lib.with_name(lib.stem + "-unordered.so")
+    if not variant.exists():
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DFLASH_BWD_UNORDERED", "-o",
+                        str(variant), str(build.CSRC_DIR / "flash_attention_bwd.cu")],
+                       check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(variant)).flash_attention_bwd_launch
+    fn.argtypes, fn.restype = fl._bwd_entry().argtypes, ctypes.c_int
+    b, h, hkv, s, d, window = LM_TRAIN_BATCH, 32, 8, LM_TRAIN_SEQ, 80, 4096
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
+                   for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d)))
+    scale = d**-0.5
+    out, lse = fl.flash_attention(q, k, v, True, window, scale, return_lse=True,
+                                  round_scores=True)
+    args = (q, k, v, out, lse, do, True, window, scale, True)
+
+    def ordered():
+        return fl.flash_attention_bwd(*args)
+
+    def unordered():
+        saved = fl._bwd_entry
+        fl._bwd_entry = lambda: fn
+        try:
+            return fl.flash_attention_bwd(*args)
+        finally:
+            fl._bwd_entry = saved
+
+    for name, g_, w_ in zip(("dq", "dk", "dv"), unordered(), ordered()):
+        flash_row_check(g_, w_, f"unordered bwd {name}")
+    times = [cuda_ms(fn_, reps=10) for fn_ in (ordered, unordered, unordered, ordered)]
+    return {"shape": f"q bf16[{b},{h},{s},{d}], kv [{b},{hkv},{s},{d}], causal",
+            "ordered_ms": [times[0], times[3]], "unordered_ms": [times[1], times[2]],
+            "order_cost": (times[0] + times[3]) / (times[1] + times[2]) - 1}
+
+
+def flash_bwd_row(b, h, hkv, s, d, window, n_launches, what, gen, device):
+    """``flash_attention_bwd`` at q bf16 ``[b, h, s, d]``, kv ``[b, hkv, s,
+    d]``, causal, scores rounded as the model rounds them: held row by row
+    to its plain version on the same inputs and bit-equal when run twice,
+    then timed beside
+    its bound (the kept pairs × 10·D flops at the bf16 tensor-core rate),
+    the plain version and SDPA's backward (FLASH backend, ``is_causal``,
+    kv expanded to ``h`` heads: no window, so where a window binds it
+    computes more pairs than the kernel)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch import configs
-    from repro_torch.data import gnn_full_batch, recsys_batches
-    from repro_torch.graph.structure import segment_offsets
-    from repro_torch.kernels import autograd as kg
     from repro_torch.kernels.flash_attention import ops as fl
 
-    gen = torch.Generator(device=device).manual_seed(seed)
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
 
-    def rnd(shape, dt=torch.float32):
-        return torch.randn(shape, generator=gen, device=device, dtype=dt)
-
-    rows = []
-    b, h, hkv, s, d, window = LM_TRAIN_BATCH, 32, 8, LM_TRAIN_SEQ, 80, 4096
     scale = d**-0.5
-    q, k, v = rnd((b, h, s, d), torch.bfloat16), rnd((b, hkv, s, d), torch.bfloat16), rnd(
-        (b, hkv, s, d), torch.bfloat16)
-    out, lse = fl.flash_attention(q, k, v, True, window, scale, return_lse=True)
-    lse_unchanged(out, fl.flash_attention(q, k, v, True, window, scale),
-                  "h2o-danube's training shape")
-    do = rnd((b, h, s, d), torch.bfloat16)
-    args = (q, k, v, out, lse, do, True, window, scale)
+    q, k, v = rnd((b, h, s, d)), rnd((b, hkv, s, d)), rnd((b, hkv, s, d))
+    out, lse = fl.flash_attention(q, k, v, True, window, scale, return_lse=True,
+                                  round_scores=True)
+    lse_unchanged(out, fl.flash_attention(q, k, v, True, window, scale, round_scores=True),
+                  what)
+    do = rnd((b, h, s, d))
+    args = (q, k, v, out, lse, do, True, window, scale, True)
     got = fl.flash_attention_bwd(*args)
+    again = fl.flash_attention_bwd(*args)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash backward at {what}: two runs differ")
+    del again
     want = fl.flash_attention_bwd_plain(*args)
     err = max(float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, want))
-    for g_, w_ in zip(got, want):
-        flash_row_check(g_, w_, "bwd at the training shape")
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        flash_row_check(g_, w_, f"bwd {name} at {what}")
     ratio = max(grad_row_ratio(g_, w_) for g_, w_ in zip(got, want))
     del got, want
-    pairs = sum(min(i + 1, window) for i in range(s))
+    pairs = sum(min(i + 1, window or s) for i in range(s))
     nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4  # q, o, dO, dq; k, v, dk, dv
     f_bound, f_by = bound(nbytes, pairs * b * h * 10 * d, BF16_TENSOR_OPS_PER_S)
-    ms = cuda_ms(lambda: fl.flash_attention_bwd(*args), reps=3)
+    ms = cuda_ms(lambda: fl.flash_attention_bwd(*args), reps=10)
     plain_ms = cuda_ms(lambda: fl.flash_attention_bwd_plain(*args), reps=1)
     kx, vx = (t.repeat_interleave(h // hkv, 1).requires_grad_(True) for t in (k, v))
     ql = q.detach().requires_grad_(True)
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.enable_grad():
         lib_out = F.scaled_dot_product_attention(ql, kx, vx, is_causal=True, scale=scale)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kx, vx), do,
-                                                 retain_graph=True), reps=3)
-    del kx, vx, ql, lib_out, args, q, k, v, out, lse, do
-    rows.append({
+                                                 retain_graph=True), reps=10)
+    return {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/transformer/attention.py:188",
-        "launches": launches["h2o-danube-1.8b"]["flash_attention_bwd"],
+        "launches": n_launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": f_bound,
         "bound_by": f_by, "library_ms": lib_ms,
-        "library": "scaled_dot_product_attention backward (FLASH backend, is_causal, "
-                   "kv expanded to 32 heads; no window: it computes the same pairs here)",
-        "shape": f"q bf16[{b},{h},{s},{d}], kv [{b},{hkv},{s},{d}], causal, window {window}",
-        "kernel_route": "tc (mma.sync)" if fl.bwd_route(torch.bfloat16, d) == "tc" else "simt",
+        "library": f"scaled_dot_product_attention backward (FLASH backend, is_causal, "
+                   f"kv expanded to {h} heads, no window)",
+        "shape": f"q bf16[{b},{h},{s},{d}], kv [{b},{hkv},{s},{d}], causal, window "
+                 f"{window} ({what})",
+        "kernel_route": ("tc (TMA + wgmma, one pass)" if fl.bwd_route(torch.bfloat16, d)
+                         == "tc" else "simt"),
         "max_row_ratio": ratio,
         "tflops": pairs * b * h * 10 * d / ms / 1e9, "bound_share": f_bound / ms,
-    })
+    }
+
+
+def train_kernel_rows(launches, seed, device):
+    """The backward kernels timed at the training path's shapes, each
+    against its plain twin, its bound and its library call:
+    ``flash_attention_bwd`` at h2o-danube's layer shape and at
+    deepseek-moe's D = 128 (:func:`flash_bwd_row`); the composed backwards (a sort, then
+    ``gather_rows`` and ``segment_reduce``): the bag's at AutoInt's
+    ``train_batch`` lookup (a dense 39 M-row gradient), the gather's and
+    the segment sum's at gat-cora's ``x[src]`` read (library:
+    ``index_add_`` / ``index_select``). Bytes count each input read once
+    and each output written once."""
+    from repro_torch import configs
+    from repro_torch.data import gnn_full_batch, recsys_batches
+    from repro_torch.graph.structure import segment_offsets
+    from repro_torch.kernels import autograd as kg
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=device, dtype=dt)
+
+    rows = [flash_bwd_row(LM_TRAIN_BATCH, 32, 8, LM_TRAIN_SEQ, 80, 4096,
+                          launches["h2o-danube-1.8b"]["flash_attention_bwd"],
+                          "h2o-danube-1.8b's training shape", gen, device),
+            flash_bwd_row(LM_TRAIN_BATCH, 16, 16, LM_TRAIN_SEQ, 128, None, 0,
+                          "deepseek-moe-16b's attention at 4,096 tokens (not on the "
+                          "path: it trains on the CPU only)", gen, device)]
 
     def hold_scatter(fn, g, rows, n, what):
         """``fn(g)``, a gradient summed by ``rows`` into ``n`` rows, held to
@@ -3638,7 +3759,8 @@ def main() -> int:
         say(
             "ptxas", card, kernel=name, instantiations=len(regs),
             max_registers=max(regs, default=0), spill_store_bytes=sum(spills),
-            **({"per_entry": ptxas_entries(log)} if name == "flash_attention" else {}),
+            **({"per_entry": ptxas_entries(log)}
+               if name in ("flash_attention", "flash_attention_bwd") else {}),
         )
         if "setmaxnreg ignored" in log:
             raise AssertionError(f"{name}: ptxas ignored setmaxnreg")
@@ -3660,6 +3782,18 @@ def main() -> int:
             versus="plain PyTorch versions")
         _, routes, _ = gnn_path(device, card)
         say("gnn_routes", card, **routes)
+        return 0
+    if "--flash-bwd" in sys.argv[1:]:  # the flash backward alone: no result line
+        cases, ratio = check_backward_kernels(device, gen, flash_only=True)
+        say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
+            versus="plain PyTorch versions")
+        bwd_gen = torch.Generator(device=device).manual_seed(seed)
+        for args in ((32, 8, 80, 4096, "h2o-danube-1.8b's training shape"),
+                     (16, 16, 128, None, "deepseek-moe-16b's attention at 4,096 tokens")):
+            h, hkv, d, window, what = args
+            say("train_kernel", card, **flash_bwd_row(LM_TRAIN_BATCH, h, hkv, LM_TRAIN_SEQ,
+                                                      d, window, 0, what, bwd_gen, device))
+        say("flash_bwd_order", card, **flash_bwd_order_cost(bwd_gen, device))
         return 0
     if "--train-only" in sys.argv[1:]:  # a rehearsal of the training phase: no result line
         cases, ratio = check_backward_kernels(device, gen)

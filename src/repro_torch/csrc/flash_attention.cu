@@ -16,6 +16,12 @@
 // TPU wrapper padded, and `scale` multiplies the f32 scores (1 is the TPU
 // kernel). A masked score is -inf, not a finite -1e30, so a row whose kept
 // keys all lie in later tiles carries no weight from the masked ones.
+// With round_scores (the port's model path sets it) each f32 q.k is first
+// rounded once to the inputs' type (bf16: round to nearest even) and the
+// scale multiplies the rounded score, as the JAX package's
+// attention_chunked does in its bf16 einsum (einsum(bf16).astype(f32) *
+// scale); the max, the mask, the exponent and the lse all see it. The TPU
+// kernel keeps f32 scores (preferred_element_type), the default here.
 //
 // Bound on this card: operations. Each kept (query, key) pair costs 4*D
 // flops (two dot products of length D); at the prefill's first layer
@@ -52,7 +58,9 @@
 //   - S = Q K^T: per k-step of 16 one wgmma m64n128k16, both operands
 //     K-major in shared memory; each k-step's descriptors point at one
 //     chunk (SW32: leading offset unused, stride offset 256 B = 8 rows).
-//   - Softmax in registers on the accumulator's fragments: a row's max is
+//   - Softmax in registers on the accumulator's fragments (under
+//     round_scores each pair of scores first rounded by one
+//     cvt.rn.bf16x2.f32 and back): a row's max is
 //     two shuffles among the 4 threads that hold it; its sum stays
 //     per-thread until the end. Only tiles that straddle the diagonal, the
 //     window's edge or Sk are masked; an interior tile (under scale >= 0)
@@ -91,7 +99,7 @@
 //   on the f32 units.
 //
 // The logsumexp (lse, f32 [B, H, Sq], natural log of the row's sum of
-// exp(scale * q.k) over its kept keys) is stored only where the caller
+// exp(scale * q.k) over its kept keys, q.k rounded as above) is stored only where the caller
 // passes a pointer for it: the training forward, whose backward
 // (csrc/flash_attention_bwd.cu) recomputes P = exp(scale * q.k - lse) from
 // it, as the JAX package's _flash_bwd does. A row with no key kept gets
@@ -105,6 +113,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace simt {
 
@@ -134,7 +144,8 @@ __global__ void __launch_bounds__(THREADS)
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int n_heads,
                      int n_rep, int64_t sq, int64_t sk, int d, int causal,
-                     int has_window, int64_t window, float scale) {
+                     int has_window, int64_t window, float scale,
+                     int round_scores) {
   extern __shared__ float smem[];
   const int ld = d + 1;     // padded row of Q and K
   const int ldv = 8 * NJ;   // V row, zero past D
@@ -225,7 +236,8 @@ __global__ void __launch_bounds__(THREADS)
         bool ok = kpos < sk;
         if (causal) ok = ok && kpos <= qpos;
         if (has_window) ok = ok && qpos - kpos < window;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        const float raw = round_scores ? widen(narrow<T>(s[i][j])) : s[i][j];
+        s[i][j] = ok ? raw * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -291,7 +303,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int64_t batch,
            int n_heads, int n_kv_heads, int64_t sq, int64_t sk, int d,
            int causal, int has_window, int64_t window, float scale,
-           cudaStream_t stream) {
+           int round_scores, cudaStream_t stream) {
   const int ld = d + 1;
   const size_t smem =
       sizeof(float) * (size_t)(BQ * ld + BK * ld + BK * 8 * NJ + BQ * (BK + 1));
@@ -303,7 +315,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, n_heads,
-      n_heads / n_kv_heads, sq, sk, d, causal, has_window, window, scale);
+      n_heads / n_kv_heads, sq, sk, d, causal, has_window, window, scale,
+      round_scores);
   return (int)cudaGetLastError();
 }
 
@@ -311,11 +324,11 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
              int64_t sk, int d, int causal, int has_window, int64_t window,
-             float scale, cudaStream_t s) {
+             float scale, int round_scores, cudaStream_t s) {
   const int nj = (d + 7) / 8;
 #define FLASH_CASE(N)                                                        \
   return launch<T, N>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk, d, \
-                      causal, has_window, window, scale, s)
+                      causal, has_window, window, scale, round_scores, s)
   if (nj <= 1) FLASH_CASE(1);
   if (nj <= 2) FLASH_CASE(2);
   if (nj <= 4) FLASH_CASE(4);
@@ -331,6 +344,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;        // query rows per block
 constexpr int BK = 128;        // keys per tile
 constexpr int WG_ROWS = 64;    // query rows per consumer warpgroup
@@ -338,62 +353,9 @@ constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int PRODUCER_WARP = CONSUMERS * 4;  // first warp of the producer
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int STAGES = 3;      // K/V ring depth
-constexpr int CHUNK = 16;      // bf16 columns per TMA box (32 bytes)
 constexpr uint32_t BOX_BYTES = BK * CHUNK * 2;  // one 128-row box
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase differs from `parity`. A wait that lasts
-// ~10 s (a pipeline fault) traps, so a fault ends the launch with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// One box of 16 columns x 128 rows at (column c0, row c1, head c2).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
 
 // A 128-row tile of NC chunks of 16 columns, one box each.
 template <int NC>
@@ -403,253 +365,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int c = 0; c < NC; ++c)
     tma_load(dst + c * BOX_BYTES, map, c * CHUNK, row, head, bar);
-}
-
-// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3); the
-// offsets in bytes.
-__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lead,
-                                              uint32_t stride) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) | (3ull << 62);
-}
-// K-major operand (Q, K): one chunk, rows of 32 B, 8-row groups 256 B apart
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw32_desc(addr, 16, 256);
-}
-// MN-major operand (V): 16 keys from `addr`, the next 16 columns of D one
-// chunk further, 8-key groups 256 B apart
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw32_desc(addr, BOX_BYTES, 256);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Pin the accumulators after a wait: the compiler must not read them
-// between the asynchronous product and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S (+)= A B^T, m64n128k16, A and B K-major in shared memory (descriptors)
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O (+)= A B, m64nNk16: A from registers (4 x bf16x2), B MN-major in
-// shared memory (descriptor, transposed: imm-trans-b = 1)
-template <int N> struct WgmmaRS;
-template <> struct WgmmaRS<16> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<32> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<48> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<64> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<80> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<96> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<112> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-template <> struct WgmmaRS<128> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  }
-};
-
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // Named barriers 1 and 2 order the two consumer warpgroups' products
@@ -662,12 +377,6 @@ __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(CONSUMERS * 128) : "memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Issue S = Q_wg K^T for one key tile (NC k-steps of m64n128k16) as one
 // wgmma group; the caller waits.
 template <int NC>
@@ -676,8 +385,8 @@ __device__ __forceinline__ void qk_issue(float (&s)[BK / 2], uint32_t q_wg,
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < NC; ++c)
-    wgmma_ss_n128(s, kmajor_desc(q_wg + c * BOX_BYTES),
-                  kmajor_desc(k_tile + c * BOX_BYTES), c > 0);
+    WgmmaSS<BK>::run<0, 0>(s, kmajor_desc(q_wg + c * BOX_BYTES),
+                           kmajor_desc(k_tile + c * BOX_BYTES), c > 0);
   wgmma_commit();
 }
 
@@ -692,7 +401,7 @@ __device__ __forceinline__ void pv_issue(float (&o)[DP / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    WgmmaRS<DP>::run(o, p[kk], mnmajor_desc(v_tile + kk * 16 * 32),
+    WgmmaRS<DP>::run(o, p[kk], mnmajor_desc(v_tile + kk * 16 * 32, BOX_BYTES),
                      accumulate || kk > 0);
   wgmma_commit();
 }
@@ -703,16 +412,22 @@ __device__ __forceinline__ void pv_issue(float (&o)[DP / 2],
 // These are also P's A fragment for k-step kk: p[kk][i] = bf16x2 of
 // s[8kk + 2i], s[8kk + 2i + 1].
 
-// Online softmax of one score tile in place, in the log2 domain: masks it
-// where it straddles Sk, the diagonal or the window's edge (interior
-// tiles skip the mask), updates the rows' max m and per-thread partial sum
+// Online softmax of one score tile in place, in the log2 domain: with
+// round_scores rounds each raw q.k to bf16 first (the scale then applies
+// to the rounded score), masks it where it straddles Sk, the diagonal or
+// the window's edge (interior tiles skip the mask), updates the rows' max m and per-thread partial sum
 // l, leaves p = 2^(s - m) in s and the factor for the old accumulator in
 // corr. A row whose max is still -inf takes p = 0 and keeps l = 0.
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2], int k0,
                                              int row0, int qa, int sk, int causal,
                                              int has_window, int window,
-                                             float scale_log2, int t) {
+                                             float scale_log2, int round_scores,
+                                             int t) {
+  if (round_scores) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) round_bf16(sc[i], sc[i + 1]);
+  }
   const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
                     (has_window && (long long)qa + WG_ROWS - 1 - k0 >= window);
   // an interior tile under a scale >= 0 takes its max on the raw scores and
@@ -781,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int n_heads, int n_rep, int sq,
                  int sk, int d, int causal, int has_window, int window,
-                 float scale_log2) {
+                 float scale_log2, int round_scores) {
   constexpr int NC = DP / CHUNK;
   constexpr uint32_t TILE = NC * BOX_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -869,7 +584,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       fence_regs(sc);
       softmax_tile(sc, m, l, corr, kt_begin * BK, row0, qa, sk, causal, has_window,
-                   window, scale_log2, t);
+                   window, scale_log2, round_scores, t);
       pack_p(sc, p);
     }
     for (int i = 0; i + 1 < n_tiles; ++i) {
@@ -883,7 +598,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<1>();  // S(i+1) is ready, P(i) V may still run
       fence_regs(sc);
       softmax_tile(sc, m, l, corr, (kt_begin + i + 1) * BK, row0, qa, sk, causal,
-                   has_window, window, scale_log2, t);
+                   has_window, window, scale_log2, round_scores, t);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(p);
@@ -999,49 +714,6 @@ __global__ void __launch_bounds__(128)
 }
 
 
-// cuTensorMapEncodeTiled, taken from the driver at run time so that the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// bf16 [heads, rows, d] as a 3-D map of boxes 16 x 128 x 1, 32-byte
-// swizzle; out of bounds reads as zero.
-int encode(CUtensorMap* map, const void* ptr, long long heads, long long rows,
-           int d) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)(rows * d * 2)};
-  const cuuint32_t box[3] = {CHUNK, BK, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 constexpr size_t smem_bytes(int dp, int tiles) {
   return (size_t)tiles * (dp / CHUNK) * BOX_BYTES + 8 * (1 + 3 * STAGES) + 1024;
 }
@@ -1051,11 +723,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            long long batch,
            int n_heads, int n_kv_heads, long long sq, long long sk, int d,
            int causal, int has_window, long long window, float scale,
-           cudaStream_t stream) {
+           int round_scores, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  int rc = encode(&qm, q, batch * n_heads, sq, d);
-  if (rc == 0) rc = encode(&km, k, batch * n_kv_heads, sk, d);
-  if (rc == 0) rc = encode(&vm, v, batch * n_kv_heads, sk, d);
+  int rc = encode(&qm, q, batch * n_heads, sq, d, BK);
+  if (rc == 0) rc = encode(&km, k, batch * n_kv_heads, sk, d, BK);
+  if (rc == 0) rc = encode(&vm, v, batch * n_kv_heads, sk, d, BK);
   if (rc != 0) return rc;
   const size_t smem = smem_bytes(DP, 1 + 2 * STAGES);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1076,7 +748,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_tc<DP><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, n_heads, n_heads / n_kv_heads,
-      (int)sq, (int)sk, d, causal, has_window, win, scale * 1.4426950408889634f);
+      (int)sq, (int)sk, d, causal, has_window, win, scale * 1.4426950408889634f,
+      round_scores);
   return (int)cudaGetLastError();
 }
 
@@ -1084,9 +757,9 @@ template <int DP>
 int probe(const void* q, const void* k, const void* v, const void* p, void* s_out,
           void* o_out, long long sq, long long sk, int d, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  int rc = encode(&qm, q, 1, sq, d);
-  if (rc == 0) rc = encode(&km, k, 1, sk, d);
-  if (rc == 0) rc = encode(&vm, v, 1, sk, d);
+  int rc = encode(&qm, q, 1, sq, d, BK);
+  if (rc == 0) rc = encode(&km, k, 1, sk, d, BK);
+  if (rc == 0) rc = encode(&vm, v, 1, sk, d, BK);
   if (rc != 0) return rc;
   const size_t smem = smem_bytes(DP, 3);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1140,7 +813,7 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       long long sq, long long sk, int d,
                                       int dtype, int causal, int has_window,
                                       long long window, float scale,
-                                      void* stream) {
+                                      int round_scores, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch * n_heads * sq == 0) return 0;
@@ -1164,16 +837,19 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
       return (int)cudaMemsetAsync(o, 0, (size_t)(batch * n_heads * sq * d) * 2, s);
     }
     TC_DISPATCH(d, tc::launch<DP>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk,
-                                  d, causal, has_window, window, scale, s));
+                                  d, causal, has_window, window, scale, round_scores,
+                                  s));
   }
   switch (dtype) {
     case 0:
       return simt::dispatch<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq,
-                                   sk, d, causal, has_window, window, scale, s);
+                                   sk, d, causal, has_window, window, scale,
+                                   round_scores, s);
     case 1:
       return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, n_heads,
                                            n_kv_heads, sq, sk, d, causal,
-                                           has_window, window, scale, s);
+                                           has_window, window, scale, round_scores,
+                                           s);
     default:
       return (int)cudaErrorInvalidValue;
   }

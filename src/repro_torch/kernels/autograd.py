@@ -213,11 +213,11 @@ def embedding_bag(table, indices, weights=None, mask=None):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, round_scores):
         out, lse = flash_ops.flash_attention(q, k, v, causal, window, scale,
-                                             return_lse=True)
+                                             return_lse=True, round_scores=round_scores)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, scale)
+        ctx.args = (causal, window, scale, round_scores)
         return out
 
     @staticmethod
@@ -225,11 +225,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
                                                    *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, window=None, scale=1.0):
+def flash_attention(q, k, v, causal=True, window=None, scale=1.0, round_scores=False):
     """``kernels.flash_attention`` with the gradients of q, k and v."""
     if not _wants_grad(q, k, v):
-        return flash_ops.flash_attention(q, k, v, causal, window, scale)
-    return _FlashAttention.apply(q, k, v, causal, window, scale)
+        return flash_ops.flash_attention(q, k, v, causal, window, scale,
+                                         round_scores=round_scores)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, round_scores)

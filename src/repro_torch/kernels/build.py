@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``ctypes``. Nothing here runs at import time: a kernel is built at its
 first use, into ``repro_torch/build/`` (listed in ``.gitignore``), from the
 sources in the checkout only. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. :func:`build` starts one ``nvcc`` per source, all at once.
+source, of every ``csrc`` header it includes (``#include "x.cuh"``, followed
+through the headers) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. :func:`build` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,11 +49,33 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str):
+    """``csrc/<name>.cu`` and every file of ``csrc`` it includes by a quoted
+    ``#include``, followed through those files, each once, in the order
+    first reached."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

@@ -8,7 +8,14 @@ H a multiple of Hkv (query head ``h`` reads kv head ``h // (H / Hkv)``).
 Positions are the row indices: key ``j`` is kept for query ``i`` iff
 ``j <= i`` under ``causal`` and ``i - j < window`` under a window. Scores
 are ``scale · q·k`` in float32 (``scale=1`` is the TPU kernel, which has
-none); a row with no key kept gives 0; the output is in q's dtype.
+none); a row with no key kept gives 0; the output is in q's dtype. With
+``round_scores=True`` each q·k is first rounded once (to nearest even) to
+the inputs' dtype and the scale multiplies the rounded score, as the JAX
+package's ``attention_chunked`` does in its bf16 einsum (``einsum(bf16)
+.astype(f32) * scale``); the max, the mask, the exponent and the
+logsumexp all see the rounded score, and float32 inputs are unchanged.
+The TPU kernel keeps its scores in f32 (``preferred_element_type``), so
+the default is ``False``; the port's model path sets it.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
 version is taken only for tensors on the CPU or the meta device. The
@@ -23,12 +30,14 @@ Sq]`` of the scaled scores over its kept keys (+inf for a row with no key
 kept), which both routes then store beside the output, whose bits do not
 change. :func:`flash_attention_bwd` is the backward, the CUDA kernels of
 ``csrc/flash_attention_bwd.cu`` or their plain version on the CPU: the
-JAX package's ``_flash_bwd`` recomputing P from that logsumexp. It has two
-routes by dtype and D alone (:func:`bwd_route`): bf16 with D % 16 == 0 on
-the tensor cores (``mma.sync``, counted in
+JAX package's ``_flash_bwd`` recomputing P from that logsumexp (with the
+scores rounded as the forward rounded them). It has the forward's two
+routes by dtype and D alone (:func:`bwd_route`): bf16 with D % 8 == 0 on
+the tensor cores (TMA + ``wgmma``, one pass, counted in
 ``flash_attention_bwd.launches_tc``), everything else on the f32 units
 (``flash_attention_bwd.launches_simt``); ``flash_attention_bwd.launches``
-counts both.
+counts both. :func:`bwd_schedule` models the tensor-core route's walk:
+the query tiles each block visits and the fixed order of its dQ adds.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_Q, _MAX_Q_TILES = 64, 65535
 #: the tensor-core kernel's query and key tiles
 TC_BLOCK_Q, TC_BLOCK_K = 128, 128
+#: the tensor-core backward's query tile (a step) and key tile (a block)
+BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
 
 
 def route(dtype, d: int) -> str:
@@ -56,13 +67,11 @@ def route(dtype, d: int) -> str:
 
 
 def bwd_route(dtype, d: int) -> str:
-    """The backward's route for ``dtype`` and head dim ``d``: ``"tc"``
-    (``mma.sync``) for bf16 with ``d % 16 == 0``, else ``"simt"`` (the C
-    entry's ``flash_attention_bwd_uses_tc``). A known gap: the forward's
-    tensor-core rule is ``d % 8 == 0`` (:func:`route`), so a bf16 head dim
-    that is an odd multiple of 8 runs its forward on the tensor cores and
-    its backward on the f32 units (no config of the repo has one)."""
-    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+    """The backward's route for ``dtype`` and head dim ``d``, the forward's
+    rule (:func:`route`): ``"tc"`` (TMA + ``wgmma``) for bf16 with
+    ``d % 8 == 0`` (D rounded up to 16 inside, the columns past D read as
+    zero), else ``"simt"`` (the C entry's ``flash_attention_bwd_uses_tc``)."""
+    return "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
 
 
 def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
@@ -91,6 +100,57 @@ def tile_needs_mask(q_lo: int, rows: int, k0: int, sk: int, causal: bool, window
             or (window is not None and q_lo + rows - 1 - k0 >= window))
 
 
+def bwd_key_tiles(qt: int, sk: int, causal: bool, window, bq: int = BWD_BLOCK_Q,
+                  bk: int = BWD_BLOCK_K):
+    """``(begin, end)``: the key tiles that query tile ``qt`` meets in the
+    tensor-core backward, the forward's rule at its tiles (``key_tiles`` in
+    ``csrc/flash_attention_bwd.cu``)."""
+    q0 = qt * bq
+    n_kt = -(-sk // bk)
+    end = min(n_kt, (q0 + bq - 1) // bk + 1) if causal else n_kt
+    begin = (q0 - window + 1) // bk if window is not None and q0 - window + 1 > 0 else 0
+    return begin, end
+
+
+def bwd_query_tiles(kt: int, sq: int, causal: bool, window, bq: int = BWD_BLOCK_Q,
+                    bk: int = BWD_BLOCK_K):
+    """``(begin, end)``: the query tiles that key tile ``kt`` meets, the same
+    rule seen from the key side (``query_tiles`` in the ``.cu``)."""
+    k0 = kt * bk
+    n_qt = -(-sq // bq)
+    begin = min(n_qt, k0 // bq) if causal else 0
+    end = n_qt
+    if window is not None:
+        last = k0 + bk - 1 + window - 1  # the last query any key of the tile keeps
+        end = 0 if last < 0 else min(n_qt, last // bq + 1)
+    return begin, max(begin, end)
+
+
+def bwd_schedule(batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
+                 causal: bool, window):
+    """The tensor-core backward's walk, as its blocks run it: a list in
+    launch order (``blockIdx.y`` = key tile slowest, ``blockIdx.x`` = batch
+    · kv head) of ``(block, kt, steps)``, each step ``(bh, qt, before)``:
+    the query tile ``qt`` of head ``bh = b·H + h`` that the block visits
+    next (the group's heads in turn, each over its live query tiles in
+    order) and the number of key tiles whose dQ adds into that tile must
+    come first — the value the block waits for on the tile's counter
+    (``before == 0``: it stores instead of adding)."""
+    n_rep = n_heads // n_kv_heads
+    out = []
+    for kt in range(-(-sk // BWD_BLOCK_K)):
+        qb, qe = bwd_query_tiles(kt, sq, causal, window)
+        for bkv in range(batch * n_kv_heads):
+            b, g = divmod(bkv, n_kv_heads)
+            steps = []
+            for hr in range(n_rep):
+                bh = b * n_heads + g * n_rep + hr
+                for qt in range(qb, qe):
+                    steps.append((bh, qt, kt - bwd_key_tiles(qt, sk, causal, window)[0]))
+            out.append((kt * batch * n_kv_heads + bkv, kt, steps))
+    return out
+
+
 def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
     """bool ``[..., Sq, Sk]`` from position vectors ``[..., Sq]`` and
     ``[..., Sk]``: key ``k`` is kept for query ``q`` iff ``k <= q`` under
@@ -105,10 +165,21 @@ def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
     return keep
 
 
+def _scores(q, k, scale, round_scores):
+    """``scale · q·kᵀ`` in float32; with ``round_scores`` the product is
+    taken in the inputs' dtype (f32 accumulation, each score rounded once:
+    the JAX package's bf16 einsum), a no-op for float32. On the card that
+    product runs on the tensor cores, as the kernels' scores do."""
+    if round_scores:
+        return (q @ k.transpose(-1, -2)).float() * scale
+    return (q.float() @ k.float().T) * scale
+
+
 def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
-                          return_lse=False):
+                          return_lse=False, round_scores=False):
     """The plain PyTorch version, one (batch, kv-head group) at a time so
-    that no ``[B, H, Sq, Sk]`` score tensor is ever held: f32 scores,
+    that no ``[B, H, Sq, Sk]`` score tensor is ever held: f32 scores (with
+    ``round_scores`` each q·k rounded to q's dtype before the scale),
     ``-inf`` where masked, softmax, NaN rows (no key kept) to 0, p rounded
     to q's dtype, f32 product with v."""
     b, h, sq, _ = q.shape
@@ -121,7 +192,7 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
     for bi in range(b):
         for g in range(hkv):
             heads = slice(g * rep, (g + 1) * rep)
-            s = (q[bi, heads].float() @ k[bi, g].float().T) * scale
+            s = _scores(q[bi, heads], k[bi, g], scale, round_scores)
             s = s.masked_fill(~keep, -torch.inf)
             row = torch.logsumexp(s, dim=-1)
             lse[bi, heads] = torch.where(torch.isinf(row), torch.inf, row)
@@ -132,10 +203,11 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, window=None,
-                              scale=1.0):
+                              scale=1.0, round_scores=False):
     """The plain PyTorch backward, one (batch, kv-head group) at a time, the
     JAX package's ``_flash_bwd`` in float32: ``delta = rowsum(dO·O)``,
-    ``P = exp(scale·q·k − lse)`` where kept, ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``,
+    ``P = exp(scale·q·k − lse)`` where kept (q·k rounded as the forward
+    rounds it under ``round_scores``), ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``,
     ``dS = P·(dP − delta)·scale``, ``dQ = dS·K``, ``dK = dSᵀ·Q``, the
     group's heads summed onto their kv head; results in the inputs' dtype."""
     b, h, sq, _ = q.shape
@@ -150,7 +222,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, window=None,
             qf, kf, vf = q[bi, heads].float(), k[bi, g].float(), v[bi, g].float()
             do = dout[bi, heads].float()
             delta = (do * out[bi, heads].float()).sum(dim=-1)
-            s = (qf @ kf.T) * scale
+            s = _scores(q[bi, heads], k[bi, g], scale, round_scores)
             p = torch.where(keep, torch.exp(s - lse[bi, heads][..., None]), 0.0)
             ds = p * (do @ vf.T - delta[..., None]) * scale
             dv[bi, g] = (p.transpose(-1, -2) @ do).sum(dim=0).to(v.dtype)
@@ -168,7 +240,7 @@ def _entry():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -179,13 +251,32 @@ def _bwd_entry():
     """The C entry point of the backward kernels' library, typed."""
     fn = build.library("flash_attention_bwd").flash_attention_bwd_launch
     fn.argtypes = [
-        ctypes.c_int, *[ctypes.c_void_p] * 10, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, *[ctypes.c_void_p] * 12, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_scratch_entry():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd_scratch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   *[ctypes.POINTER(ctypes.c_longlong)] * 3]
+    fn.restype = None
+    return fn
+
+
+def bwd_scratch(bh: int, sq: int, d: int):
+    """Element counts of the tensor-core backward's scratch for ``bh =
+    B·H`` heads of ``sq`` rows: f32 rows (lse and delta), the f32 dQ
+    accumulator and the int32 counters, as the C entry's
+    ``flash_attention_bwd_scratch`` gives them."""
+    out = [ctypes.c_longlong() for _ in range(3)]
+    _bwd_scratch_entry()(bh, sq, d, *map(ctypes.byref, out))
+    return tuple(x.value for x in out)
 
 
 @functools.cache
@@ -249,10 +340,12 @@ def _check(q, k, v):
         raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
 
 
-def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=False):
+def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=False,
+                    round_scores=False):
     """Attention on the card by ``csrc/flash_attention.cu``; see module."""
     if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal, window, scale, return_lse)
+        return flash_attention_plain(q, k, v, causal, window, scale, return_lse,
+                                     round_scores)
     _check(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
@@ -265,7 +358,7 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=Fal
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
-        0 if window is None else int(window), float(scale),
+        0 if window is None else int(window), float(scale), int(bool(round_scores)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -283,13 +376,18 @@ flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale=1.0):
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale=1.0,
+                        round_scores=False):
     """``(dq, dk, dv)`` of :func:`flash_attention` on the card by
     ``csrc/flash_attention_bwd.cu`` (the plain version for CPU tensors):
-    ``out`` and ``lse`` from the forward with ``return_lse=True``, ``dout``
-    the output's cotangent ``[B, H, Sq, D]``."""
+    ``out`` and ``lse`` from the forward with ``return_lse=True`` and the
+    same ``round_scores``, ``dout`` the output's cotangent ``[B, H, Sq,
+    D]``. The tensor-core route takes its scratch from ``torch.empty``:
+    an f32 dQ accumulator ``[B·H, ⌈Sq/64⌉, 64, D rounded up to 16]`` (168
+    MB at h2o-danube's training shape) beside f32 rows and int32 counters."""
     if q.device.type != "cuda":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, window, scale)
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, window, scale,
+                                         round_scores)
     _check(q, k, v)
     b, h, sq, d = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -307,13 +405,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
         raise ValueError("the backward's tensor-core route needs q, k, v and dout "
                          "16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = counters = None
+    if tc:
+        n_rows, n_acc, n_counters = bwd_scratch(b * h, sq, d)
+        rows = torch.empty(n_rows, dtype=torch.float32, device=q.device)
+        acc = torch.empty(n_acc, dtype=torch.float32, device=q.device)
+        counters = torch.empty(n_counters, dtype=torch.int32, device=q.device)
+    else:
+        rows = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # delta
     rc = _bwd_entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+        None if acc is None else acc.data_ptr(),
+        None if counters is None else counters.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
-        0 if window is None else int(window), float(scale),
+        0 if window is None else int(window), float(scale), int(bool(round_scores)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

@@ -97,7 +97,9 @@ def attention_chunked(
 ) -> torch.Tensor:
     """Flash attention over positions 0..S−1 (those of a forward or a
     prefill), scaled by ``Dh**-0.5``: one ``kernels.flash_attention`` call
-    in its ``[B, H, S, Dh]`` layout."""
+    in its ``[B, H, S, Dh]`` layout, each q·k rounded to the inputs' dtype
+    before the scale (``round_scores``), as the JAX package's bf16 einsum
+    rounds its scores and the decode step's ``attention_dense`` does."""
     out = flash_attention(
         q.transpose(1, 2).contiguous(),
         k.transpose(1, 2).contiguous(),
@@ -105,6 +107,7 @@ def attention_chunked(
         causal=causal,
         window=window,
         scale=q.shape[-1] ** -0.5,
+        round_scores=True,
     )
     return out.transpose(1, 2)
 

@@ -13,6 +13,8 @@ and products use ``TOL`` of tests/test_kernels.py (f32 rtol = atol = 2e-5,
 bf16 3e-2), because the summation order differs between the two packages.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 
@@ -368,15 +370,140 @@ def test_flash_route_rule(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_route_rule(dtype):
-    """The backward's route depends on dtype and D alone: bf16 with
-    D % 16 == 0 takes the tensor cores (``mma.sync`` steps of 16 over D),
-    everything else the f32 units."""
+    """The backward's route depends on dtype and D alone, the forward's
+    rule: bf16 with D % 8 == 0 takes the tensor cores (TMA rows of 16-byte
+    multiples; D rounded up to 16 inside), everything else the f32 units."""
     for d in range(1, 129):
-        want = "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+        want = "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
         assert flash_ops.bwd_route(dtype, d) == want, d
+        assert flash_ops.bwd_route(dtype, d) == flash_ops.route(dtype, d), d
     assert flash_ops.bwd_route(torch.bfloat16, 80) == "tc"  # h2o-danube's heads
     assert flash_ops.bwd_route(torch.bfloat16, 128) == "tc"  # deepseek-moe's
-    assert flash_ops.bwd_route(torch.bfloat16, 8) == "simt"
+    assert flash_ops.bwd_route(torch.bfloat16, 8) == "tc"
+    assert flash_ops.bwd_route(torch.bfloat16, 100) == "simt"
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", FLASH_SWEEP)
+def test_flash_lse_of_rounded_scores(b, h, hkv, sq, sk, d, causal, window):
+    """With ``round_scores`` and bf16 inputs the forward's logsumexp is the
+    log-sum-exp of the kept scores rounded once to bf16 before the scale
+    (JAX's ``einsum(bf16).astype(f32) * scale``), at f32's TOL; at scale 1
+    it differs from the unrounded one by more than that; the plain
+    backward is the same with the scores so rounded (against a float64
+    reference of it, at bf16's TOL scaled by the largest gradient); and
+    for f32 inputs the flag changes no bit."""
+    rng = np.random.default_rng(10)
+    (_, tq), (_, tk), (_, tv) = _qkv(rng, "bfloat16", b, h, hkv, sq, sk, d)
+    scale = d**-0.5
+    out, lse = flash_ops.flash_attention(tq, tk, tv, causal, window, scale,
+                                         return_lse=True, round_scores=True)
+    keep = flash_ops.keep_mask(torch.arange(sq), torch.arange(sk), causal, window).numpy()
+    kr = np.repeat(_np(tk), h // hkv, axis=1).astype(np.float64)
+    raw = np.einsum("bhqd,bhkd->bhqk", _np(tq).astype(np.float64), kr)
+    rounded = torch.from_numpy(raw).to(torch.bfloat16).double().numpy()
+    with np.errstate(divide="ignore"):
+        want = np.logaddexp.reduce(np.where(keep, rounded * scale, -np.inf), axis=-1)
+        unrounded = np.logaddexp.reduce(np.where(keep, raw, -np.inf), axis=-1)
+    want = np.where(np.isneginf(want), np.inf, want)
+    np.testing.assert_allclose(_np(lse), want, **TOL["float32"])
+    _, lse1 = flash_ops.flash_attention(tq, tk, tv, causal, window, 1.0, return_lse=True,
+                                        round_scores=True)
+    ok = np.isfinite(unrounded)
+    assert np.abs(_np(lse1)[ok] - unrounded[ok]).max() > 10 * TOL["float32"]["atol"]
+    # the backward recomputes P from the rounded scores
+    do = torch.from_numpy(rng.normal(size=(b, h, sq, d))).to(torch.bfloat16)
+    got = flash_ops.flash_attention_bwd(tq, tk, tv, out, lse, do, causal, window, scale,
+                                        round_scores=True)
+    vr = np.repeat(_np(tv), h // hkv, axis=1).astype(np.float64)
+    p = np.where(keep, np.exp(rounded * scale - _np(lse)[..., None].astype(np.float64)), 0.0)
+    d_o = _np(do).astype(np.float64)
+    delta = (d_o * _np(out).astype(np.float64)).sum(-1)
+    ds = p * (np.einsum("bhqd,bhkd->bhqk", d_o, vr) - delta[..., None]) * scale
+    fold = lambda x: x.reshape(b, hkv, h // hkv, *x.shape[2:]).sum(2)  # noqa: E731
+    wants = (np.einsum("bhqk,bhkd->bhqd", ds, kr),
+             fold(np.einsum("bhqk,bhqd->bhkd", ds, _np(tq).astype(np.float64))),
+             fold(np.einsum("bhqk,bhqd->bhkd", p, d_o)))
+    for g_, w_ in zip(got, wants):
+        tol = TOL["bfloat16"]["rtol"]
+        np.testing.assert_allclose(_np(g_), w_, rtol=tol,
+                                   atol=tol * max(float(np.abs(w_).max()), 1e-30))
+    (_, fq), (_, fk), (_, fv) = _qkv(rng, "float32", b, h, hkv, sq, sk, d)
+    plain = flash_ops.flash_attention(fq, fk, fv, causal, window, scale, return_lse=True)
+    flagged = flash_ops.flash_attention(fq, fk, fv, causal, window, scale, return_lse=True,
+                                        round_scores=True)
+    assert all(torch.equal(x, y) for x, y in zip(plain, flagged))
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (True, 64),
+                                           (False, None), (False, 200), (True, 1)])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (64, 129), (300, 300), (257, 100),
+                                   (100, 400)])
+def test_flash_bwd_schedule(causal, window, sq, sk):
+    """The tensor-core backward's walk (``bwd_schedule``, the loops of
+    ``csrc/flash_attention_bwd.cu``), with GQA (4 query heads on 2 kv heads,
+    batch 2):
+
+    * every pair ``keep_mask`` keeps is visited exactly once, by the block
+      of its key tile and its kv head, in a step of its query head;
+    * a block waits only on blocks of a smaller ``blockIdx`` (launched
+      before it), and run in any order that honours the waits, with at
+      most a few blocks resident at once and launched in ``blockIdx``
+      order, every block finishes and the dQ adds into each query tile
+      come in ascending key-tile order, the first of them a store;
+    * a query tile with no block adding into it is one that keeps no key
+      (``dq_kernel`` writes its 0)."""
+    b, h, hkv = 2, 4, 2
+    bq, bk = flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K
+    keep = flash_ops.keep_mask(torch.arange(sq), torch.arange(sk), causal, window).numpy()
+    sched = flash_ops.bwd_schedule(b, h, hkv, sq, sk, causal, window)
+    assert [blk for blk, _, _ in sched] == list(range(len(sched)))
+    visits = np.zeros((b * h, sq, sk), dtype=np.int64)
+    adders = {}  # (bh, qt) -> key tiles in the order they must add
+    for blk, kt, steps in sched:
+        kv = blk % (b * hkv)
+        for bh, qt, before in steps:
+            assert (bh // h) * hkv + (bh % h) // (h // hkv) == kv
+            visits[bh, qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk] += 1
+            adders.setdefault((bh, qt), []).append(kt)
+    assert visits.max() <= 1
+    assert not (np.broadcast_to(keep, visits.shape) & (visits == 0)).any()
+    for (bh, qt), kts in adders.items():
+        first, end = flash_ops.bwd_key_tiles(qt, sk, causal, window)
+        assert sorted(kts) == list(range(first, end)), (bh, qt)
+    for qt in range(-(-sq // bq)):
+        first, end = flash_ops.bwd_key_tiles(qt, sk, causal, window)
+        if first >= end:
+            assert not keep[qt * bq:(qt + 1) * bq].any()
+    # a block waits (on its tile's counter) only for blocks launched before it
+    owner = {(bh, qt, kt - flash_ops.bwd_key_tiles(qt, sk, causal, window)[0]): blk
+             for blk, kt, steps in sched for bh, qt, _ in steps}
+    for blk, kt, steps in sched:
+        for bh, qt, before in steps:
+            if before:
+                assert owner[(bh, qt, before - 1)] < blk
+    # run the blocks, launched in blockIdx order as residency frees up; a
+    # step runs once `before` adds have reached its tile
+    n = len(sched)
+    for seed, resident in ((0, 1), (1, 3), (2, n)):
+        order = np.random.default_rng(seed)
+        pos, count, added, launched = [0] * n, {}, {}, 0
+        while True:
+            live = sum(pos[i] < len(sched[i][2]) for i in range(launched))
+            while launched < n and live < resident:
+                live += len(sched[launched][2]) > 0
+                launched += 1
+            ready = [i for i in range(launched) if pos[i] < len(sched[i][2])
+                     and count.get(sched[i][2][pos[i]][:2], 0) == sched[i][2][pos[i]][2]]
+            if not ready:
+                break
+            i = ready[order.integers(len(ready))]
+            bh, qt, before = sched[i][2][pos[i]]
+            added.setdefault((bh, qt), []).append(sched[i][1])
+            count[(bh, qt)] = before + 1
+            pos[i] += 1
+        assert launched == n and all(p == len(st) for p, (_, _, st) in zip(pos, sched)), \
+            "the waits deadlock"
+        assert added == {key: sorted(kts) for key, kts in adders.items()}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -891,3 +1018,42 @@ def test_merge_tiles_brute_force(layout, tile):
         assert (rb, re_) == (row, row + len(rows)) and rows == list(range(rb, re_))
         row = re_
     assert row == off[n] and sum(s1 - s0 for s0, s1, _, _ in tiles) == n
+
+
+# -- the kernels' build ----------------------------------------------------------
+
+
+def test_library_path_covers_included_headers(tmp_path, monkeypatch):
+    """On a copy of ``csrc/``: a library's name hashes its source and every
+    ``csrc`` header it includes (``flash_attention.cu`` and
+    ``flash_attention_bwd.cu`` share ``hopper.cuh``), so an edited header
+    names a new library for both and a stale one is never loaded; a header
+    that no source includes, or another kernel's source, changes nothing."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    names = ("flash_attention", "flash_attention_bwd", "gather_rows")
+    before = {n: build.library_path(n) for n in names}
+    assert [p.name for p in build.sources("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "hopper.cuh"]
+    assert [p.name for p in build.sources("gather_rows")] == ["gather_rows.cu"]
+    (csrc / "unused.cuh").write_text("#pragma once\n")
+    with open(csrc / "segment_reduce.cu", "a") as f:
+        f.write("// another kernel's edit\n")
+    assert {n: build.library_path(n) for n in names} == before
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// an edit of the shared header\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
+    assert after["gather_rows"] == before["gather_rows"]
+    # a header included through another header counts too
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write('#include "inner.cuh"\n')
+    mid = build.library_path("flash_attention_bwd")
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert build.library_path("flash_attention_bwd") != mid

@@ -301,6 +301,37 @@ def test_attention_chunked_grad_matches_jax(b, s, h, hkv, d, window, dtype):
         _close(g, w, TOL[dtype])
 
 
+@pytest.mark.parametrize("b,s,h,hkv,d,window", ATTN_CASES)
+def test_attention_chunked_bf16_matches_jax(b, s, h, hkv, d, window):
+    """``attention_chunked`` in bf16 == JAX's ``attention_chunked`` in bf16
+    on the same seeded inputs, forward and ``jax.grad``, each within
+    1e-2 · max|·| (about two bf16 steps: both round each score q·k to bf16
+    before the scale (``round_scores``), P and the output to bf16 at the
+    same places, and sum in other orders; the port's one softmax against
+    JAX's online one over chunks of 16 keys)."""
+    rng = np.random.default_rng(12)
+    jq, tq = _both(rng.normal(size=(b, s, h, d)), "bfloat16")
+    jk, tk = _both(rng.normal(size=(b, s, hkv, d)), "bfloat16")
+    jv, tv = _both(rng.normal(size=(b, s, hkv, d)), "bfloat16")
+    cot = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    pos = jnp.arange(s, dtype=jnp.int32)
+
+    def jfn(q, k, v):
+        return jattn.attention_chunked(q, k, v, pos, pos, causal=True, window=window,
+                                       chunk_kv=16)
+
+    want_out = jfn(jq, jk, jv)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v).astype(jnp.float32) * cot),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    out = tattn.attention_chunked(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == torch.bfloat16
+    _close(out.detach(), want_out, 1e-2)
+    got = torch.autograd.grad((out.float() * _t(cot)).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close(g, w, 1e-2)
+
+
 def test_flash_lse_matches_jax():
     """The forward's logsumexp (``return_lse=True``) == JAX's
     ``_flash_fwd_impl`` lse, and the output is the same tensor as without."""
