@@ -13,7 +13,7 @@ and depths (4 requests, 6144-token prompts, 32 greedy decode steps each),
 and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
 at the ``RECSYS_SHAPES`` serve shapes, and training of four of those
 models (h2o-danube-1.8b, gat-cora, graphsage-reddit, AutoInt) at full
-width. What it does, in order, and fails
+width, then a restart-and-replay drill of the h2o-danube trainer. What it does, in order, and fails
 on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
@@ -181,6 +181,19 @@ on the first thing that is wrong:
    flash backward's sweep and its two rows, then times what the fixed
    order of its dQ adds costs against a build without it
    (``FLASH_BWD_UNORDERED``), and prints no result line).
+8. drills the supervised trainer (``ckpt_drill``): h2o-danube-1.8b at full
+   width and depth as in 7, ``CKPT_STEPS`` plain steps as the reference
+   (an async checkpoint written under its last steps, their ms against
+   the warm ones'; ``compress_with_feedback`` over step 0's gradient, each
+   leaf within scale/2), then through ``launch.train.Supervised`` a job
+   that stops at step 3 with its checkpoint, and a fresh one to step 6
+   with a failure injected at step 4: one restart, one retry, the replayed
+   losses, the final parameters and moments and the step-6 checkpoint
+   read back all bit-equal to the reference, the manifest keyed by the
+   JAX tree's paths, every flash launch on the tensor cores; prints the
+   checkpoint's GB, the host snapshot, write (GB/s), restore and load
+   seconds (``--ckpt-drill`` runs the build, the probe and this phase
+   alone, and prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -193,11 +206,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3485,6 +3501,278 @@ def train_path(minibatch, seed, device, card, reduced=False):
     return out
 
 
+# -- 8. the checkpoint drill ---------------------------------------------------
+
+#: the drill's schedule: the reference's steps; run A stops after
+#: ``CKPT_STOP`` (a job cut short, its checkpoint written), run B resumes
+#: there and fails once at step index ``CKPT_FAIL``
+CKPT_STEPS, CKPT_STOP, CKPT_FAIL = 6, 3, 4
+#: h2o-danube-1.8b's parameter paths in the JAX package's tree (``init`` of
+#: its config: no biases, no qk-norm, an untied unembedding), the keys of
+#: its checkpoints; tests/test_torch_ckpt.py holds them to JAX's
+H2O_JAX_PATHS = ("embed", "layers/ffn/w1", "layers/ffn/w2", "layers/ffn/w3", "layers/ln1",
+                 "layers/ln2", "layers/wk", "layers/wo", "layers/wq", "layers/wv", "ln_f",
+                 "unembed")
+#: ``compress_with_feedback`` per leaf: the residual within scale/2, plus
+#: the f32 roundings of the division and the product (127·2⁻²⁴ of the
+#: scale each)
+COMPRESS_SLACK = 1e-4
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.checkpoint.checkpoint import _flatten
+
+    return sum(t.numel() * t.element_size() for _, t in _flatten(tree))
+
+
+def ckpt_dir_with_room(need: int):
+    """A fresh directory under the temp directory, or else the checkout,
+    whichever first has ``need`` bytes free: ``(path, free bytes)``. No
+    room anywhere fails the phase."""
+    room = {}
+    for base in (Path(tempfile.gettempdir()), ROOT):
+        room[str(base)] = shutil.disk_usage(base).free
+        if room[str(base)] >= need:
+            return Path(tempfile.mkdtemp(prefix="ckpt_drill_", dir=base)), room[str(base)]
+    raise AssertionError(f"ckpt_drill: two checkpoints need {need / 1e9:.1f} GB; free: "
+                         + ", ".join(f"{k} {v / 1e9:.1f} GB" for k, v in room.items()))
+
+
+@contextlib.contextmanager
+def timing(owner, name, spans):
+    """``owner.name`` (a function or a bound method) timed while inside:
+    each call's ``(start, end)`` on the host clock appended to ``spans``."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    setattr(owner, name, timed)
+    try:
+        yield spans
+    finally:
+        setattr(owner, name, fn)
+
+
+def host_memory() -> dict:
+    """GiB available on the host (``/proc/meminfo``) and charged to this
+    machine's memory group where it has one (files in a memory-backed
+    directory count there too)."""
+    out = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, value = line.split(":")
+            if key in ("MemAvailable", "Shmem"):
+                out[key] = int(value.split()[0]) / 2**20
+    cgroup = Path("/sys/fs/cgroup/memory.current")
+    if cgroup.exists():
+        out["cgroup"] = int(cgroup.read_text()) / 2**30
+    return out
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit patterns (so that -0.0 and 0.0 differ)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().view(ints[t.element_size()]) if t.is_floating_point() else t.detach()
+
+
+def ckpt_drill(seed, device, card, reduced=False):
+    """Restart-and-replay drill of h2o-danube-1.8b at full width and depth
+    (bf16, remat, ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens,
+    ``LM_TRAIN_LR``) through ``launch.train``: (1) the reference,
+    ``CKPT_STEPS`` plain steps of ``make_step``, its state kept on the card;
+    after ``CKPT_STOP`` steps an ``AsyncCheckpointer`` saves it, and the
+    steps after run while the write goes on (their ms against the warm
+    ones'; that checkpoint is deleted after); before them
+    ``compress_with_feedback`` over step 0's gradient, each leaf within its
+    scale/2 (``COMPRESS_SLACK``); (2) run A, ``launch.train.Supervised`` from
+    a fresh build to ``CKPT_STOP`` steps, checkpointing there (a job that
+    stops); (3) run B, a fresh build and a new supervisor to ``CKPT_STEPS``
+    with a failure injected at ``CKPT_FAIL``: it restores step 3
+    (``restarts == 1``), fails, restores step 3 again (``retries == 1``),
+    replays 3-5 and saves step 6. Checks: every loss of A and B bit-equal to
+    the reference's at its step; B's final parameters and moments, and the
+    step-6 checkpoint read back, bit-equal to the reference's; the
+    manifest's keys the JAX tree's paths; every flash launch of A and B on
+    the tensor cores, exactly 2·L forward and L backward a step. The
+    checkpoints go where two fit (temp directory, else the checkout;
+    none: the phase fails) and are deleted after. Prints ``ckpt`` and
+    ``ckpt_drill`` lines. ``reduced``: the reduced config at a small batch
+    (a CPU rehearsal). Returns the launches of runs A and B."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.checkpoint import checkpoint as ck_mod
+    from repro_torch.checkpoint.checkpoint import _flatten, tree_map
+    from repro_torch.ft import failures
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.grad_compress import compress_with_feedback
+
+    t_phase = time.perf_counter()
+    b, s = (2, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    oc = AdamWConfig(lr=LM_TRAIN_LR)
+
+    def fresh():
+        return tr.build("h2o-danube-1.8b", reduced, b, s, seed, device)[1:]
+
+    def now():
+        sync(device)
+        return time.perf_counter()
+
+    gc.collect()
+    cfg, params, loss_fn, batches = fresh()
+    n = cfg.n_layers
+
+    # compress_with_feedback over step 0's gradient, one rank
+    t0 = now()
+    _, g = tr.value_and_grad(loss_fn, params, batches(0))
+    grad_ms = (now() - t0) * 1e3
+    t0 = now()
+    ratios = {}
+    for k, gl in g.items():
+        _, scale, res = compress_with_feedback(gl, torch.zeros(gl.shape, device=gl.device))
+        ratios[k] = res.abs().max() / scale
+    compress_ms = (now() - t0) * 1e3
+    ratios = {k: float(r) for k, r in ratios.items()}
+    if max(ratios.values()) > 0.5 + COMPRESS_SLACK:
+        raise AssertionError(f"ckpt_drill: compress_with_feedback beyond scale/2: {ratios}")
+    del g
+
+    opt = adamw_init(params, oc)
+    state = {"params": params, "opt": opt}
+    ckpt_bytes = tree_bytes(tr.state_tree(params, opt))
+    ckpt_bytes_params = tree_bytes(tr.state_tree(params, opt)["params"])
+    ckpt_dir, free = ckpt_dir_with_room(2 * ckpt_bytes + (1 << 30))
+    saves, writes, restores, loads, inits = [], [], [], [], []
+    memory = {}
+
+    def stage(name):
+        memory[name] = host_memory()
+        say("ckpt_stage", card, stage=name, seconds=time.perf_counter() - t_phase,
+            host_memory_gib=memory[name])
+
+    stage("start")
+    try:
+        # (1) the reference; the parameters after CKPT_STOP steps saved, their
+        # write going on under the next steps (the checkpoint deleted after)
+        step = tr.make_step(loss_fn, oc, TRAIN_WARMUP, CKPT_STEPS)
+        ref_ck = AsyncCheckpointer(ckpt_dir / "reference")
+        ref_losses, spans, overlap_write = [], [], []
+        with timing(ck_mod, "save_checkpoint", overlap_write):
+            for i in range(CKPT_STEPS):
+                t0 = now()
+                _, m = step(state, batches(i))
+                ref_losses.append(float(m["loss"]))
+                spans.append((t0, now()))
+                if i + 1 == CKPT_STOP:
+                    ref_ck.save(CKPT_STOP, {"params": tr.state_tree(params, opt)["params"]})
+            ref_ck.wait()
+        shutil.rmtree(ckpt_dir / "reference")
+        del ref_ck, loss_fn, batches, step
+        gc.collect()
+        ref = tr.state_tree(params, opt)  # the reference's final state, on the card
+        w0, w1 = overlap_write[0]
+        overlapped = [i for i, (a, e) in enumerate(spans) if a < w1 and e > w0]
+        warm = [i for i in range(1, CKPT_STEPS) if i not in overlapped]
+        stage("reference")
+
+        # (2) run A: a job that stops after CKPT_STOP steps, checkpointed there
+        train_counters(zero=True)
+        runs = {}
+        for name, n_steps, fail in (("A", CKPT_STOP, ()), ("B", CKPT_STEPS, (CKPT_FAIL,))):
+            _, p, lf, bf = fresh()
+            with timing(tr, "host_copy", inits):
+                run = tr.Supervised("lm", p, lf, bf, oc, warmup=TRAIN_WARMUP, total=CKPT_STEPS,
+                                    ckpt_dir=str(ckpt_dir), ckpt_every=CKPT_STOP,
+                                    inject_failures=fail, device=device,
+                                    log=lambda line: print(line, flush=True))
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(timing(run.sup.ckpt, "save", saves))
+                stack.enter_context(timing(ck_mod, "save_checkpoint", writes))
+                stack.enter_context(timing(failures, "restore_checkpoint", restores))
+                stack.enter_context(timing(run, "load_", loads))
+                last, _ = run.run(n_steps)
+            sup = run.sup
+            runs[name] = {"step": last, "retries": sup.retries, "restarts": sup.restarts,
+                          "stragglers": len(sup.straggler.events), "losses": run.losses}
+            for i, loss in run.losses:
+                if loss != ref_losses[i]:
+                    raise AssertionError(f"ckpt_drill run {name}: step {i}'s loss {loss} "
+                                         f"against the reference's {ref_losses[i]}")
+            if name == "B":
+                live = run.tree()
+            del run, sup, p, lf, bf
+            gc.collect()  # the supervisor and its step refer to each other
+            stage(f"run {name}")
+        launches = train_counters()
+        steps_run = len(runs["A"]["losses"]) + len(runs["B"]["losses"])
+        want = (CKPT_STOP, 0, 0, list(range(CKPT_STOP)), CKPT_STEPS, 1, 1,
+                [CKPT_STOP, CKPT_STOP, CKPT_FAIL, CKPT_FAIL + 1])
+        got = (runs["A"]["step"], runs["A"]["retries"], runs["A"]["restarts"],
+               [i for i, _ in runs["A"]["losses"]], runs["B"]["step"], runs["B"]["retries"],
+               runs["B"]["restarts"], [i for i, _ in runs["B"]["losses"]])
+        if got != want:
+            raise AssertionError(f"ckpt_drill: (A step, retries, restarts, steps run; B ...) "
+                                 f"{got}, want {want}")
+        if device.type == "cuda":
+            flash = {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                     "flash_attention_bwd": n, "flash_attention_bwd_tc": n}
+            if {k: launches[k] for k in flash} != {k: v * steps_run for k, v in flash.items()}:
+                raise AssertionError(f"ckpt_drill: launches {launches}, want {flash} × "
+                                     f"{steps_run} steps")
+
+        # the final state, and the last checkpoint read back, bit-equal
+        ref_flat, live_flat = _flatten(ref), _flatten(live)
+        if [k for k, _ in live_flat] != [k for k, _ in ref_flat]:
+            raise AssertionError("ckpt_drill: the state's keys differ from the reference's")
+        differ = [k for (k, a), (_, r) in zip(live_flat, ref_flat)
+                  if not torch.equal(bits(a), bits(r))]
+        if differ:
+            raise AssertionError(f"ckpt_drill: run B's final state differs from the "
+                                 f"reference's in {differ}")
+        del live, live_flat
+        keys = set(json.loads((ckpt_dir / f"step_{CKPT_STEPS:08d}" / "manifest.json")
+                              .read_text())["keys"])
+        paths = {f"{top}/{p}" for top in ("params", "opt/m", "opt/v") for p in H2O_JAX_PATHS}
+        if keys != paths | {"opt/step"}:
+            raise AssertionError(f"ckpt_drill: manifest keys {sorted(keys)}")
+        t0 = time.perf_counter()
+        restored, at, _ = restore_checkpoint(ckpt_dir, tree_map(lambda t: t.new_empty(0)
+                                                                .cpu(), ref))
+        readback_s = time.perf_counter() - t0
+        stage("read back")
+        differ = [k for (k, r), (_, t) in zip(ref_flat, _flatten(restored))
+                  if not torch.equal(bits(t.to(device)), bits(r))]
+        if at != CKPT_STEPS or differ:
+            raise AssertionError(f"ckpt_drill: step {at}'s checkpoint differs in {differ}")
+        del restored
+        gb = (ckpt_dir / f"step_{CKPT_STEPS:08d}" / "arrays.npz").stat().st_size / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step_ms = [(e - a) * 1e3 for a, e in spans]
+    write_s = [e - a for a, e in writes]
+    say("ckpt", card, gb_per_checkpoint=gb, state_gb=ckpt_bytes / 1e9,
+        host_snapshot_s=[e - a for a, e in saves], write_s=write_s,
+        write_gb_s=[gb / w for w in write_s], restore_s=[e - a for a, e in restores],
+        load_to_card_s=max((e - a for a, e in loads), default=None),
+        init_host_copy_s=[e - a for a, e in inits], readback_s=readback_s,
+        overlap_write_s=w1 - w0, overlap_write_gb=ckpt_bytes_params / 1e9,
+        host_memory_gib=memory,
+        snapshot_note="each checkpointer's first save: its host buffers allocated")
+    say("ckpt_drill", card, arch="h2o-danube-1.8b", reduced=reduced, steps=CKPT_STEPS,
+        stop=CKPT_STOP, fail_at=CKPT_FAIL, reference_losses=ref_losses,
+        runs={k: {**v, "losses": [x for _, x in v["losses"]]} for k, v in runs.items()},
+        bit_equal=True, warm_step_ms=float(np.median([step_ms[i] for i in warm])),
+        overlapped_step_ms={i: step_ms[i] for i in overlapped},
+        reference_step_ms=step_ms, grad_ms=grad_ms, compress_ms=compress_ms,
+        compress_max_residual_over_scale=max(ratios.values()), ckpt_dir=str(ckpt_dir.parent),
+        free_gb_before=free / 1e9, launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def flash_bwd_order_cost(gen, device):
     """What the backward's fixed order of dQ adds costs, at h2o-danube's
     training shape: the built kernel timed in turns (ordered, unordered,
@@ -3795,6 +4083,9 @@ def main() -> int:
                                                       d, window, 0, what, bwd_gen, device))
         say("flash_bwd_order", card, **flash_bwd_order_cost(bwd_gen, device))
         return 0
+    if "--ckpt-drill" in sys.argv[1:]:  # the checkpoint drill alone: no result line
+        ckpt_drill(seed, device, card)
+        return 0
     if "--train-only" in sys.argv[1:]:  # a rehearsal of the training phase: no result line
         cases, ratio = check_backward_kernels(device, gen)
         say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
@@ -3841,7 +4132,13 @@ def main() -> int:
         versus="plain PyTorch versions")
     launches = train_path(park(minibatch, device), seed, device, card)
     del minibatch
+    torch.cuda.empty_cache()
+    drill = ckpt_drill(seed, device, card)
+    torch.cuda.empty_cache()
     rows += train_kernel_rows(launches, seed, device)
+    for name in ("flash_attention", "flash_attention_bwd"):  # the drill's launches
+        row = next(r for r in rows if r["name"] == name and "path" not in r)
+        row["launches_ckpt_drill"] = drill[name]
     return finish(rows, card, t_start)
 
 

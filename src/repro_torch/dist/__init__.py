@@ -1,7 +1,13 @@
-"""Placement of partitioned state over processes and cards. Counterpart of
-``repro.dist``; only the vertex-partition half (:func:`sharding.shard_mesh`)
-is ported."""
+"""Distribution layer: the named mesh, the path-keyed sharding rules and
+the vertex-partition placement, on ``torch.distributed``. Counterpart of
+``repro.dist`` (whose ``compat`` shims of the JAX mesh API need no port).
 
-from repro_torch.dist.sharding import ShardMesh, shard_mesh
+``repro_torch.dist.sharding`` is the only module that names mesh axes for
+data parallelism; everything else tags dimensions with its logical axes
+(``ALL``, ``BATCH``) or asks it for param/batch shardings by family.
+"""
 
-__all__ = ["ShardMesh", "shard_mesh"]
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import Mesh, NamedSharding, PartitionSpec, ShardMesh, shard_mesh
+
+__all__ = ["Mesh", "NamedSharding", "PartitionSpec", "ShardMesh", "shard_mesh", "sharding"]

@@ -170,6 +170,26 @@ def params_from_arrays(cfg: TransformerConfig, tree: Mapping[str, Any], device="
     return TransformerParams(tensors, trainable)
 
 
+def params_tree(params: TransformerParams) -> Dict[str, Any]:
+    """``params`` in the JAX package's nesting (``init``'s tree: ``ffn_w1``
+    → ``layers/ffn/w1``, ``moe_shared_w1`` → ``layers/moe/shared/w1``),
+    its leaves ``params``' own tensors, not copies: the inverse of
+    :func:`params_from_arrays`'s layout, which checkpoints are keyed by."""
+    tree: Dict[str, Any] = {"embed": params.embed, "ln_f": params.ln_f}
+    if params.unembed is not None:
+        tree["unembed"] = params.unembed
+    layers: Dict[str, Any] = {}
+    for name, t in params.layers.items():
+        if name.startswith("ffn_"):
+            layers.setdefault("ffn", {})[name[len("ffn_"):]] = t
+        elif not name.startswith("moe_"):
+            layers[name] = t
+    if any(name.startswith("moe_") for name in params.layers):
+        layers["moe"] = moe_params(params.layers)
+    tree["layers"] = layers
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # forward
 

@@ -5,6 +5,7 @@ from repro_torch.optim.adamw import (
     global_norm,
     named_leaves,
     opt_state_from_arrays,
+    opt_state_tree,
 )
 from repro_torch.optim.schedule import cosine_schedule
 
@@ -16,4 +17,5 @@ __all__ = [
     "global_norm",
     "named_leaves",
     "opt_state_from_arrays",
+    "opt_state_tree",
 ]

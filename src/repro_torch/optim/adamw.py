@@ -75,6 +75,25 @@ def opt_state_from_arrays(convert: Callable[[Any], Any], state: Mapping[str, Any
     return {"m": m, "v": v, "step": step}
 
 
+def opt_state_tree(params, tree, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """``state`` in the JAX package's nesting (``adamw_init``'s tree):
+    ``m`` and ``v`` in the structure of ``tree`` — ``params`` renested as
+    the JAX tree over the same tensors (``params_tree``) — and ``step``.
+    The leaves are ``state``'s own tensors, not copies."""
+    name_of = {id(t): k for k, t in named_leaves(params).items()}
+
+    def pick(moments, sub):
+        if sub is None:
+            return None
+        if isinstance(sub, torch.Tensor):
+            return moments[name_of[id(sub)]]
+        if isinstance(sub, Mapping):
+            return {k: pick(moments, v) for k, v in sub.items()}
+        return [pick(moments, v) for v in sub]
+
+    return {"m": pick(state["m"], tree), "v": pick(state["v"], tree), "step": state["step"]}
+
+
 def global_norm(tensors) -> torch.Tensor:
     """√(Σ over the tensors of Σ x²), each squared in float32."""
     total = 0

@@ -44,8 +44,9 @@ def test_copy_matches_original_source(module):
 
 
 #: modules outside ``core`` copied from the JAX package, by path under the
-#: package: the model slices' configs, the GNN package's head and the
-#: partition statistics
+#: package: the model slices' configs, the GNN package's head, the
+#: partition statistics, the fault-tolerance harness and the checkpoint
+#: package's head
 COPIED_MODELS = (
     "configs/common.py",
     "configs/h2o_danube_1_8b.py",
@@ -60,6 +61,9 @@ COPIED_MODELS = (
     "models/gnn/config.py",
     "models/gnn/__init__.py",
     "graph/partition/stats.py",
+    "ft/__init__.py",
+    "ft/failures.py",
+    "checkpoint/__init__.py",
 )
 
 
@@ -153,6 +157,12 @@ def test_port_imports_without_jax():
         "n_shards=1)\n"
         "assert res.fields['C'].tolist() == [0] * 8\n"
         "import repro_torch.optim, repro_torch.launch.train as tr\n"
+        "import repro_torch.checkpoint, repro_torch.ft, repro_torch.launch.mesh, "
+        "repro_torch.optim.grad_compress, runpy, tempfile\n"
+        f"runpy.run_path({str(SRC.parent / 'examples' / 'torch_train_lm.py')!r})\n"
+        "losses = tr.train('autoint', True, steps=2, batch=4, device='cpu', "
+        "log=lambda line: None, ckpt_dir=tempfile.mkdtemp(), inject_failures=[1])\n"
+        "assert len(losses) == 3\n"
         "losses = tr.train('h2o-danube-1.8b', True, steps=1, batch=1, seq=8, "
         "device='cpu', log=lambda line: None)\n"
         "assert len(losses) == 1 and losses[0] > 0\n"

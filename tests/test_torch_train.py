@@ -638,11 +638,12 @@ def test_trainer_losses_match_jax_step_fn(arch):
     assert lines[-1] == f"done at step {TRAIN_STEPS}: loss={got[-1]:.4f}"
 
 
-def test_trainer_cli_runs(capsys):
+def test_trainer_cli_runs(capsys, tmp_path):
     """``python -m repro_torch.launch.train --reduced --device cpu`` prints
-    a loss line per ``--log-every`` steps and the ``done`` line."""
+    a loss line per ``--log-every`` steps and the ``done`` line (the CLI
+    checkpoints, as JAX's: into a fresh ``--ckpt-dir``)."""
     ttrain.main(["--arch", "autoint", "--reduced", "--device", "cpu", "--steps", "4",
-                 "--batch", "8", "--log-every", "2"])
+                 "--batch", "8", "--log-every", "2", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out.splitlines()
     assert [line.split()[1] for line in out[:2]] == ["2", "4"]
     assert out[-1].startswith("done at step 4: loss=")
