@@ -159,7 +159,7 @@ on the first thing that is wrong:
    the same inputs, each case on the route ``bwd_route`` names; the
    gather's and the bag's table gradients with a hub id 163,558 times,
    Zipf ids and dropped ids, exact for k/16 values, else within ``TOL`` · Σ|x| of a float64
-   host sum; segment max/min with planted ties bit-equal to the CPU's;
+   host sum; segment sum, max and min (planted ties) bit-equal to the CPU's;
    each run twice, bit-equal); then, through
    ``repro_torch.launch.train.build`` and its step (loss and gradients →
    cosine schedule → AdamW with f32 moments), ``TRAIN_STEPS`` steps of
@@ -174,8 +174,12 @@ on the first thing that is wrong:
    peak GB printed. Then the backwards' rows: the flash backward at
    h2o-danube's training shape and at deepseek-moe's D = 128 against its
    bound and SDPA's backward (each first held row by row to its plain
-   version and bit-equal when run twice), the composed gather, segment and
-   bag backwards against theirs and ``index_add_``/``index_select``
+   version and bit-equal when run twice), the gather's and the bag's table
+   gradients (``csrc/scatter_rows.cu``) and the segment sum's backward
+   (``csrc/segment_reduce_bwd.cu``) against theirs and
+   ``index_add_``/``index_select``, beside their CUDA-graph device times,
+   the sort's share and the composition PR 16 had, timed in the same run,
+   plus a hub run of ``HUB_IDS`` and segment max/min with ties and a mask
    (``--train-only`` runs the build, the probe and this phase alone, and
    prints no result line; ``--flash-bwd`` runs the build, the probe, the
    flash backward's sweep and its two rows, then times what the fixed
@@ -1430,17 +1434,21 @@ MINIBATCHES = 8
 
 @contextlib.contextmanager
 def plain_graph_kernels():
-    """The two graph kernels' wrappers pointed at their plain versions (the
-    module attributes ``graph.ops`` calls), restored on the way out."""
+    """The graph kernels' wrappers pointed at their plain versions (the
+    module attributes ``graph.ops`` and ``kernels.autograd`` call): the two
+    forward kernels and their backwards ``scatter_rows`` and
+    ``segment_reduce_bwd``, restored on the way out."""
     from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.scatter_rows import ops as c
     from repro_torch.kernels.segment_reduce import ops as s
 
-    saved = g.gather_rows, s.segment_reduce
+    saved = g.gather_rows, s.segment_reduce, c.scatter_rows, s.segment_reduce_bwd
     g.gather_rows, s.segment_reduce = g.gather_rows_plain, s.segment_reduce_plain
+    c.scatter_rows, s.segment_reduce_bwd = c.scatter_rows_plain, s.segment_reduce_bwd_plain
     try:
         yield
     finally:
-        g.gather_rows, s.segment_reduce = saved
+        g.gather_rows, s.segment_reduce, c.scatter_rows, s.segment_reduce_bwd = saved
 
 
 def reset_peak(device):
@@ -3138,17 +3146,21 @@ def plain_kernels():
 
 
 def train_counters(zero: bool = False) -> dict:
-    """Every kernel's launch counters per route, and the composed
-    backwards' calls (``kernels.autograd``), set to 0 first with ``zero``."""
+    """Every kernel's launch counters per route, and the backwards' calls
+    (``kernels.autograd``), set to 0 first with ``zero``."""
     from repro_torch.kernels import autograd as kg
     from repro_torch.kernels import embedding_bag, flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.scatter_rows import scatter_rows
+    from repro_torch.kernels.segment_reduce import segment_reduce_bwd
 
     out = graph_counters(zero)
     names = {
         flash_attention: ("launches", "launches_tc", "launches_simt"),
         flash_attention_bwd: ("launches", "launches_tc", "launches_simt"),
         embedding_bag: ("launches", "launches_vec", "launches_scalar"),
+        scatter_rows: ("launches",),
+        segment_reduce_bwd: ("launches", "launches_sum", "launches_ties"),
         kg.gather_rows_backward: ("calls",),
         kg.segment_reduce_backward: ("calls",),
         kg.embedding_bag_backward: ("calls",),
@@ -3320,7 +3332,7 @@ def check_backward_kernels(device, gen, flash_only=False):
     seg_ids = torch.repeat_interleave(torch.arange(n_seg, dtype=torch.int32), lengths)
     offsets = torch.zeros(n_seg + 1, dtype=torch.int32)
     offsets[1:] = torch.cumsum(lengths, 0)
-    for op in ("max", "min"):
+    for op in ("sum", "max", "min"):
         for width in (1, 8):
             shape = (seg_ids.shape[0],) if width == 1 else (seg_ids.shape[0], width)
             vals = torch.randint(-3, 4, shape, generator=gen).float() / 4  # many ties
@@ -3464,15 +3476,18 @@ def train_path(minibatch, seed, device, card, reduced=False):
 
     layers = cfg.n_layers * (2 if cfg.remat else 1)  # the forward again under remat
     # a GAT layer's forward: 5 gathers of [N, H(, D)] rows and 3 [E, H(, D)]
-    # segment reductions; its backward: 5 gather backwards (a gather and a
-    # segment sum each), 2 segment-sum backwards (a gather each) and the
-    # softmax's max backward (2 gathers and a segment sum)
-    n_gather = 5 * layers + 9 * cfg.n_layers
-    n_segment = 3 * layers + 6 * cfg.n_layers
+    # segment reductions; its backward: 5 gather backwards (``scatter_rows``
+    # each), 2 segment-sum backwards and the softmax's max backward
+    # (``segment_reduce_bwd`` each: ``sum``, ``ties``)
+    n_gather, n_segment = 5 * layers, 3 * layers
     out["gat-cora"] = train_run(
         "gat-cora", cfg.compute_dtype, params, loss_fn, batches, batches(0)["x"].shape[0],
         "nodes", {"gather_rows": n_gather, "gather_rows_scalar": n_gather,
                   "segment_reduce": n_segment, "segment_reduce_cols": n_segment,
+                  "scatter_rows": 5 * cfg.n_layers,
+                  "segment_reduce_bwd": 3 * cfg.n_layers,
+                  "segment_reduce_bwd_sum": 2 * cfg.n_layers,
+                  "segment_reduce_bwd_ties": cfg.n_layers,
                   "gather_rows_backward": 5 * cfg.n_layers,
                   "segment_reduce_backward": 3 * cfg.n_layers}, device, card)
     del params, fb
@@ -3493,8 +3508,7 @@ def train_path(minibatch, seed, device, card, reduced=False):
     out["autoint"] = train_run(
         "autoint", cfg.param_dtype, params, loss_fn, batches,
         batches(0)["fields"].shape[0], "rows",
-        {"embedding_bag": 1, "embedding_bag_vec": 1, "gather_rows": 1,
-         "gather_rows_scalar": 1, "segment_reduce": 1, "segment_reduce_cols": 1,
+        {"embedding_bag": 1, "embedding_bag_vec": 1, "scatter_rows": 1,
          "embedding_bag_backward": 1}, device, card)
     del params, loss_fn, batches
     say("train_phase", card, seconds=time.perf_counter() - t_phase)
@@ -3885,20 +3899,33 @@ def flash_bwd_row(b, h, hkv, s, d, window, n_launches, what, gen, device):
     }
 
 
-def train_kernel_rows(launches, seed, device):
+def train_kernel_rows(launches, seed, device, card):
     """The backward kernels timed at the training path's shapes, each
     against its plain twin, its bound and its library call:
     ``flash_attention_bwd`` at h2o-danube's layer shape and at
-    deepseek-moe's D = 128 (:func:`flash_bwd_row`); the composed backwards (a sort, then
-    ``gather_rows`` and ``segment_reduce``): the bag's at AutoInt's
-    ``train_batch`` lookup (a dense 39 M-row gradient), the gather's and
-    the segment sum's at gat-cora's ``x[src]`` read (library:
-    ``index_add_`` / ``index_select``). Bytes count each input read once
-    and each output written once."""
+    deepseek-moe's D = 128 (:func:`flash_bwd_row`); ``scatter_rows`` (a
+    stable sort, then ``csrc/scatter_rows.cu``) as the bag's table gradient
+    at AutoInt's ``train_batch`` lookup (a dense 39 M-row gradient) and as
+    the gather's at gat-cora's ``h[src]`` read, ``segment_reduce_bwd`` as
+    the segment sum's at gat-cora's aggregation (library: ``index_add_`` /
+    ``index_select``). Each is held to its float64 sum (exact on k/16
+    values, ``TOL`` · Σ|x| on random ones) and to itself run twice, bit for
+    bit; each row carries the device time of the same calls replayed from a
+    CUDA graph, the sort's share and the time of the composition PR 16 had
+    (``composed_ms``: sort → ``gather_rows`` → offsets → ``segment_reduce``;
+    for the segment sum, ``gather_rows`` of the cotangent by expanded ids),
+    rebuilt here and timed in the same run. Bytes count each input read
+    once and each output written once. Two more cases print a
+    ``train_kernel_case`` line each: the gather's table gradient with a run
+    of ``HUB_IDS`` ids among gat-cora's, and segment max and min with planted
+    ties and gat-cora's edge mask, bit-equal to their plain versions."""
     from repro_torch import configs
     from repro_torch.data import gnn_full_batch, recsys_batches
     from repro_torch.graph.structure import segment_offsets
     from repro_torch.kernels import autograd as kg
+    from repro_torch.kernels.gather_rows import ops as gops
+    from repro_torch.kernels.scatter_rows import ops as cops
+    from repro_torch.kernels.segment_reduce import ops as sops
 
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -3912,35 +3939,61 @@ def train_kernel_rows(launches, seed, device):
                           "deepseek-moe-16b's attention at 4,096 tokens (not on the "
                           "path: it trains on the CPU only)", gen, device)]
 
+    def twice(fn, what):
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two calls differ")
+        return a
+
     def hold_scatter(fn, g, rows, n, what):
         """``fn(g)``, a gradient summed by ``rows`` into ``n`` rows, held to
         its float64 sum on the card: within ``TOL`` · Σ|x| for the row's
-        random ``g``, exact for k/16 values of its shape."""
+        random ``g``, exact for k/16 values of its shape; bit-equal twice."""
+        err = 0.0
         for exact in (False, True):
             g_ = (torch.randint(-16, 17, g.shape, generator=gen, device=device).float() / 16
                   if exact else g)
             want, mag = host_scatter(g_, rows, n, device)
-            hold_sum(fn(g_), want, mag, exact,
-                     f"{what}, {'k/16' if exact else 'random'} values")
-            del want, mag, g_
+            got = twice(lambda: fn(g_), what)
+            err = max(err, hold_sum(got, want, mag, exact,
+                                    f"{what}, {'k/16' if exact else 'random'} values"))
+            del want, mag, g_, got
+        return err
 
-    def composed_row(name, fn, plain, library, nbytes, replaces, n_launches, shape, lib_name):
-        got = fn()
+    def composed(values, ids, n):
+        """PR 16's table gradient, rebuilt to be timed beside the kernel."""
+        sorted_ids, perm = torch.sort(ids, stable=True)
+        ordered = gops.gather_rows(values, perm.to(torch.int32))
+        return sops.segment_reduce(ordered, sorted_ids, n, "sum",
+                                   offsets=segment_offsets(sorted_ids, n))
+
+    def both(fn, graph_reps):
+        return cuda_ms(fn, reps=5), graph_ms(fn, reps=graph_reps)
+
+    def kernel_row(perf_row, name, fn, err, library, prior, sort, nbytes, replaces, n_launches,
+                   shape, lib_name, composed_of, graph_reps=20):
         with plain_kernels():
-            want = plain()
+            want = fn()
+        got = fn()
         t_bound, t_by = bound(nbytes, 0)
-        ms = cuda_ms(fn, reps=5)
-        return {
-            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/autograd.py",
+        ms, g_ms = both(fn, graph_reps)
+        lib_ms, lib_g = both(library, graph_reps)
+        prior_ms, prior_g = both(prior, graph_reps)
+        row = {
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": n_launches,
-            "max_abs_err": float((got.float() - want.float()).abs().max()), "ms": ms,
-            "plain_ms": cuda_ms(lambda: _plain_call(plain), reps=2), "bound_ms": t_bound,
-            "bound_by": t_by, "library_ms": cuda_ms(library, reps=5), "library": lib_name,
-            "shape": shape, "bound_share": t_bound / ms,
-            "composed_of": "torch.sort of the int32 ids, csrc/gather_rows.cu, "
-                           "csrc/segment_reduce.cu" if name != "segment_reduce_bwd"
-                           else "csrc/gather_rows.cu",
+            "max_abs_err": max(err, float((got.float() - want.float()).abs().max())),
+            "ms": ms, "plain_ms": cuda_ms(lambda: _plain_call(fn), reps=2),
+            "bound_ms": t_bound, "bound_by": t_by, "library_ms": lib_ms, "library": lib_name,
+            "shape": shape, "bound_share": t_bound / ms, "perf_row": perf_row,
+            "composed_of": composed_of, "graph_ms": g_ms, "library_graph_ms": lib_g,
+            "composed_ms": prior_ms, "composed_graph_ms": prior_g,
         }
+        if sort is not None:
+            row["sort_ms"], row["sort_graph_ms"] = both(sort, graph_reps)
+            row["sort_share"] = row["sort_graph_ms"] / g_ms
+        del got, want
+        return row
 
     spec = configs.get_spec("autoint")
     cfg = spec.config
@@ -3952,18 +4005,21 @@ def train_kernel_rows(launches, seed, device):
     table = torch.empty((vrows, cfg.embed_dim), device=device)
     g = rnd((idx.shape[0], cfg.embed_dim))
     flat = idx.reshape(-1).long()
-    hold_scatter(lambda g_: kg.embedding_bag_backward(g_, table, idx, None)[0], g, flat,
-                 vrows, "embedding_bag backward at AutoInt's train_batch")
-    rows.append(composed_row(
-        "embedding_bag_bwd", lambda: kg.embedding_bag_backward(g, table, idx, None)[0],
-        lambda: kg.embedding_bag_backward(g, table, idx, None)[0],
+    err = hold_scatter(lambda g_: kg.embedding_bag_backward(g_, table, idx, None)[0], g, flat,
+                       vrows, "embedding_bag backward at AutoInt's train_batch")
+    rows.append(kernel_row(
+        "3b", "scatter_rows", lambda: kg.embedding_bag_backward(g, table, idx, None)[0], err,
         lambda: torch.zeros_like(table).index_add_(0, flat, g),
+        lambda: composed(g, idx.reshape(-1).clamp(0, vrows - 1), vrows),
+        lambda: torch.sort(idx.reshape(-1), stable=True),
         (g.numel() + idx.numel() + table.numel()) * 4,
         "src/repro/kernels/embedding_bag/kernel.py:42",
-        launches["autoint"]["embedding_bag_backward"],
+        launches["autoint"]["scatter_rows"],
         f"d_table f32[{vrows},{cfg.embed_dim}] from {idx.shape[0]} one-slot bags "
-        "(AutoInt train_batch lookup)", "zeros + index_add_"))
+        "(AutoInt train_batch lookup; embedding_bag's table gradient)", "zeros + index_add_",
+        "clamp, torch.sort of the int32 ids, csrc/scatter_rows.cu", graph_reps=2))
     del table, g, flat, idx, fields
+    torch.cuda.empty_cache()
 
     gcfg = configs.resolve_gnn_config(configs.get_spec("gat-cora").config, "full_graph_sm",
                                       configs.get_spec("gat-cora").shapes["full_graph_sm"])
@@ -3973,40 +4029,73 @@ def train_kernel_rows(launches, seed, device):
     width = gcfg.n_heads * gcfg.d_hidden
     g = rnd((src.shape[0], gcfg.n_heads, gcfg.d_hidden))
     src_l = src.long().clamp(0, n - 1)
-    hold_scatter(lambda g_: kg.gather_rows_backward(g_, src, n, None), g, src_l, n,
-                 "gather_rows backward at gat-cora's h[src]")
-    rows.append(composed_row(
-        "gather_rows_bwd", lambda: kg.gather_rows_backward(g, src, n, None),
-        lambda: kg.gather_rows_backward(g, src, n, None),
+    err = hold_scatter(lambda g_: kg.gather_rows_backward(g_, src, n, None), g, src_l, n,
+                       "gather_rows backward at gat-cora's h[src]")
+    rows.append(kernel_row(
+        "1e", "scatter_rows", lambda: kg.gather_rows_backward(g, src, n, None), err,
         lambda: torch.zeros((n, gcfg.n_heads, gcfg.d_hidden), device=device).index_add_(
             0, src_l, g),
+        lambda: composed(g, src.clamp(0, n - 1), n),
+        lambda: torch.sort(src, stable=True),
         (g.numel() + src.numel() + n * width) * 4,
         "src/repro/kernels/gather_rows/kernel.py:20",
-        launches["gat-cora"]["gather_rows_backward"],
+        launches["gat-cora"]["scatter_rows"],
         f"d_h f32[{n},{gcfg.n_heads},{gcfg.d_hidden}] from {src.shape[0]} rows "
-        "(gat-cora's h[src], Cora shape)", "zeros + index_add_"))
+        "(gat-cora's h[src], Cora shape; gather_rows' table gradient)", "zeros + index_add_",
+        "clamp, torch.sort of the int32 ids, csrc/scatter_rows.cu"))
+
+    # a run of HUB_IDS ids of one row among gat-cora's: the kernel's tiles
+    # and the fix-up's walk over ~HUB_IDS / 512 of them
+    hub = torch.cat([src, torch.full((HUB_IDS,), 7, dtype=torch.int32, device=device)])
+    hub = hub[torch.randperm(hub.shape[0], generator=gen, device=device)]
+    gh = rnd((hub.shape[0], gcfg.n_heads, gcfg.d_hidden))
+    err = hold_scatter(lambda g_: kg.gather_rows_backward(g_, hub, n, None), gh,
+                       hub.long(), n, "gather_rows backward with a hub run")
+    say("train_kernel_case", card, case="scatter_rows, a hub run", run=HUB_IDS,
+        ids=hub.shape[0], max_abs_err=err,
+        ms=cuda_ms(lambda: kg.gather_rows_backward(gh, hub, n, None)),
+        graph_ms=graph_ms(lambda: kg.gather_rows_backward(gh, hub, n, None)))
+    del hub, gh
+
     go = rnd((n, gcfg.n_heads, gcfg.d_hidden))
-    vals = rnd((src.shape[0], gcfg.n_heads, gcfg.d_hidden))
     dst_l = dst.long().clamp(0, n - 1)
     offsets = segment_offsets(dst, n)
+    emask = batch["emask"]
     # the sum's backward is a gather: exactly the cotangent of each kept row
-    keep = ((dst >= 0) & (dst < n) & batch["emask"]).reshape(-1, 1, 1)
-    hold_sum(kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"], offsets),
-             torch.where(keep, go.index_select(0, dst_l), 0.0).double(), None, True,
-             "segment sum backward at gat-cora's aggregation")
-    del keep
-    rows.append(composed_row(
-        "segment_reduce_bwd",
-        lambda: kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"],
-                                           offsets),
-        lambda: kg.segment_reduce_backward(go, vals, go, dst, n, "sum", batch["emask"],
-                                           offsets),
+    keep = ((dst >= 0) & (dst < n) & emask).reshape(-1, 1, 1)
+    exact = torch.where(keep, go.index_select(0, dst_l), 0.0).double()
+    hold_sum(twice(lambda: kg.segment_reduce_backward(go, None, None, dst, n, "sum", emask,
+                                                      offsets), "segment sum backward"),
+             exact, None, True, "segment sum backward at gat-cora's aggregation")
+    del keep, exact
+    rows.append(kernel_row(
+        "2d", "segment_reduce_bwd",
+        lambda: kg.segment_reduce_backward(go, None, None, dst, n, "sum", emask, offsets), 0.0,
         lambda: go.index_select(0, dst_l),
-        (go.numel() + dst.numel() + vals.numel()) * 4 + batch["emask"].numel(),
+        lambda: gops.gather_rows(go, torch.where((dst >= 0) & (dst < n) & emask, dst, n)
+                                 .to(torch.int32), 0.0),
+        None,
+        (go.numel() + g.numel()) * 4 + offsets.numel() * 4 + emask.numel(),
         "src/repro/kernels/segment_reduce/kernel.py:55",
-        launches["gat-cora"]["segment_reduce_backward"],
+        launches["gat-cora"]["segment_reduce_bwd"],
         f"d_vals f32[{src.shape[0]},{gcfg.n_heads},{gcfg.d_hidden}] from {n} segments "
-        "(gat-cora's aggregation, a sum)", "index_select"))
+        "(gat-cora's aggregation, a sum; segment_reduce's values gradient)", "index_select",
+        "csrc/segment_reduce_bwd.cu (sum: one launch over the saved offsets)"))
+
+    # max and min with planted ties (values k/4) under gat-cora's edge mask,
+    # bit-equal to the plain version on the card, and twice
+    vals = (torch.randint(-3, 4, g.shape, generator=gen, device=device).float() / 4)
+    for op in ("max", "min"):
+        out = sops.segment_reduce(vals, dst, n, op, mask=emask, offsets=offsets)
+        fn = lambda: kg.segment_reduce_backward(go, vals, out, dst, n, op, emask, offsets)  # noqa: E731
+        got = twice(fn, f"segment {op} backward")
+        want = sops.segment_reduce_bwd_plain(go, vals, out, dst, n, op, emask, offsets)
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment {op} backward with ties differs from its plain "
+                                 f"version by {float((got - want).abs().max())}")
+        say("train_kernel_case", card, case=f"segment_reduce_bwd {op}, ties and a mask",
+            rows=vals.shape[0], tie_rows=int((got != 0).any(-1).any(-1).sum()),
+            ms=cuda_ms(fn), graph_ms=graph_ms(fn))
     return rows
 
 
@@ -4091,7 +4180,7 @@ def main() -> int:
         say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
             versus="plain PyTorch versions")
         launches = train_path(minibatch_graph(device, card, seed), seed, device, card)
-        for row in train_kernel_rows(launches, seed, device):
+        for row in train_kernel_rows(launches, seed, device, card):
             say("train_kernel", card, **row)
         return 0
     cases, row_ratio = check_kernels(device, gen)
@@ -4135,7 +4224,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     drill = ckpt_drill(seed, device, card)
     torch.cuda.empty_cache()
-    rows += train_kernel_rows(launches, seed, device)
+    rows += train_kernel_rows(launches, seed, device, card)
     for name in ("flash_attention", "flash_attention_bwd"):  # the drill's launches
         row = next(r for r in rows if r["name"] == name and "path" not in r)
         row["launches_ckpt_drill"] = drill[name]

@@ -19,7 +19,13 @@ Kernels (``build.KERNELS``):
                     window), the LM's prefill attention (replaces
                     ``repro/kernels/flash_attention``);
   embedding_bag   — fixed-width weighted bag sums, AutoInt's lookup
-                    (replaces ``repro/kernels/embedding_bag``).
+                    (replaces ``repro/kernels/embedding_bag``);
+  flash_attention_bwd — the flash forward's backward (in
+                    ``kernels/flash_attention``);
+  scatter_rows    — a deterministic reduce-by-key over sorted ids, the
+                    table gradient of ``gather_rows`` and ``embedding_bag``;
+  segment_reduce_bwd — ``segment_reduce``'s values gradient from its
+                    offsets (in ``kernels/segment_reduce``).
 """
 
 from repro_torch.kernels.embedding_bag.ops import (
@@ -31,8 +37,11 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_plain,
 )
 from repro_torch.kernels.gather_rows.ops import gather_rows, gather_rows_plain
+from repro_torch.kernels.scatter_rows.ops import scatter_rows, scatter_rows_plain
 from repro_torch.kernels.segment_reduce.ops import (
     segment_reduce,
+    segment_reduce_bwd,
+    segment_reduce_bwd_plain,
     segment_reduce_plain,
 )
 
@@ -43,6 +52,10 @@ __all__ = [
     "flash_attention_plain",
     "gather_rows",
     "gather_rows_plain",
+    "scatter_rows",
+    "scatter_rows_plain",
     "segment_reduce",
+    "segment_reduce_bwd",
+    "segment_reduce_bwd_plain",
     "segment_reduce_plain",
 ]

@@ -14,19 +14,20 @@ wrappers take them), never on PyTorch's autograd of the plain version:
   JAX package's custom VJP ``_flash_bwd`` does;
 * ``gather_rows``: the table's gradient is a sum of the cotangent's rows
   by their (clipped, or in fill mode wrapped and dropped) index:
-  :func:`scatter_rows`, a stable sort of the int32 ids, ``gather_rows`` of
-  the cotangent in that order, and ``segment_reduce`` sum over the sorted
-  ids' offsets — deterministic, hubs on the existing routes;
-* ``segment_reduce``: sum's backward is ``gather_rows`` of the cotangent
-  by segment id (0 for masked rows and ids outside ``[0, n)``); max and
-  min route the cotangent to the rows equal to the result, split evenly
-  across ties with JAX's rule (``jax.lax`` scatter max/min: a segment
-  whose result is the combiner's identity counts the initial value as one
-  more tie); prod, or and and have no gradient here and raise;
-* ``embedding_bag``: the table's gradient is :func:`scatter_rows` of each
-  slot's bag cotangent times the slot's weight; the weights' gradient is
-  the dot of each slot's table row (``gather_rows``) with its bag's
-  cotangent.
+  :func:`scatter_rows`, a stable sort of the int32 ids, then
+  ``csrc/scatter_rows.cu``, a deterministic reduce-by-key through the
+  sort's permutation (no offsets, no permuted copy);
+* ``segment_reduce``: ``csrc/segment_reduce_bwd.cu`` from the forward's
+  saved offsets: sum's backward gives each row its segment's cotangent (0
+  for masked rows and rows outside every segment); max and min route the
+  cotangent to the rows equal to the result, split evenly across ties with
+  JAX's rule (``jax.lax`` scatter max/min: a segment whose result is the
+  combiner's identity counts the initial value as one more tie); prod, or
+  and and have no gradient here and raise;
+* ``embedding_bag``: the table's gradient is ``csrc/scatter_rows.cu`` over
+  the sorted slots, each slot's bag cotangent times the slot's weight; the
+  weights' gradient is the dot of each slot's table row (``gather_rows``)
+  with its bag's cotangent.
 
 bf16 sums accumulate in f32 and round once (the port's segment sum), where
 JAX's scatter-add of a bf16 gradient accumulates in bf16.
@@ -34,14 +35,12 @@ JAX's scatter-add of a bf16 gradient accumulates in bf16.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from repro_torch.graph.structure import segment_offsets
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.gather_rows import ops as gather_ops
+from repro_torch.kernels.scatter_rows import ops as scatter_ops
 from repro_torch.kernels.segment_reduce import ops as segment_ops
 
 
@@ -54,13 +53,9 @@ def _wants_grad(*tensors) -> bool:
 def scatter_rows(values: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
     """``out[r] = Σ values[i]`` over ``rows[i] == r``, ``out [n, ...]``;
     rows outside ``[0, n)`` are dropped. A stable sort of the int32 rows,
-    ``gather_rows`` of ``values`` in that order and ``segment_reduce`` sum
-    over the sorted rows' offsets, so the sum runs in a fixed order."""
-    rows = rows.reshape(-1).to(torch.int32)
-    sorted_rows, perm = torch.sort(rows, stable=True)
-    ordered = gather_ops.gather_rows(values.contiguous(), perm.to(torch.int32))
-    offsets = segment_offsets(sorted_rows, n) if values.device.type == "cuda" else None
-    return segment_ops.segment_reduce(ordered, sorted_rows, n, "sum", offsets=offsets)
+    then ``kernels.scatter_rows`` sums each row's values in sorted order."""
+    sorted_rows, perm = torch.sort(rows.reshape(-1).to(torch.int32), stable=True)
+    return scatter_ops.scatter_rows(sorted_rows, perm, values.contiguous(), n)
 
 
 def gather_rows_backward(g, idx, n_rows: int, fill) -> torch.Tensor:
@@ -99,37 +94,11 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None) -> torch.Tens
     return _GatherRows.apply(table, idx, fill)
 
 
-def _in_segment(segment_ids, n, mask):
-    """int32 ids with every row outside ``[0, n)`` or masked off at ``n``."""
-    ok = (segment_ids >= 0) & (segment_ids < n)
-    if mask is not None:
-        ok = ok & mask
-    return torch.where(ok, segment_ids, n).to(torch.int32).contiguous()
-
-
 def segment_reduce_backward(g, values, out, segment_ids, n, op, mask, offsets):
     """The values' gradient of ``segment_reduce`` for the cotangent ``g``
     (sum reads neither ``values`` nor ``out``)."""
     segment_reduce_backward.calls += 1
-    g = g.contiguous()
-    if op == "sum":
-        return gather_ops.gather_rows(g, _in_segment(segment_ids, n, mask), 0.0)
-    if op not in ("max", "min"):
-        raise NotImplementedError(f"segment_reduce {op!r} has no gradient in the port")
-    ident = segment_ops.identity(op, values.dtype)
-    rows = _in_segment(segment_ids, n, None)
-    eff = values
-    if mask is not None:  # JAX reduces the identity in place of a masked row
-        eff = torch.where(mask.reshape(mask.shape + (1,) * (values.ndim - 1)), values, ident)
-    ties = eff == gather_ops.gather_rows(out.contiguous(), rows, math.nan)
-    count = segment_ops.segment_reduce(
-        ties.to(torch.float32).contiguous(), segment_ids, n, "sum", offsets=offsets)
-    count = count + (out == ident).to(torch.float32)
-    coef = g.float() * torch.where(count > 0, 1.0 / count, 0.0)
-    share = gather_ops.gather_rows(coef.contiguous(), rows, 0.0)
-    if mask is not None:
-        ties = ties & mask.reshape(mask.shape + (1,) * (values.ndim - 1))
-    return torch.where(ties, share, 0.0).to(values.dtype)
+    return segment_ops.segment_reduce_bwd(g, values, out, segment_ids, n, op, mask, offsets)
 
 
 segment_reduce_backward.calls = 0
@@ -171,13 +140,8 @@ def embedding_bag_backward(g, table, indices, w):
     rows = indices.reshape(-1).to(torch.int32).clamp(0, v - 1)
     g = g.contiguous()
     sorted_rows, perm = torch.sort(rows, stable=True)
-    bag = torch.div(perm, h, rounding_mode="floor").to(torch.int32)
-    slot_g = gather_ops.gather_rows(g, bag)  # each sorted slot's bag cotangent
-    if w is not None:
-        slot_g = (slot_g * w.reshape(-1)[perm][:, None]).to(table.dtype)
-    offsets = segment_offsets(sorted_rows, v) if table.device.type == "cuda" else None
-    d_table = segment_ops.segment_reduce(slot_g.contiguous(), sorted_rows, v, "sum",
-                                         offsets=offsets)
+    d_table = scatter_ops.scatter_rows(sorted_rows, perm, g, v,
+                                       None if w is None else w.reshape(-1).contiguous(), h)
     d_w = None
     if w is not None:
         vals = gather_ops.gather_rows(table, rows)  # [B·H, D]

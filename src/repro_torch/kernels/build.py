@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 #: every kernel source of the package (``csrc/<name>.cu``)
 KERNELS = (
     "gather_rows", "segment_reduce", "flash_attention", "flash_attention_bwd",
-    "embedding_bag",
+    "embedding_bag", "scatter_rows", "segment_reduce_bwd",
 )
 
 

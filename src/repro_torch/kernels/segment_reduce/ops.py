@@ -22,6 +22,19 @@ sized by the row's bytes, counted in ``segment_reduce.launches_cols``. The
 wrapper sizes both routes' scratch (:func:`scratch_words`) with
 :func:`n_tiles` at the built kernel's tiling for the width
 (:func:`kernel_tiling`).
+
+``segment_reduce_bwd(g, values, out, segment_ids, num_segments, op, mask,
+offsets)`` is the values' gradient of ``segment_reduce`` for the output's
+cotangent ``g``: sum gives each row its segment's cotangent; max and min
+route it to the rows equal to the result, split evenly across ties with
+JAX's rule (a segment whose result is the combiner's identity counts one
+more tie); masked rows and rows outside every segment get 0; prod, or and
+and have no gradient and raise. On the card the kernel
+``csrc/segment_reduce_bwd.cu`` reads the offsets alone (no ids), one
+launch for sum, a tie count and a write for max and min, counted in
+``segment_reduce_bwd.launches`` and per route in ``launches_sum`` /
+``launches_ties``; its plain version composes the plain gather and
+segment reduction over the ids.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gather_rows.ops import gather_rows_plain
 
 OPS = ("sum", "prod", "min", "max", "or", "and")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}
@@ -228,3 +242,121 @@ def segment_reduce(
 segment_reduce.launches = 0
 segment_reduce.launches_rows = 0
 segment_reduce.launches_cols = 0
+
+
+# -- the values' gradient ------------------------------------------------------
+
+#: the combiners with a gradient
+GRAD_OPS = ("sum", "max", "min")
+
+
+def _in_segment(segment_ids, n, mask):
+    """int32 ids with every row outside ``[0, n)`` or masked off at ``n``."""
+    ok = (segment_ids >= 0) & (segment_ids < n)
+    if mask is not None:
+        ok = ok & mask
+    return torch.where(ok, segment_ids, n).to(torch.int32).contiguous()
+
+
+def _no_gradient(op):
+    if op not in GRAD_OPS:
+        raise NotImplementedError(f"segment_reduce {op!r} has no gradient in the port")
+
+
+def segment_reduce_bwd_plain(g, values, out, segment_ids, num_segments: int, op: str,
+                             mask=None, offsets=None):
+    """The plain version: the cotangent gathered by segment id (sum), or
+    the ties found on a gathered copy of ``out``, counted by a segment sum
+    and each given its share (max, min), through the plain gather and
+    segment reduction (``offsets`` are not read)."""
+    _no_gradient(op)
+    n = num_segments
+    g = g.contiguous()
+    if op == "sum":
+        return gather_rows_plain(g, _in_segment(segment_ids, n, mask), 0.0)
+    ident = identity(op, values.dtype)
+    rows = _in_segment(segment_ids, n, None)
+    eff = values
+    if mask is not None:  # JAX reduces the identity in place of a masked row
+        eff = torch.where(mask.reshape(mask.shape + (1,) * (values.ndim - 1)), values, ident)
+    ties = eff == gather_rows_plain(out.contiguous(), rows, math.nan)
+    count = segment_reduce_plain(ties.to(torch.float32), segment_ids, n, "sum")
+    count = count + (out == ident).to(torch.float32)
+    coef = g.float() * torch.where(count > 0, 1.0 / count, 0.0)
+    share = gather_rows_plain(coef.contiguous(), rows, 0.0)
+    if mask is not None:
+        ties = ties & mask.reshape(mask.shape + (1,) * (values.ndim - 1))
+    return torch.where(ties, share, 0.0).to(values.dtype)
+
+
+@functools.cache
+def _bwd_entry():
+    """The C entry point of the backward's library, typed."""
+    fn = build.library("segment_reduce_bwd").segment_reduce_bwd_launch
+    fn.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launch(g, values, out, offsets, mask, dv, op):
+    """Launches the backward (max and min with their tie-count scratch)."""
+    n, width = g.shape[0], math.prod(dv.shape[1:])
+    extremum = op != "sum"
+    count = torch.empty(n * width, dtype=torch.int32, device=g.device) if extremum else None
+    rc = _bwd_entry()(
+        g.device.index or 0, _OP_CODE[op], _DTYPE_CODE[g.dtype], g.data_ptr(),
+        values.data_ptr() if extremum else None, out.data_ptr() if extremum else None,
+        offsets.data_ptr(), mask.data_ptr() if mask is not None else None, dv.data_ptr(), n,
+        dv.shape[0], width, count.data_ptr() if extremum else None,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_reduce_bwd kernel launch failed: CUDA error {rc}")
+
+
+def segment_reduce_bwd(g, values, out, segment_ids, num_segments: int, op: str, mask=None,
+                       offsets=None):
+    """The values' gradient on the card by ``csrc/segment_reduce_bwd.cu``;
+    see module. On the card ``segment_ids`` give only the row count:
+    ``offsets`` carry the segmentation, as for the forward."""
+    if g.device.type != "cuda":
+        return segment_reduce_bwd_plain(g, values, out, segment_ids, num_segments, op, mask,
+                                        offsets)
+    _no_gradient(op)
+    n = num_segments
+    g = g.contiguous()
+    if g.dtype not in (torch.float32, torch.bfloat16) or g.shape[0] != n:
+        raise TypeError(f"g must be f32 or bf16 [{n}, ...], got {g.dtype} {tuple(g.shape)}")
+    if offsets is None or offsets.dtype != torch.int32 or tuple(offsets.shape) != (n + 1,):
+        raise TypeError(f"offsets must be int32 [{n + 1}] on the card")
+    shape = tuple(segment_ids.shape[:1]) + tuple(g.shape[1:])
+    if op != "sum":
+        if values is None or out is None or tuple(values.shape) != shape or \
+                tuple(out.shape) != tuple(g.shape) or not values.dtype == out.dtype == g.dtype:
+            raise TypeError(f"values {shape} and out {tuple(g.shape)} must be in g's dtype")
+        values, out = values.contiguous(), out.contiguous()
+    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != shape[:1]):
+        raise TypeError("mask must be bool [E]")
+    for name, t in (("offsets", offsets), ("mask", mask), ("values", values), ("out", out)):
+        if t is not None and t.device != g.device:
+            raise ValueError(f"{name} on {t.device}, g on {g.device}")
+    if not (offsets.is_contiguous() and (mask is None or mask.is_contiguous())):
+        raise ValueError("segment_reduce_bwd needs contiguous offsets and mask")
+    dv = torch.empty(shape, dtype=g.dtype, device=g.device)
+    if dv.numel() == 0:
+        return dv
+    _bwd_launch(g, values, out, offsets, mask, dv, op)
+    segment_reduce_bwd.launches += 1
+    if op == "sum":
+        segment_reduce_bwd.launches_sum += 1
+    else:
+        segment_reduce_bwd.launches_ties += 1
+    return dv
+
+
+segment_reduce_bwd.launches = 0
+segment_reduce_bwd.launches_sum = 0
+segment_reduce_bwd.launches_ties = 0
