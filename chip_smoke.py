@@ -13,7 +13,9 @@ and depths (4 requests, 6144-token prompts, 32 greedy decode steps each),
 and AutoInt serving at its published widths (39 fields × 10⁶ rows × 16)
 at the ``RECSYS_SHAPES`` serve shapes, and training of four of those
 models (h2o-danube-1.8b, gat-cora, graphsage-reddit, AutoInt) at full
-width, then a restart-and-replay drill of the h2o-danube trainer. What it does, in order, and fails
+width, then a restart-and-replay drill of the h2o-danube trainer, and the
+models on a mesh of gloo ranks sharing the card (three GNNs, the MoE
+expert-parallel, gat-cora's trainer). What it does, in order, and fails
 on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
@@ -186,7 +188,7 @@ on the first thing that is wrong:
    order of its dQ adds costs against a build without it
    (``FLASH_BWD_UNORDERED``), and prints no result line).
 8. drills the supervised trainer (``ckpt_drill``): h2o-danube-1.8b at full
-   width and depth as in 7, ``CKPT_STEPS`` plain steps as the reference
+   width as in 7, ``CKPT_LAYERS`` deep, ``CKPT_STEPS`` plain steps as the reference
    (an async checkpoint written under its last steps, their ms against
    the warm ones'; ``compress_with_feedback`` over step 0's gradient, each
    leaf within scale/2), then through ``launch.train.Supervised`` a job
@@ -198,6 +200,28 @@ on the first thing that is wrong:
    checkpoint's GB, the host snapshot, write (GB/s), restore and load
    seconds (``--ckpt-drill`` runs the build, the probe and this phase
    alone, and prints no result line).
+9. runs the models on the mesh (``mesh_gnn``, ``mesh_moe``,
+   ``mesh_train``): gloo ranks on the one card (NCCL refuses two ranks on
+   a device), their inputs the parent's by CUDA IPC — correctness runs,
+   not multi-card times. pna, gat-cora and graphcast (the GNN phase's
+   graphs, weights and one-rank outputs) on ``("data", "model") = (2,
+   2)``: each output held to the one-rank forward by ``gnn_serve``'s rule
+   (``GNN_TOL`` · max|out|; graphcast element by element), PNA on its
+   fused branch (three reduce-scatters a layer),
+   every rank's launches per route equal to the one-rank forward's;
+   deepseek-moe-16b at full width and depth expert-parallel on (1, 4)
+   (16 experts a rank, the 33.8 GB of weights built once here): phase
+   4b's traffic teacher-forced with the one-rank serve's tokens, each
+   step's logits within ``MESH_LOGIT_TOL`` · max|logit| of the one-rank
+   serve's, the greedy tokens equal past that margin, the dropped share
+   and every rank's launches exactly the one-rank serve's; gat-cora's
+   ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh) against
+   one rank: ``TRAIN_STEPS`` losses and the final parameters within
+   ``TRAIN_TOL``, each rank's launches, backwards included, equal
+   (``--mesh-only`` runs the build and this phase alone, its one-rank
+   references included, and prints no result line; ``--mesh-probe``
+   compares graphcast on the mesh with one rank layer by layer, in bf16
+   and in f32, and prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -1252,9 +1276,11 @@ def partition_rank(rank, port, device, shared, queue):
         raise
 
 
-def run_ranks(pgs, jobs, device):
-    """Spawns RANKS gloo ranks on ``device`` and collects their reports;
-    any rank's failure fails the phase, and every rank is stopped."""
+def run_ranks(shared, device, target=None, world=RANKS, what="partitioned"):
+    """Spawns ``world`` gloo ranks of ``target`` (:func:`partition_rank`
+    unless told) on ``device``, each handed ``shared`` (its tensors on the
+    card by CUDA IPC), and collects their reports; any rank's failure fails
+    the phase, and every rank is stopped."""
     import queue as queue_mod
     import socket
 
@@ -1265,24 +1291,25 @@ def run_ranks(pgs, jobs, device):
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=partition_rank, args=(r, port, device, [pgs, jobs], queue))
-             for r in range(RANKS)]
+    procs = [ctx.Process(target=target or partition_rank,
+                         args=(r, port, device, list(shared), queue))
+             for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     reports = {}
     try:
         deadline = time.perf_counter() + 600
-        while len(reports) < RANKS:
+        while len(reports) < world:
             try:
                 rank, rep = queue.get(timeout=5)
             except queue_mod.Empty:
                 dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                 if dead or time.perf_counter() > deadline:
-                    raise AssertionError(f"partitioned ranks: exit codes {dead} or timed out")
+                    raise AssertionError(f"{what} ranks: exit codes {dead} or timed out")
                 continue
             if "error" in rep:
-                raise AssertionError(f"partitioned rank {rank} failed:\n{rep['error']}")
+                raise AssertionError(f"{what} rank {rank} failed:\n{rep['error']}")
             reports[rank] = rep
         for p in procs:
             p.join(timeout=60)
@@ -1292,8 +1319,8 @@ def run_ranks(pgs, jobs, device):
                 p.terminate()
                 p.join(timeout=10)
     codes = [p.exitcode for p in procs]
-    if codes != [0] * RANKS:
-        raise AssertionError(f"partitioned ranks exited {codes}")
+    if codes != [0] * world:
+        raise AssertionError(f"{what} ranks exited {codes}")
     return reports, time.perf_counter() - t0
 
 
@@ -1374,7 +1401,7 @@ def partitioned_path(graphs, replicated, device, card):
              fields=run["cp"].init_fields(), want=run["result"])
         for run in replicated[:RANK_PROGRAMS]
     ]
-    reports, ranks_s = run_ranks(pgs, jobs, device)
+    reports, ranks_s = run_ranks([pgs, jobs], device)
     for i, job in enumerate(jobs):
         say("partitioned_run", card, name=job["label"].split("/")[0],
             schedule=job["schedule"], n_shards=RANKS,
@@ -1471,13 +1498,30 @@ def edges_near(shape_id, e, target, share=0.05):
         raise AssertionError(f"{shape_id}: {e} edges, not within {share:.0%} of {target:.0f}")
 
 
-def gnn_serve(arch, cfg, batch, seed, device, card):
+def gnn_check(arch, got, want, tol):
+    """``got`` against ``want`` by ``arch``'s rule (``GNN_ELEMENTWISE``: each
+    element within ``tol``·|want| + ``tol``·median|want|; else max|Δ| within
+    ``tol``·max|want|): (max|Δ|, max|want|, the rule, the share of elements
+    past it)."""
+    diff, mag = (got.float() - want.float()).abs(), want.float().abs()
+    err, scale = float(diff.max()), float(mag.max())
+    if arch in GNN_ELEMENTWISE:
+        check = f"|Δ| ≤ {tol}·|ref| + {tol}·median|ref| per element"
+        limit = tol * mag + tol * float(mag.median())
+    else:
+        check = f"max|Δ| ≤ {tol}·max|out|"
+        limit = tol * scale
+    return err, scale, check, float((diff > limit).float().mean())
+
+
+def gnn_serve(arch, cfg, batch, seed, device, card, keep=None):
     """``models.gnn.models.forward`` of ``cfg`` (weights from ``init(seed)``)
     on a full-graph batch: the first forward with the launch counters
     zeroed before and read after, three warm ones and one under the
     profiler (the card's busy share), then the same forward with the two
     graph kernels' wrappers pointed at their plain versions, held to
-    ``GNN_TOL``. Returns the launches of one forward."""
+    ``GNN_TOL``. Returns the launches of one forward; into ``keep`` (a
+    dict) go the weights, the output and the warm ms, for the mesh phase."""
     from repro_torch.models.gnn import models as gm
 
     n, e = batch["x"].shape[0], batch["src"].shape[0]
@@ -1507,19 +1551,10 @@ def gnn_serve(arch, cfg, batch, seed, device, card):
         ref = gm.forward(params, batch, cfg)
     sync(device)
     plain_peak = peak_gb(device)
-    diff, mag = (out - ref).abs(), ref.abs()
-    err, scale = float(diff.max()), float(mag.max())
-    tol = GNN_TOL[cfg.compute_dtype]
-    if arch in GNN_ELEMENTWISE:
-        check = f"|Δ| ≤ {tol}·|ref| + {tol}·median|ref| per element"
-        limit = tol * mag + tol * float(mag.median())
-    else:
-        check = f"max|Δ| ≤ {tol}·max|out|"
-        limit = tol * scale
-    if not bool((diff <= limit).all()):
-        raise AssertionError(f"{arch}: kernels against plain versions past {check}: "
-                             f"max|Δ| {err}, max|out| {scale}")
-    del diff, mag, limit
+    err, scale, check, past = gnn_check(arch, out, ref, GNN_TOL[cfg.compute_dtype])
+    if past:
+        raise AssertionError(f"{arch}: kernels against plain versions past {check} at a "
+                             f"share {past} of the elements: max|Δ| {err}, max|out| {scale}")
     agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
     if device.type == "cuda" and not (launches["gather_rows_scalar"] > 0
                                       and launches["segment_reduce_cols"] > 0):
@@ -1533,6 +1568,8 @@ def gnn_serve(arch, cfg, batch, seed, device, card):
         plain_check_peak_allocated_gb=plain_peak, launches=launches,
         versus_plain_max_abs_diff=err, max_abs_out=scale, check=check,
         argmax_agree_share=agree)
+    if keep is not None:  # the output in host memory: kept on the card it splits the cache
+        keep.update(params=params, want=out.cpu(), one_rank_ms=warm_s * 1e3)
     del params, out, ref
     return launches
 
@@ -1660,7 +1697,8 @@ def add_launches(total, launches):
         total[k] = total.get(k, 0) + v
 
 
-def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, seed=0):
+def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, seed=0,
+             mesh=True, only_mesh=False):
     """Serve the four GNNs at their published widths (``configs/``, weights
     from ``init(seed)``): graphsage-reddit, gat-cora and pna on one
     ogb_products-shaped batch (``gnn_full_batch``: R-MAT at scale 22, about
@@ -1669,9 +1707,13 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
     minibatches on a Reddit-sized R-MAT (scale 18, d_in 602, fanouts 25-10,
     1,024 seeds a batch). ``shapes`` / ``degrees`` override
     ``GNN_SHAPES`` / ``GNN_AVG_DEGREE`` for a rehearsal at a small size
-    (``n_edges`` None skips the edge-count check). Returns this phase's
-    launches of both graph kernels and, on the card, their wide routes'
-    times at these shapes (:func:`gnn_route_rows`)."""
+    (``n_edges`` None skips the edge-count check). With ``mesh`` pna,
+    gat-cora and graphcast then run on the (2, 2) mesh (:func:`mesh_gnn`)
+    against these one-rank forwards; ``only_mesh`` serves just those three
+    on one rank first (no routes, no minibatches). Returns this phase's
+    launches of both graph kernels, on the card their wide routes' times at
+    these shapes (:func:`gnn_route_rows`), the minibatch graph and the mesh
+    ranks' launches."""
     from repro_torch import configs
     from repro_torch.configs.common import GNN_SHAPE_CLASSES, GNN_SHAPES
     from repro_torch.data import gnn_full_batch
@@ -1703,11 +1745,19 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
         max_in_degree=int(deg.max()), empty_share=float((deg == 0).float().mean()),
         segments_over_4096=int((deg > 4096).sum()))
     del deg
+    mesh_models = []
     for arch in GNN_FULL:
-        per_model[arch] = gnn_serve(arch, cfg_for(arch, "ogb_products"), batch, seed,
-                                    device, card)
+        if only_mesh and arch not in MESH_GNN:
+            continue
+        cfg = cfg_for(arch, "ogb_products")
+        kept = {} if mesh and arch in MESH_GNN else None
+        per_model[arch] = gnn_serve(arch, cfg, batch, seed, device, card, keep=kept)
         add_launches(total, per_model[arch])
-    routes = gnn_route_rows(batch, per_model) if device.type == "cuda" else {}
+        if kept is not None:
+            mesh_models.append(dict(arch=arch, cfg=cfg, batch=batch,
+                                    launches=per_model[arch], **kept))
+    routes = gnn_route_rows(batch, per_model) if device.type == "cuda" and not only_mesh \
+        else {}
     del batch
 
     # GraphCast at full width on the full_graph_sm shape
@@ -1719,11 +1769,20 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
                            n_out=cfg.n_out, device=device)
     build_s["full_graph_sm"] = time.perf_counter() - t0
     edges_near("full_graph_sm", batch["src"].shape[0], sm["n_edges"])
-    per_model["graphcast"] = gnn_serve("graphcast", cfg, batch, seed, device, card)
+    kept = {} if mesh else None
+    per_model["graphcast"] = gnn_serve("graphcast", cfg, batch, seed, device, card,
+                                       keep=kept)
     add_launches(total, per_model["graphcast"])
-    if device.type == "cuda":
+    if kept is not None:
+        mesh_models.append(dict(arch="graphcast", cfg=cfg, batch=batch,
+                                launches=per_model["graphcast"], **kept))
+    if device.type == "cuda" and not only_mesh:
         routes.update(gnn_route_rows(batch, per_model, graphcast=True))
-    del batch
+    del batch, kept
+    mesh_launches = mesh_gnn(mesh_models, device, card) if mesh else {}
+    del mesh_models
+    if only_mesh:
+        return total, routes, None, mesh_launches
 
     # sampled GraphSAGE on a Reddit-sized graph
     minibatch = minibatch_graph(device, card, seed, shapes, degrees)
@@ -1736,7 +1795,7 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
     del graph, feats, labels, hop1_read
     say("launches", card, path="gnn", **total, per_model=per_model)
     say("gnn_phase", card, seconds=time.perf_counter() - t_phase, build_s=build_s)
-    return total, routes, minibatch
+    return total, routes, minibatch, mesh_launches
 
 
 def park(minibatch, device):
@@ -2423,7 +2482,7 @@ def moe_routes(log: list, pins=None):
         moe.route = route
 
 
-def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
+def moe_path(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
     """Serve ``cfg`` (deepseek-moe-16b: 28 layers, d 2048, 64 routed experts
     top-6 and 2 shared, random weights from ``seed``) through
     ``repro_torch.launch.serve``: a prefill of ``batch`` random prompts and
@@ -2438,7 +2497,9 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
     dropped) against one teacher-forced prefill over the prompts and the
     fed tokens, the prefill's routing pinned to the serve's (see
     :func:`moe_teacher_forced`), on the served flash path. Returns the kernel
-    rows at this path's shapes on the card, else ``[]``."""
+    rows at this path's shapes on the card, else ``[]``; into ``one_rank``
+    (a dict) go the weights, the prompts, the first serve and its
+    counters, for the mesh phase."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
@@ -2608,6 +2669,8 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card):
     say("moe_teacher_forced", card, checked=True, **served)
     if not served["within_limit"]:
         raise AssertionError(f"moe decode against the teacher-forced prefill: {served}")
+    if one_rank is not None:
+        one_rank.update(params=params, prompts=prompts, serve=res, counts=serve_counts)
     del params
     say("moe_phase", card, seconds=time.perf_counter() - t_phase)
     return rows
@@ -3521,6 +3584,10 @@ def train_path(minibatch, seed, device, card, reduced=False):
 #: ``CKPT_STOP`` (a job cut short, its checkpoint written), run B resumes
 #: there and fails once at step index ``CKPT_FAIL``
 CKPT_STEPS, CKPT_STOP, CKPT_FAIL = 6, 3, 4
+#: the drill's depth: h2o-danube-1.8b at full width, its 24 layers cut to 6
+#: (a 5.6 GB state for 18.3) to make room in the run's time for the mesh
+#: phase; what the drill checks (bit-equal replay) does not depend on depth
+CKPT_LAYERS = 6
 #: h2o-danube-1.8b's parameter paths in the JAX package's tree (``init`` of
 #: its config: no biases, no qk-norm, an untied unembedding), the keys of
 #: its checkpoints; tests/test_torch_ckpt.py holds them to JAX's
@@ -3595,8 +3662,8 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def ckpt_drill(seed, device, card, reduced=False):
-    """Restart-and-replay drill of h2o-danube-1.8b at full width and depth
-    (bf16, remat, ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens,
+    """Restart-and-replay drill of h2o-danube-1.8b at full width, ``CKPT_LAYERS``
+    deep (bf16, remat, ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens,
     ``LM_TRAIN_LR``) through ``launch.train``: (1) the reference,
     ``CKPT_STEPS`` plain steps of ``make_step``, its state kept on the card;
     after ``CKPT_STOP`` steps an ``AsyncCheckpointer`` saves it, and the
@@ -3617,6 +3684,7 @@ def ckpt_drill(seed, device, card, reduced=False):
     none: the phase fails) and are deleted after. Prints ``ckpt`` and
     ``ckpt_drill`` lines. ``reduced``: the reduced config at a small batch
     (a CPU rehearsal). Returns the launches of runs A and B."""
+    from repro_torch import configs
     from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
     from repro_torch.checkpoint import checkpoint as ck_mod
     from repro_torch.checkpoint.checkpoint import _flatten, tree_map
@@ -3629,8 +3697,11 @@ def ckpt_drill(seed, device, card, reduced=False):
     b, s = (2, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
     oc = AdamWConfig(lr=LM_TRAIN_LR)
 
+    cut = None if reduced else dataclasses.replace(
+        configs.get_spec("h2o-danube-1.8b").config, n_layers=CKPT_LAYERS)
+
     def fresh():
-        return tr.build("h2o-danube-1.8b", reduced, b, s, seed, device)[1:]
+        return tr.build("h2o-danube-1.8b", reduced, b, s, seed, device, config=cut)[1:]
 
     def now():
         sync(device)
@@ -4099,6 +4170,470 @@ def train_kernel_rows(launches, seed, device, card):
     return rows
 
 
+# -- 9. the models on the mesh -----------------------------------------------
+
+#: the mesh phase's gloo ranks on the one card and their meshes: the GNNs
+#: on ("data", "model") = (2, 2), deepseek-moe-16b expert-parallel on
+#: (1, 4), the trainer on launch.train's (world, 1) at 2 ranks
+MESH_RANKS = 4
+MESH_GNN_SHAPE, MESH_MOE_SHAPE, MESH_TRAIN_RANKS = (2, 2), (1, 4), 2
+#: the GNNs held on the mesh to their one-rank forward (graphcast on
+#: full_graph_sm; the others on ogb_products)
+MESH_GNN = ("pna", "gat-cora", "graphcast")
+#: the MoE serve on the mesh against the one-rank serve: each step's
+#: logits within this share of the one-rank's max|logit| (the LM check's)
+MESH_LOGIT_TOL = 3e-2
+MESH_TRANSPORT = "gloo ranks sharing one card: correctness runs, not multi-card times"
+
+
+def mesh_rank(rank, port, device, shared, queue):
+    """One gloo rank of the mesh phase, on ``device`` (every rank on the one
+    card): runs its job (``shared``: ``[job]``, its tensors the parent's, by
+    CUDA IPC; emptied here so that they are released when this returns)
+    on the job's mesh and reports to ``queue``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    (job,) = shared
+    shared.clear()
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=job["world"], timeout=datetime.timedelta(seconds=300),
+        )
+        if device.type == "cuda":
+            torch.cuda.set_device(torch.device("cuda", rank % torch.cuda.device_count()))
+            torch.cuda.reset_peak_memory_stats()
+        report = {"gnn": _mesh_gnn_rank, "moe": _mesh_moe_rank, "train": _mesh_train_rank,
+                  "probe": _mesh_probe_rank}[job["kind"]](rank, job, device)
+        report["peak_allocated_gb"] = peak_gb(device)
+        queue.put((rank, report))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _mesh_check(arch, got, want, tol):
+    """``got`` held to ``want`` by ``gnn_serve``'s rule for ``arch``
+    (:func:`gnn_check`): (max|Δ|, max|want|, the rule)."""
+    err, scale, check, past = gnn_check(arch, got, want, tol)
+    if past:
+        raise AssertionError(f"mesh {arch}: past {check} against the one-rank forward at a "
+                             f"share {past} of the elements: max|Δ| {err}, max|out| {scale}")
+    return err, scale, check
+
+
+def _mesh_gnn_rank(rank, job, device):
+    """Each model's ``forward`` on the (2, 2) mesh: held to the parent's
+    one-rank output, its launches per route equal to the one-rank forward's,
+    the fused PNA layer's three reduce-scatters a layer counted."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import models as gm
+
+    mesh = make_mesh(job["shape"], ("data", "model"), device=device)
+    shd.activate(mesh)
+    out = {}
+    for m in job["models"]:
+        cfg, batch = m["cfg"], m["batch"]
+        graph_counters(zero=True)
+        coll.reset_counts()
+        sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = gm.forward(m["params"], batch, cfg)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches, collectives = graph_counters(), coll.reset_counts()
+        err, scale, check = _mesh_check(m["arch"], y, m["want"].to(y.device),
+                                        GNN_TOL[cfg.compute_dtype])
+        if tuple(y.shape) != tuple(m["want"].shape):
+            raise AssertionError(f"mesh {m['arch']}: output {tuple(y.shape)}")
+        if device.type == "cuda" and launches != m["launches"]:
+            raise AssertionError(f"mesh {m['arch']} rank {rank}: launches {launches}, the "
+                                 f"one-rank forward's {m['launches']}")
+        e = batch["src"].shape[0]
+        fused = cfg.variant in ("pna", "graphcast") and e % mesh.size == 0
+        per_layer = {"pna": 3, "graphcast": 1}.get(cfg.variant, 0)
+        if fused and collectives.get("reduce_scatter", 0) != per_layer * cfg.n_layers:
+            raise AssertionError(f"mesh {m['arch']}: {collectives} for the fused branch")
+        out[m["arch"]] = {
+            "wall_s": wall, "max_abs_diff": err, "max_abs_out": scale,
+            "check": check,
+            "branch": "fused" if fused else "composable" if per_layer else "mp_* ops",
+            "n_edges": e, "edges_per_rank": -(-e // mesh.size), "launches": launches,
+            "collectives": collectives}
+        del y
+    shd.deactivate()
+    return {"models": out, "transport": coll.transport()}
+
+
+def mesh_gnn(models, device, card):
+    """The GNNs on the (2, 2) mesh: ``MESH_RANKS`` gloo ranks on the one
+    card, each model's graph, weights and one-rank output shared by CUDA
+    IPC. Prints a ``mesh_gnn`` line per model; returns the launches over
+    the ranks."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":  # the ranks allocate beside this process's cache
+        torch.cuda.empty_cache()
+    job = {"kind": "gnn", "world": MESH_RANKS, "shape": MESH_GNN_SHAPE, "models": models}
+    reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_RANKS,
+                                 what="mesh gnn")
+    del job
+    if device.type == "cuda":  # blocks shared by CUDA IPC wait here until collected
+        torch.cuda.ipc_collect()
+    total = {}
+    for m in models:
+        arch = m["arch"]
+        per_rank = [reports[r]["models"][arch] for r in range(MESH_RANKS)]
+        whole = per_rank[0]["n_edges"] % MESH_RANKS == 0
+        if arch == "pna" and whole and per_rank[0]["branch"] != "fused":
+            raise AssertionError(f"mesh pna took the {per_rank[0]['branch']} branch")
+        for rep in per_rank:
+            add_launches(total, rep["launches"])
+        say("mesh_gnn", card, arch=arch, mesh=dict(zip(("data", "model"), MESH_GNN_SHAPE)),
+            compute_dtype=m["cfg"].compute_dtype, branch=per_rank[0]["branch"],
+            n_edges=per_rank[0]["n_edges"], edges_per_rank=per_rank[0]["edges_per_rank"],
+            wall_s=[rep["wall_s"] for rep in per_rank],
+            one_rank_warm_ms=m.get("one_rank_ms"),
+            max_abs_diff=max(rep["max_abs_diff"] for rep in per_rank),
+            max_abs_out=per_rank[0]["max_abs_out"], tol=GNN_TOL[m["cfg"].compute_dtype],
+            check=per_rank[0]["check"],
+            launches_per_rank=per_rank[0]["launches"],
+            collectives_per_rank=per_rank[0]["collectives"],
+            peak_allocated_gb=[reports[r]["peak_allocated_gb"] for r in range(MESH_RANKS)],
+            transport=MESH_TRANSPORT, collective_transport=reports[0]["transport"])
+    say("mesh_phase", card, part="gnn", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+    return total
+
+
+@contextlib.contextmanager
+def recorded_gc_layers():
+    """Every GraphCast layer run inside the block recorded: a list of
+    ``(params, h, e, h_out)`` (``h_out`` whole on every rank)."""
+    from repro_torch.models.gnn import layers as L
+
+    fused, seen = L.mpnn_layer_fused, []
+
+    def record(p, x, e, *args, **kwargs):
+        h, e_new = fused(p, x, e, *args, **kwargs)
+        seen.append((p, x, e, h))
+        return h, e_new
+
+    L.mpnn_layer_fused = record
+    try:
+        yield seen
+    finally:
+        L.mpnn_layer_fused = fused
+
+
+def _mesh_probe_rank(rank, job, device):
+    """GraphCast on the (2, 2) mesh against one rank, layer by layer, in its
+    bf16 and in f32 compute (the same weights): each mesh layer's output
+    from the one-rank layer's input (``alone``: one layer's error) and along
+    the mesh's own forward (``chained``), against the one-rank layer's
+    output, and the model's output: max|Δ| / max|ref|, the share of
+    elements past ``gnn_serve``'s elementwise rule, the share not equal."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import layers as L
+    from repro_torch.models.gnn import models as gm
+
+    mesh = make_mesh(job["shape"], ("data", "model"), device=device)
+    batch = job["batch"]
+    n = batch["x"].shape[0]
+    off = gm.dst_offsets(batch["dst"], n)
+
+    def stats(got, want, tol):
+        err, scale, _, past = gnn_check("graphcast", got, want, tol)
+        return {"rel": err / scale, "past": past,
+                "unequal": float((got != want).float().mean())}
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg, tol = dataclasses.replace(job["cfg"], compute_dtype=dtype), GNN_TOL[dtype]
+        with torch.no_grad(), recorded_gc_layers() as one:
+            want = gm.forward(job["params"], batch, cfg)
+        shd.activate(mesh)
+        try:
+            with torch.no_grad(), recorded_gc_layers() as chained:
+                got = gm.forward(job["params"], batch, cfg)
+            with torch.no_grad():
+                alone = [L.mpnn_layer_fused(lp, h, e, batch["src"], batch["dst"],
+                                            batch["emask"], n, offsets=off)[0]
+                         for lp, h, e, _ in one]
+        finally:
+            shd.deactivate()
+        out[dtype] = {
+            "alone": [stats(a, w[3], tol) for a, w in zip(alone, one)],
+            "chained": [stats(c[3], w[3], tol) for c, w in zip(chained, one)],
+            "output": stats(got, want, tol), "max_abs_out": float(want.abs().max())}
+        del one, chained, alone
+    return {"dtypes": out}
+
+
+def mesh_probe(seed, device, card):
+    """GraphCast (16 × 512) on full_graph_sm, on the (2, 2) mesh against one
+    rank layer by layer (:func:`_mesh_probe_rank`): a ``mesh_probe`` line
+    per compute dtype (rank 0's; every rank holds the gathered outputs)."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPE_CLASSES, GNN_SHAPES
+    from repro_torch.data import gnn_full_batch
+    from repro_torch.models.gnn import models as gm
+
+    sm = GNN_SHAPES["full_graph_sm"]
+    cfg = configs.resolve_gnn_config(configs.get_spec("graphcast").config, "full_graph_sm",
+                                     sm)
+    batch = gnn_full_batch(sm["n_nodes"], GNN_AVG_DEGREE["full_graph_sm"], sm["d_feat"],
+                           GNN_SHAPE_CLASSES["full_graph_sm"], seed=seed, task=cfg.task,
+                           n_out=cfg.n_out, device=device)
+    job = {"kind": "probe", "world": MESH_RANKS, "shape": MESH_GNN_SHAPE, "cfg": cfg,
+           "batch": batch, "params": gm.init(cfg, seed=seed, device=device)}
+    reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_RANKS,
+                                 what="mesh probe")
+    for dtype, rep in reports[0]["dtypes"].items():
+        say("mesh_probe", card, arch="graphcast", mesh=dict(zip(("data", "model"),
+                                                                 MESH_GNN_SHAPE)),
+            compute_dtype=dtype, tol=GNN_TOL[dtype], n_edges=batch["src"].shape[0],
+            ranks_s=ranks_s, **rep)
+
+
+def _mesh_moe_rank(rank, job, device):
+    """deepseek-moe-16b's serve expert-parallel on (1, 4): a prefill of the
+    prompts, then the one-rank serve's tokens fed step by step (teacher
+    forcing), each step's logits held to the one-rank's."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model as tm
+
+    cfg, prompts, tokens = job["cfg"], job["prompts"], job["tokens"]
+    params = tm.TransformerParams(job["tensors"])  # views of the parent's weights
+    shd.activate(make_mesh(job["shape"], ("data", "model"), device=device))
+    moe_counters(zero=True)
+    coll.reset_counts()
+    sync(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits, cache = tm.prefill(params, prompts, cfg, capacity=job["capacity"],
+                               full_logits=False)
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    got = [logits]
+    t0 = time.perf_counter()
+    for i in range(tokens.shape[1] - 1):
+        got.append(tm.decode_step_(params, cache, tokens[:, i:i + 1], cfg))
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    counts, collectives = moe_counters(), coll.reset_counts()
+    shd.deactivate()
+    del cache
+    errs, flips = [], 0
+    for i, (g, want) in enumerate(zip(got, job["logits"])):
+        scale = float(want.float().abs().max())
+        err = float((g.float() - want.float()).abs().max())
+        if err > MESH_LOGIT_TOL * scale:
+            raise AssertionError(f"mesh moe step {i}: max|Δlogit| {err} > "
+                                 f"{MESH_LOGIT_TOL}·{scale}")
+        errs.append(err / scale)
+        top2 = want.float().topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > MESH_LOGIT_TOL * scale
+        wrong = (g.argmax(-1).to(torch.int32) != tokens[:, i]) & sure
+        if bool(wrong.any()):
+            raise AssertionError(f"mesh moe step {i}: greedy tokens differ past the margin")
+        flips += int(((g.argmax(-1).to(torch.int32) != tokens[:, i]) & ~sure).sum())
+    return {"prefill_s": prefill_s, "decode_s": decode_s, "launches": counts,
+            "collectives": collectives, "max_rel_err": max(errs), "rel_err_per_step": errs,
+            "token_flips_within_margin": flips, "transport": coll.transport()}
+
+
+def mesh_moe(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
+    """deepseek-moe-16b at full width and depth expert-parallel on (1, 4):
+    the weights built once (``init(seed)``) and shared with the ranks by
+    CUDA IPC (each rank computes with its 16 experts' view), against the
+    one-rank serve of phase 4b's traffic (tokens, logits, the dropped
+    share): ``one_rank`` holds phase 4b's weights, prompts, serve and
+    counters (filled by :func:`moe_path`), else they are made here. Returns
+    the launches over the ranks."""
+    from repro_torch.launch import serve as srv
+    from repro_torch.models.transformer import model as tm
+
+    t0 = time.perf_counter()
+    if one_rank:
+        params, prompts = one_rank["params"], one_rank["prompts"]
+        ref, ref_counts = one_rank["serve"], one_rank["counts"]
+    else:
+        params = tm.init(cfg, seed=seed, device=device)
+        prompts = srv.random_prompts(cfg, batch, prompt_len, seed + 1, device)
+        moe_counters(zero=True)
+        ref = srv.serve(params, cfg, prompts, steps)
+        ref_counts = moe_counters()
+    tensors = {"embed": params.embed.data, "ln_f": params.ln_f.data,
+               "layers": {k: v.data for k, v in params.layers.items()}}
+    if params.unembed is not None:
+        tensors["unembed"] = params.unembed.data
+    n_params = sum(t.numel() * t.element_size() for t in params.parameters())
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    job = {"kind": "moe", "world": MESH_RANKS, "shape": MESH_MOE_SHAPE, "cfg": cfg,
+           "tensors": tensors, "prompts": prompts, "tokens": ref.tokens,
+           "logits": [x.float() for x in ref.logits], "capacity": ref.capacity}
+    reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_RANKS,
+                                 what="mesh moe")
+    n_layers = cfg.n_layers
+    total = {}
+    for r, rep in sorted(reports.items()):
+        c = rep["launches"]
+        if (c["moe_slots"], c["moe_dropped"]) != (ref_counts["moe_slots"],
+                                                  ref_counts["moe_dropped"]):
+            raise AssertionError(f"mesh moe rank {r}: slots/dropped {c['moe_slots']}/"
+                                 f"{c['moe_dropped']}, one rank {ref_counts['moe_slots']}/"
+                                 f"{ref_counts['moe_dropped']}")
+        if device.type == "cuda":
+            require_moe_launches(c, f"mesh rank {r}", n_layers, 1, steps)
+        add_launches(total, {k: v for k, v in c.items() if not k.startswith("moe_")})
+    n_prompt = batch * prompt_len
+    say("mesh_moe", card, arch=cfg.name, mesh=dict(zip(("data", "model"), MESH_MOE_SHAPE)),
+        experts_per_rank=cfg.moe.n_experts // MESH_MOE_SHAPE[1], batch=batch,
+        prompt_len=prompt_len, decode_steps=steps, weights_gb=n_params / 1e9,
+        one_rank_prefill_s=ref.prefill_s, one_rank_decode_s=ref.decode_s,
+        prefill_s=[rep["prefill_s"] for rep in reports.values()],
+        decode_s=[rep["decode_s"] for rep in reports.values()],
+        prefill_tok_s=n_prompt / max(rep["prefill_s"] for rep in reports.values()),
+        max_rel_logit_err=max(rep["max_rel_err"] for rep in reports.values()),
+        rel_logit_err_rank0=reports[0]["rel_err_per_step"], tol=MESH_LOGIT_TOL,
+        token_flips_within_margin=[rep["token_flips_within_margin"]
+                                   for rep in reports.values()],
+        dropped_share=ref_counts["moe_dropped"] / ref_counts["moe_slots"],
+        dropped_share_ranks=[rep["launches"]["moe_dropped"] / rep["launches"]["moe_slots"]
+                             for rep in reports.values()],
+        launches_per_rank=reports[0]["launches"], collectives_per_rank=reports[0][
+            "collectives"],
+        peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
+        parent_allocated_gb=torch.cuda.memory_allocated() / 1e9
+        if device.type == "cuda" else None,
+        transport=MESH_TRANSPORT, collective_transport=reports[0]["transport"])
+    del params, tensors, job, ref, one_rank
+    if device.type == "cuda":
+        torch.cuda.ipc_collect()
+    say("mesh_phase", card, part="moe", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+    return total
+
+
+def _gat_train_setup(seed, device, reduced):
+    """gat-cora's training config, weights and full batch, as the training
+    phase makes them."""
+    from repro_torch import configs
+    from repro_torch.data import gnn_full_batch
+    from repro_torch.models.gnn import models as gm
+
+    spec = configs.get_spec("gat-cora")
+    cfg = spec.reduced if reduced else configs.resolve_gnn_config(
+        spec.config, "full_graph_sm", spec.shapes["full_graph_sm"])
+    params = gm.init(cfg, seed, device)
+    fb = gnn_full_batch(16 * (4 if reduced else GAT_TRAIN_BATCH), 6.0, cfg.d_in, cfg.n_out,
+                        seed=seed, task=cfg.task, n_out=cfg.n_out, device=device)
+    return cfg, params, fb
+
+
+def _supervised_gat(cfg, params, fb, ckpt_dir, device):
+    """``TRAIN_STEPS`` steps of ``launch.train.Supervised`` over gat-cora:
+    (losses, final parameters, launches, seconds)."""
+    from repro_torch.launch.train import Supervised
+    from repro_torch.models import common
+    from repro_torch.models.gnn import models as gm
+    from repro_torch.optim import AdamWConfig, named_leaves
+
+    p = common.trainable(_clone_tree(params))
+    run = Supervised("gnn", p, lambda q, b: gm.loss_fn(q, b, cfg), lambda i: fb,
+                     AdamWConfig(lr=TRAIN_LR), warmup=TRAIN_WARMUP, total=TRAIN_STEPS,
+                     ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS, device=device,
+                     log=lambda line: None)
+    sync(device)
+    train_counters(zero=True)
+    t0 = time.perf_counter()
+    run.run(TRAIN_STEPS)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = train_counters()
+    final = {k: v.detach().clone() for k, v in named_leaves(run.params).items()}
+    return [x for _, x in run.losses], final, launches, seconds
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone()
+
+
+def _mesh_train_rank(rank, job, device):
+    """gat-cora's ``Supervised`` trainer on the ``(world, 1)`` mesh."""
+    losses, final, launches, seconds = _supervised_gat(job["cfg"], job["params"],
+                                                        job["batch"], job["ckpt_dir"], device)
+    # numpy, not tensors: the queue would share a tensor's memory with the
+    # parent, which this process outlives no further than its return
+    return {"losses": losses, "final": {k: v.float().cpu().numpy() for k, v in final.items()},
+            "launches": launches, "seconds": seconds}
+
+
+def mesh_train(seed, device, card, reduced=False):
+    """gat-cora's trainer on 2 gloo ranks (``launch.train.Supervised`` on
+    its ``(2, 1)`` mesh) against the same ``TRAIN_STEPS`` steps on one rank
+    in this process: the losses and the final parameters within
+    ``TRAIN_TOL``, each rank's launches per route, backwards included,
+    equal to the one rank's. Returns the launches over the ranks."""
+    t0 = time.perf_counter()
+    cfg, params, fb = _gat_train_setup(seed, device, reduced)
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        losses, final, launches, one_s = _supervised_gat(cfg, params, fb,
+                                                         str(Path(tmp) / "one"), device)
+        job = {"kind": "train", "world": MESH_TRAIN_RANKS, "cfg": cfg, "params": params,
+               "batch": fb, "ckpt_dir": str(Path(tmp) / "ranks")}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        reports, ranks_s = run_ranks([job], device, target=mesh_rank,
+                                     world=MESH_TRAIN_RANKS, what="mesh train")
+        del job
+        if device.type == "cuda":
+            torch.cuda.ipc_collect()
+    tol = TRAIN_TOL[cfg.compute_dtype]
+    total, worst = {}, {"loss": 0.0, "param": 0.0}
+    for r, rep in sorted(reports.items()):
+        for a, b in zip(rep["losses"], losses):
+            worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+        for k, want in final.items():
+            got = torch.from_numpy(rep["final"][k]).to(want.device)
+            worst["param"] = max(worst["param"], float((got - want).abs().max())
+                                 / max(float(want.abs().max()), 1e-30))
+        if device.type == "cuda" and rep["launches"] != launches:
+            raise AssertionError(f"mesh train rank {r}: launches {rep['launches']}, one "
+                                 f"rank's {launches}")
+        add_launches(total, rep["launches"])
+    if worst["loss"] > tol or worst["param"] > tol:
+        raise AssertionError(f"mesh train: {worst} past {tol} of the one-rank run")
+    say("mesh_train", card, arch="gat-cora", ranks=MESH_TRAIN_RANKS,
+        mesh={"data": MESH_TRAIN_RANKS, "model": 1}, steps=TRAIN_STEPS, losses=losses,
+        losses_rank0=reports[0]["losses"], max_rel_loss_diff=worst["loss"],
+        max_param_diff_over_max=worst["param"], tol=tol, one_rank_s=one_s,
+        seconds=[rep["seconds"] for rep in reports.values()],
+        launches_per_rank=reports[0]["launches"],
+        peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
+        transport=MESH_TRANSPORT)
+    say("mesh_phase", card, part="train", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+    return total
+
+
 def _plain_call(fn):
     with plain_kernels():
         return fn()
@@ -4157,7 +4692,7 @@ def main() -> int:
     if "--gnn-only" in sys.argv[1:]:  # a rehearsal of the GNN phase: no result line
         say("kernel_check", card, ok=True, cases=check_wide_routes(device, gen),
             versus="plain PyTorch versions")
-        _, routes, _ = gnn_path(device, card)
+        _, routes, _, _ = gnn_path(device, card, mesh=False)
         say("gnn_routes", card, **routes)
         return 0
     if "--flash-bwd" in sys.argv[1:]:  # the flash backward alone: no result line
@@ -4171,6 +4706,17 @@ def main() -> int:
             say("train_kernel", card, **flash_bwd_row(LM_TRAIN_BATCH, h, hkv, LM_TRAIN_SEQ,
                                                       d, window, 0, what, bwd_gen, device))
         say("flash_bwd_order", card, **flash_bwd_order_cost(bwd_gen, device))
+        return 0
+    if "--mesh-probe" in sys.argv[1:]:  # GraphCast's mesh error by layer: no result line
+        mesh_probe(seed, device, card)
+        return 0
+    if "--mesh-only" in sys.argv[1:]:  # the mesh phase alone: no result line
+        gnn_path(device, card, only_mesh=True)
+        torch.cuda.empty_cache()
+        mesh_moe(configs.get_spec("deepseek-moe-16b").config, lm_batch, prompt_len,
+                 decode_steps, seed, device, card)
+        torch.cuda.empty_cache()
+        mesh_train(seed, device, card)
         return 0
     if "--ckpt-drill" in sys.argv[1:]:  # the checkpoint drill alone: no result line
         ckpt_drill(seed, device, card)
@@ -4198,7 +4744,7 @@ def main() -> int:
     if "--graph-only" in sys.argv[1:]:  # a rehearsal of the graph kernels: stop here
         return finish(rows, card, t_start)
     torch.cuda.empty_cache()
-    gnn_launches, routes, minibatch = gnn_path(device, card)
+    gnn_launches, routes, minibatch, mesh_launches = gnn_path(device, card)
     minibatch = park(minibatch, torch.device("cpu"))
     for row in rows:  # the GNN phase's launches and wide-route times
         row["launches_gnn"] = {k[len(row["name"]) + 1:] or "all": v
@@ -4208,8 +4754,14 @@ def main() -> int:
     lm = lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len,
                  decode_steps, seed, device, card)
     torch.cuda.empty_cache()
+    moe_one_rank = {}
     rows += moe_path(configs.get_spec("deepseek-moe-16b").config, lm_batch, prompt_len,
-                     decode_steps, seed, device, card)
+                     decode_steps, seed, device, card, one_rank=moe_one_rank)
+    torch.cuda.empty_cache()
+    add_launches(mesh_launches, mesh_moe(configs.get_spec("deepseek-moe-16b").config,
+                                         lm_batch, prompt_len, decode_steps, seed, device,
+                                         card, one_rank=moe_one_rank))
+    moe_one_rank.clear()
     torch.cuda.empty_cache()
     spec = configs.get_spec("autoint")
     rec = autoint_path(spec.config, spec.shapes, seed, device, card)
@@ -4222,12 +4774,23 @@ def main() -> int:
     launches = train_path(park(minibatch, device), seed, device, card)
     del minibatch
     torch.cuda.empty_cache()
+    add_launches(mesh_launches, mesh_train(seed, device, card))
+    torch.cuda.empty_cache()
     drill = ckpt_drill(seed, device, card)
     torch.cuda.empty_cache()
     rows += train_kernel_rows(launches, seed, device, card)
     for name in ("flash_attention", "flash_attention_bwd"):  # the drill's launches
         row = next(r for r in rows if r["name"] == name and "path" not in r)
         row["launches_ckpt_drill"] = drill[name]
+    names = {r["name"] for r in rows}
+    for name in names:  # the mesh phase's launches, over its ranks
+        row = next((r for r in rows if r["name"] == name and "path" not in r), None)
+        if row is None:
+            continue
+        row["launches_mesh"] = {
+            k[len(name) + 1:] or "all": v for k, v in mesh_launches.items()
+            if max((n for n in names if k == n or k.startswith(n + "_")), key=len,
+                   default=None) == name}
     return finish(rows, card, t_start)
 
 

@@ -100,16 +100,19 @@ def _is_dtensor(x) -> bool:
 def _host(leaf) -> torch.Tensor:
     """A leaf as a CPU tensor (a DTensor gathered whole)."""
     if isinstance(leaf, torch.Tensor):
-        if _is_dtensor(leaf):
-            leaf = leaf.full_tensor()
-        return leaf.detach().cpu()
+        from repro_torch.dist import collectives
+
+        return collectives.full_tensor(leaf).detach().cpu()
     return torch.from_numpy(np.array(leaf))
 
 
+def spec_json(spec) -> str:
+    """A partition spec as the manifest writes it."""
+    return json.dumps([list(p) if isinstance(p, tuple) else p for p in spec])
+
+
 def _spec_str(leaf) -> str:
-    if not _is_dtensor(leaf):
-        return ""
-    return json.dumps([list(p) if isinstance(p, tuple) else p for p in shd.spec_of(leaf)])
+    return spec_json(shd.spec_of(leaf)) if _is_dtensor(leaf) else ""
 
 
 # --------------------------------------------------------------------------
@@ -262,13 +265,15 @@ def save_checkpoint(
     step: int,
     tree,
     extra_meta: Optional[Dict] = None,
+    specs: Optional[Mapping[str, str]] = None,
 ) -> Path:
-    """Synchronous atomic checkpoint write. Returns the final path."""
+    """Synchronous atomic checkpoint write. Returns the final path.
+    ``specs`` gives each leaf's manifest spec in place of its own."""
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
     flat = _flatten(tree)
-    host = [(k, _to_numpy(_host(v)), _spec_str(v)) for k, v in flat]
+    host = [(k, _to_numpy(_host(v)), specs[k] if specs else _spec_str(v)) for k, v in flat]
     if any(_is_dtensor(v) for _, v in flat) and dist.get_rank() != 0:
         return final  # every rank gathered; rank 0 writes
     if tmp.exists():
@@ -378,11 +383,16 @@ class AsyncCheckpointer:
     ``save`` copies every leaf into host buffers before it returns, so the
     caller may update its tensors in place right after (the port's train
     step does). The buffers are kept and reused by the next save, once the
-    write before it has been joined."""
+    write before it has been joined. ``specs`` (each leaf key's manifest
+    spec) marks a tree that every rank of the process group holds alike:
+    each rank snapshots it, rank 0 writes it with these specs, and every
+    :meth:`wait` ends at a barrier."""
 
-    def __init__(self, directory: str | os.PathLike, keep: int = 3):
+    def __init__(self, directory: str | os.PathLike, keep: int = 3,
+                 specs: Optional[Mapping[str, str]] = None):
         self.directory = Path(directory)
         self.keep = keep
+        self.specs = specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._buffers: Dict[str, torch.Tensor] = {}
@@ -402,10 +412,12 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, extra_meta=None):
         self.wait()
         host_tree = self._snapshot(tree)
+        if self.specs is not None and dist.get_rank() != 0:
+            return  # every rank holds the tree; rank 0 writes it
 
         def _write():
             try:
-                save_checkpoint(self.directory, step, host_tree, extra_meta)
+                save_checkpoint(self.directory, step, host_tree, extra_meta, self.specs)
                 self._gc()
             except BaseException as e:  # surfaced at next wait()
                 self._error = e
@@ -414,9 +426,13 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Join the write in flight; on several ranks every rank then waits
+        for rank 0's, so that all read the same checkpoints next."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.specs is not None:
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

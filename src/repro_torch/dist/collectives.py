@@ -1,0 +1,247 @@
+"""Collectives of the models on a multi-rank mesh, with the gradients that
+JAX's ``shard_map`` transposes give them.
+
+The JAX package runs a mesh region as ``shard_map(..., check_rep=False)``;
+the port runs one process per rank, each holding the replicated values
+whole as plain tensors, and a region is that rank's share of the work
+between two of the collectives below. Each is a ``torch.autograd.Function``
+whose backward is the transpose JAX takes (``jax.experimental.shard_map``
+without replication checks: an input unmapped over some axes gets the sum
+of the ranks' cotangents, an output unmapped over some axes hands each rank
+its cotangent divided by their size, ``psum``'s transpose is ``psum``):
+
+* :func:`copy_in` — a replicated input entering a region: identity
+  forward, ``all_reduce`` SUM of the cotangents backward;
+* :func:`psum` — ``jax.lax.psum`` into a replicated output: ``all_reduce``
+  SUM forward; backward each rank keeps its cotangent (every rank holds
+  the same one, and JAX's ``psum(g / n)`` is ``g``);
+* :func:`pmean` — ``jax.lax.pmean`` into a replicated output, backward the
+  cotangent times ``ct_scale``;
+* :func:`pminmax` — ``_diff_pminmax``: ``all_reduce`` MAX or MIN forward,
+  ``g·hit / max(psum(hit), 1)`` backward, ``g`` first scaled by
+  ``ct_scale`` (``1/n`` where the region's output is replicated, as JAX
+  divides its cotangent);
+* :func:`reduce_scatter_rows` — ``psum_scatter(tiled=True)`` over the
+  leading dimension, backward an ``all_gather`` of the cotangents;
+* :func:`all_gather_rows` — each rank's rows of a node-sharded result
+  gathered into the replicated whole; backward this rank's rows of the
+  (replicated) cotangent.
+
+Transport: the ranks of one card talk through gloo (NCCL refuses two
+ranks on one device). On the H100 machine gloo took every collective here
+on CUDA tensors — ``all_reduce`` SUM, MAX and MIN in f32, bf16 and int32,
+``all_gather_into_tensor``, ``reduce_scatter_tensor``, on subgroups too —
+copying them through the host itself, so none is staged by the port
+(:func:`transport` says so). DTensor's own redistributions (its functional
+collectives) hung there on gloo with CUDA tensors, so no DTensor of the
+port communicates: gathering one whole is :func:`full_tensor`, over these
+collectives. ``COUNTS`` counts the calls and bytes by collective.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+#: calls and bytes by collective
+COUNTS: Dict[str, int] = {}
+
+
+def reset_counts() -> Dict[str, int]:
+    out = dict(COUNTS)
+    COUNTS.clear()
+    return out
+
+
+def _count(name: str, t: torch.Tensor):
+    COUNTS[name] = COUNTS.get(name, 0) + 1
+    COUNTS[f"{name}_bytes"] = COUNTS.get(f"{name}_bytes", 0) + t.numel() * t.element_size()
+
+
+def transport(group=None) -> str:
+    """How the collectives on ``group`` travel."""
+    backend = str(dist.get_backend(group))
+    if backend == dist.Backend.GLOO:
+        return "gloo (CUDA tensors copied through the host by gloo itself)"
+    return backend
+
+
+def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
+    _count("all_reduce", t)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],) + t.shape[1:])
+    _count("all_gather", t)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def _reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = t.new_empty((t.shape[0] // dist.get_world_size(group),) + t.shape[1:])
+    _count("reduce_scatter", t)
+    dist.reduce_scatter_tensor(out, t, group=group)
+    return out
+
+
+def _rows(t: torch.Tensor, group) -> torch.Tensor:
+    n = t.shape[0] // dist.get_world_size(group)
+    r = dist.get_rank(group)
+    return t[r * n:(r + 1) * n]
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, ct_scale):
+        ctx.ct_scale = ct_scale
+        world = dist.get_world_size(group)
+        if world == 1:
+            return x.clone()
+        return _all_reduce_(x.contiguous().clone(), dist.ReduceOp.SUM, group) / world
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.ct_scale, None, None
+
+
+class _PMinMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, is_max, ct_scale):
+        m = _all_reduce_(x.contiguous().clone(),
+                         dist.ReduceOp.MAX if is_max else dist.ReduceOp.MIN, group)
+        ctx.save_for_backward(x, m)
+        ctx.group, ctx.ct_scale = group, ct_scale
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        hit = (x == m).to(g.dtype)
+        cnt = torch.clamp(_all_reduce_(hit.clone(), dist.ReduceOp.SUM, ctx.group), min=1.0)
+        return (g * ctx.ct_scale) * hit / cnt, None, None, None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group), None
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows(g, ctx.group), None
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated input of a region (see module)."""
+    return _CopyIn.apply(x, group) if _grad(x) else x
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.psum`` of each rank's partial into a replicated result."""
+    if _grad(x):
+        return _PSum.apply(x, group)
+    return _all_reduce_(x.contiguous().clone(), dist.ReduceOp.SUM, group)
+
+
+def pmean(x: torch.Tensor, group, ct_scale: float) -> torch.Tensor:
+    """``jax.lax.pmean`` into a replicated result; its cotangent is scaled
+    by ``ct_scale`` on the way back."""
+    return _PMean.apply(x, group, ct_scale)
+
+
+def pminmax(x: torch.Tensor, group, is_max: bool, ct_scale: float = 1.0) -> torch.Tensor:
+    """``_diff_pminmax``: the cross-rank max (or min) of each rank's partial,
+    its cotangent split across the ranks that attain it."""
+    if _grad(x):
+        return _PMinMax.apply(x, group, is_max, ct_scale)
+    op = dist.ReduceOp.MAX if is_max else dist.ReduceOp.MIN
+    return _all_reduce_(x.contiguous().clone(), op, group)
+
+
+def pmax_int(x: torch.Tensor, group, is_max: bool) -> torch.Tensor:
+    """int32 ``pmax``/``pmin`` (no gradient): the ``or`` / ``and`` combiners."""
+    op = dist.ReduceOp.MAX if is_max else dist.ReduceOp.MIN
+    return _all_reduce_(x.to(torch.int32).contiguous().clone(), op, group)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """``psum_scatter(scatter_dimension=0, tiled=True)``: this rank's block
+    of the leading dimension of the sum over ranks."""
+    world = dist.get_world_size(group)
+    if x.shape[0] % world:
+        raise ValueError(f"tiled reduce_scatter operand scatter dimension size "
+                         f"{x.shape[0]} must be divisible by shard_count {world}")
+    return _ReduceScatterRows.apply(x, group) if _grad(x) else _reduce_scatter(x, group)
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's block of the leading dimension, in rank order."""
+    return _AllGatherRows.apply(x, group) if _grad(x) else _all_gather(x, group)
+
+
+def full_tensor(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a plain tensor, every rank the same) by the
+    collectives above, mesh dimension by mesh dimension from the last (the
+    nesting of DTensor's placements); a plain tensor comes back as it is.
+    On a 1-D mesh the shards may be ragged (``torch.chunk``'s, as an edge
+    dimension's are); on more dimensions they must be even (as
+    ``dist.sharding.device_put`` makes them)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh, t = x.device_mesh, x.to_local().detach()
+    for dim in reversed(range(mesh.ndim)):
+        placement = x.placements[dim]
+        if isinstance(placement, Shard):
+            d, size = placement.dim, x.shape[placement.dim]
+            t = t.movedim(d, 0)
+            if mesh.ndim == 1:  # torch.chunk's rows: ceil(size / n) a rank
+                rows = -(-size // mesh.size())
+                t = torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+            t = _all_gather(t, mesh.get_group(dim))
+            t = (t[:size] if mesh.ndim == 1 else t).movedim(0, d)
+    return t.contiguous()

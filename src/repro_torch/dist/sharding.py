@@ -61,6 +61,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import collectives
 from repro_torch.graph.structure import resolve_device
 
 # --------------------------------------------------------------------------
@@ -104,6 +105,8 @@ class Mesh:
     shape: Dict[str, int]
     device_mesh: Optional[Any] = None
     device: Any = "cuda"
+    #: process groups over axes and the flattened DeviceMesh, made at first use
+    _cache: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -227,15 +230,80 @@ def _maybe(axes: Sequence[_AxisEntry], shape: Sequence[int], mesh: Mesh) -> Part
 
 
 def constrain(x: torch.Tensor, axes: Sequence[Any]) -> torch.Tensor:
-    """``x`` unchanged with no active mesh or a one-rank mesh, as JAX's
-    ``constrain`` is a no-op there. On a multi-rank mesh it raises: the
-    models on the mesh are the next slice (ROADMAP A8c)."""
+    """``with_sharding_constraint`` against the active mesh, which never
+    changes a value. A plain tensor (every rank holds the global value), an
+    edge-sharded DTensor (:func:`edge_mesh`: its rows are the regions'
+    layout, ragged where the mesh does not divide them) and any tensor
+    without a multi-rank mesh come back unchanged. A DTensor on the mesh's
+    ``DeviceMesh`` is laid out by the spec, after ``_maybe`` drops the
+    indivisible entries: gathered whole (``dist.collectives.full_tensor``)
+    and placed, unless it has the spec's placements already."""
     mesh = _ACTIVE_MESH
-    if mesh is None or mesh.size == 1:
+    if mesh is None or mesh.size == 1 or not _is_dtensor(x):
         return x
-    raise NotImplementedError(
-        f"constrain on a {mesh.size}-rank mesh: activation sharding is not ported"
-    )
+    if x.device_mesh is not mesh.device_mesh:
+        return x
+    sharding = NamedSharding(mesh, _maybe(_resolve(axes, mesh), x.shape, mesh))
+    if tuple(x.placements) == sharding.placements:
+        return x
+    return device_put(collectives.full_tensor(x), sharding)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+# --------------------------------------------------------------------------
+# process groups of a multi-rank mesh
+
+
+def _need_ranks(mesh: Mesh):
+    if mesh.device_mesh is None:
+        raise ValueError(f"a mesh of {mesh.size} ranks needs a process group of that "
+                         f"size to run on")
+
+
+def axis_group(mesh: Mesh, axes: Sequence[str]):
+    """The process group of the ranks that share this rank's coordinates on
+    every axis but ``axes``: the group a collective over ``axes`` runs on.
+    Its ranks are in row-major order over ``axes`` (mesh order), so a rank's
+    place in it is its flattened index over them, as JAX's
+    ``axis_index`` flattens a tuple of axes. Made once per mesh (every rank
+    makes every group, in the same order, at its first use)."""
+    _need_ranks(mesh)
+    names = mesh.axis_names
+    key = tuple(a for a in names if a in axes)
+    groups = mesh._cache
+    if key not in groups:
+        if len(key) == len(names):
+            groups[key] = dist.group.WORLD
+        else:
+            import numpy as np
+
+            ranks = np.arange(mesh.size).reshape([mesh.shape[a] for a in names])
+            inner = [names.index(a) for a in key]
+            outer = [i for i in range(len(names)) if i not in inner]
+            lists = ranks.transpose(outer + inner).reshape(-1, math.prod(
+                mesh.shape[a] for a in key)).tolist()
+            groups[key] = dist.new_subgroups_by_enumeration(lists)[0]
+    return groups[key]
+
+
+def edge_mesh(mesh: Mesh):
+    """The 1-D ``DeviceMesh`` over every rank in row-major order: the mesh
+    flattened, as the edge and node dimensions of graph workloads are
+    (:data:`ALL`). A DTensor ``Shard(0)`` on it splits its rows as
+    ``torch.chunk`` does, ``ceil(E / n)`` a rank — the rows of the JAX
+    package's edge dimension padded to ``n`` parts."""
+    _need_ranks(mesh)
+    if "edges" not in mesh._cache:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        mesh._cache["edges"] = DeviceMesh(mesh.device_mesh.device_type,
+                                          torch.arange(mesh.size), mesh_dim_names=("edges",))
+    return mesh._cache["edges"]
 
 
 # --------------------------------------------------------------------------

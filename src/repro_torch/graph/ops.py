@@ -29,12 +29,12 @@ through both, its segment max included, as JAX's does (no stop-gradient).
 The int and bool paths (``to_int32``, or/and) carry none.
 
 The message-passing wrappers of the GNN layers (:func:`mp_gather`,
-:func:`mp_segment_reduce`, :func:`mp_edge_softmax`) are the JAX functions'
-branch without a mesh: the plain :func:`gather`, :func:`segment_reduce` and
-:func:`edge_softmax`, with the segment ``offsets`` passed through (the card
-needs them). Their mesh branch (``shard_map`` over edge shards with
-replicated node state, ``_pad_rows``, ``_diff_pminmax``) waits for the
-port's ``dist`` layer (ROADMAP A8).
+:func:`mp_segment_reduce`, :func:`mp_edge_softmax`) are the JAX functions:
+without a multi-rank mesh the plain :func:`gather`, :func:`segment_reduce`
+and :func:`edge_softmax`, with the segment ``offsets`` passed through (the
+card needs them); on one, the ``shard_map`` branch (each rank's edge rows
+against replicated node state, on the same kernels, then one collective of
+``dist.collectives``; see the section below).
 
 Dtypes stay the JAX package's (x64 off): int32 ids, float32, bool.
 """
@@ -267,9 +267,141 @@ def edge_softmax(
     return ex / torch.clamp(gather(denom, ids), min=1e-16)
 
 
+# ---------------------------------------------------------------------------
+# mesh-aware message passing: under an active multi-rank mesh these run the
+# gather/scatter *locally* per edge shard with replicated node state, and
+# reduce partials with one collective (the JAX package's ``shard_map``
+# branch; vertex-cut partitioning with replicated vertex state):
+#
+#   mp_gather          node[N,D] (replicated) × idx[E](sharded) → edge-local
+#   mp_segment_reduce  edge-local values → local partial [N,D] → psum/pmax
+#
+# A rank is one process; its region works on plain tensors and ends in one
+# collective of ``dist.collectives``, whose backward is the transpose JAX
+# takes. An edge-sharded result is a DTensor ``Shard(0)`` on the flattened
+# mesh (``dist.sharding.edge_mesh``), holding this rank's rows; a
+# replicated result is a plain tensor.
+
+
+def _mp_mesh():
+    """(mesh, daxes, n_data): the active mesh, its axes flattened for the
+    edge dimension (pod, data, model — every axis: edges are the only large
+    dimension) and their size product."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return None, (), 1
+    daxes = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
+    return mesh, daxes, math.prod(mesh.shape[a] for a in daxes)
+
+
+def _pad_rows(x: torch.Tensor, n_rows: int, fill) -> torch.Tensor:
+    """Pad the leading dim up to ``n_rows`` with a constant."""
+    pad = n_rows - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+class EdgeRegion:
+    """This rank's share of an edge dimension of ``e`` rows over the ``n``
+    ranks of ``daxes``: the rows ``[r·E_pad/n, (r+1)·E_pad/n)`` of the edges
+    padded to ``E_pad = ceil(E/n)·n``, ``r`` the rank's index flattened
+    row-major over ``daxes``; ``real`` of them are edges, the rest padding."""
+
+    def __init__(self, mesh, daxes, n: int, e: int):
+        from repro_torch.dist import sharding as shd
+
+        self.mesh, self.n, self.e = mesh, n, e
+        self.group = shd.axis_group(mesh, daxes)
+        self.rank = torch.distributed.get_rank(self.group)
+        self.e_loc = -(-e // n)
+        self.start = self.rank * self.e_loc
+        self.real = max(0, min(self.e_loc, e - self.start))
+
+    def rows(self, t: torch.Tensor, fill) -> torch.Tensor:
+        """This rank's rows of a global ``[E, ...]`` tensor (each rank holds
+        it whole), padded with ``fill``."""
+        return _pad_rows(t[self.start:self.start + self.real], self.e_loc, fill)
+
+    def values(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of edge values, padded with 0: the local shard of
+        an edge-sharded DTensor, or the rows of a replicated tensor (which
+        enters the region: its gradient sums over the ranks)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.dist import collectives as coll
+
+        if isinstance(t, DTensor):
+            return _pad_rows(t.to_local(), self.e_loc, 0)
+        return self.rows(coll.copy_in(t, self.group), 0)
+
+    def offsets(self, offsets: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The segment offsets of this rank's rows of sorted ids (the padding
+        lies past the last one)."""
+        if offsets is None:
+            return None
+        return torch.clamp(offsets - self.start, 0, self.real).to(torch.int32)
+
+    def shard(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's ``e_loc`` result rows as the edge-sharded DTensor of
+        the global ``[E, ...]`` result (the padding rows cut off)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        from repro_torch.dist import sharding as shd
+
+        local = local[:self.real]
+        shape = (self.e,) + tuple(local.shape[1:])
+        return DTensor.from_local(local, shd.edge_mesh(self.mesh), [Shard(0)], run_check=False,
+                                  shape=shape, stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape):
+    strides, acc = [], 1
+    for d in reversed(shape):
+        strides.append(acc)
+        acc *= d
+    return tuple(reversed(strides))
+
+
+def _region(n_edges: int):
+    """The :class:`EdgeRegion` of the active mesh, or ``None`` off-mesh."""
+    mesh, daxes, n_data = _mp_mesh()
+    if mesh is None or n_data == 1:
+        return None
+    return EdgeRegion(mesh, daxes, n_data, n_edges)
+
+
+def edge_sharded(t: torch.Tensor) -> torch.Tensor:
+    """A global ``[E, ...]`` tensor as the edge-sharded DTensor of the active
+    multi-rank mesh (unchanged off-mesh or if already a DTensor): what the
+    JAX package's ``_ce`` constraint makes of a replicated edge tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        return t
+    region = _region(t.shape[0])
+    return t if region is None else region.shard(region.values(t))
+
+
 def mp_gather(field: torch.Tensor, idx, fill=None) -> torch.Tensor:
-    """Gather of node state at edge indices (one device: :func:`gather`)."""
-    return gather(field, idx, fill)
+    """Edge-sharded gather of (replicated) node state.
+
+    Off-mesh, :func:`gather`. On a multi-rank mesh each rank gathers its
+    rows of ``idx`` (padded with 0 to mesh divisibility, the padding sliced
+    off again) from the whole ``field`` and returns its rows of the
+    ``[E, ...]`` result as an edge-sharded DTensor; ``field``'s gradient is
+    the sum over the ranks."""
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.tensor(idx, dtype=torch.int32)
+    region = _region(idx.shape[0])
+    if region is None:
+        return gather(field, idx, fill)
+    from repro_torch.dist import collectives as coll
+
+    out = gather(coll.copy_in(field, region.group), region.rows(idx, 0), fill)
+    return region.shard(out)
 
 
 def mp_segment_reduce(
@@ -280,10 +412,36 @@ def mp_segment_reduce(
     mask: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Segment reduction of edge values to nodes (one device:
-    :func:`segment_reduce`; sentinel ids ``== num_segments`` are dropped)."""
-    return segment_reduce(values, segment_ids, num_segments, op, mask=mask,
-                          offsets=offsets)
+    """Edge-sharded segment reduction → replicated node result.
+
+    Off-mesh, :func:`segment_reduce` (sentinel ids ``== num_segments`` are
+    dropped). On a multi-rank mesh each rank reduces its rows (padded to
+    mesh divisibility with id ``num_segments`` and mask False) into a local
+    partial ``[N, ...]``, then one collective: psum for sum and prod (the
+    JAX package's, so a prod is the sum of the ranks' partial products),
+    ``_diff_pminmax`` for max and min, int32 pmax/pmin then bool for or
+    and and. ``offsets`` of the global sorted ids give each rank's own."""
+    region = _region(segment_ids.shape[0])
+    if region is None:
+        return segment_reduce(values, segment_ids, num_segments, op, mask=mask,
+                              offsets=offsets)
+    from repro_torch.dist import collectives as coll
+
+    if mask is None:
+        mask = torch.ones(segment_ids.shape[:1], dtype=torch.bool, device=segment_ids.device)
+    part = segment_reduce(
+        region.values(values), region.rows(segment_ids, num_segments), num_segments, op,
+        mask=region.rows(mask, False), offsets=region.offsets(offsets),
+    )
+    if op in ("sum", "prod"):
+        return coll.psum(part, region.group)
+    if op in ("max", "min"):
+        # the output is replicated over every rank: JAX hands each its
+        # cotangent divided by their number
+        return coll.pminmax(part, region.group, op == "max", 1.0 / region.n)
+    if op in ("or", "and"):
+        return coll.pmax_int(part, region.group, op == "or").to(torch.bool)
+    raise ValueError(op)
 
 
 def mp_edge_softmax(
@@ -293,10 +451,22 @@ def mp_edge_softmax(
     mask: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Softmax over edges grouped by destination (one device:
-    :func:`edge_softmax`)."""
-    return edge_softmax(scores, segment_ids, num_segments, mask=mask,
-                        offsets=offsets)
+    """Softmax over edges grouped by destination. Off-mesh,
+    :func:`edge_softmax`; on a multi-rank mesh composed from the mesh-aware
+    primitives, as the JAX package composes it (its gathers clip)."""
+    if _region(segment_ids.shape[0]) is None:
+        return edge_softmax(scores, segment_ids, num_segments, mask=mask,
+                            offsets=offsets)
+    scores = edge_sharded(scores)
+    seg_max = mp_segment_reduce(scores, segment_ids, num_segments, "max", mask=mask,
+                                offsets=offsets)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = torch.exp(scores - mp_gather(seg_max, segment_ids))
+    if mask is not None:
+        mshape = mask.shape + (1,) * (scores.ndim - mask.ndim)
+        ex = torch.where(edge_sharded(mask.reshape(mshape)), ex, 0.0)
+    denom = mp_segment_reduce(ex, segment_ids, num_segments, "sum", offsets=offsets)
+    return ex / torch.clamp(mp_gather(denom, segment_ids), min=1e-16)
 
 
 def in_degrees(graph) -> torch.Tensor:

@@ -31,6 +31,16 @@ loads whatever state it is handed — that host copy, or a checkpoint
 restored to host memory — into the live tensors before it runs
 (``copy_``; nothing when handed the live state itself), so a restore
 makes no second copy of the state on the card.
+
+On several ranks (a process group of ``world`` ranks: the JAX trainer's
+``(world, 1)`` mesh) every rank holds the whole state and runs the same
+step, as :func:`data_parallel` splits the batch: an LM batch's rows over
+the ranks (each rank's loss and gradients on its rows, averaged over the
+ranks: JAX's psum over the data axes), a GNN's full graph whole on every
+rank with the model on the mesh, whose regions split the edges. The
+checkpoints record the state in JAX's FSDP layout (each leaf's spec) and
+rank 0 writes them; the live state is not sharded (ROADMAP A8e). The GNN
+and LM families (dense and MoE) train so; the recsys family raises.
 """
 
 from __future__ import annotations
@@ -45,8 +55,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs
-from repro_torch.checkpoint.checkpoint import _flatten, _unflatten, tree_map
+from repro_torch.checkpoint.checkpoint import (
+    AsyncCheckpointer,
+    _flatten,
+    _unflatten,
+    spec_json,
+    tree_map,
+)
 from repro_torch.data.pipeline import gnn_full_batch, recsys_batches, token_batches
+from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.ft import FailureInjector, StragglerMonitor, TrainSupervisor
 from repro_torch.graph.structure import resolve_device
@@ -64,6 +81,10 @@ from repro_torch.optim import (
     opt_state_tree,
 )
 
+#: the families that train on a multi-rank mesh (the recsys family's
+#: vocab-sharded tables are not ported: ROADMAP A8d)
+MESH_FAMILIES = ("lm", "gnn")
+
 
 def make_train_mesh(device="cuda") -> shd.Mesh:
     """2-D ``(data, model)`` mesh over the process group's ranks (model=1:
@@ -74,15 +95,16 @@ def make_train_mesh(device="cuda") -> shd.Mesh:
 
 
 def build(arch: str, reduced: bool, batch: int, seq: int, seed: int, device="cuda",
-          params: Optional[Any] = None):
+          params: Optional[Any] = None, config: Optional[Any] = None):
     """``(spec, cfg, params, loss_fn, batch_for_step)`` as the JAX ``build``:
     trainable parameters (random from ``seed``, or the JAX package's tree
     ``params`` of numpy arrays carried across), ``loss_fn(params, batch)``,
     and the batch of each step (16 LM or recsys batches in turn, or one
-    full-graph batch)."""
+    full-graph batch). ``config`` stands in for the arch's (e.g. one cut
+    to fewer layers)."""
     dev = resolve_device(device)
     spec = configs.get_spec(arch)
-    cfg = spec.reduced if reduced else spec.config
+    cfg = config or (spec.reduced if reduced else spec.config)
     if spec.family == "lm":
         params = (tm.init(cfg, seed, dev, trainable=True) if params is None
                   else tm.params_from_arrays(cfg, params, dev, trainable=True))
@@ -139,18 +161,49 @@ def value_and_grad(loss_fn: Callable, params, batch):
     }
 
 
-def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int):
+def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group=None):
     """The JAX ``step_fn``: ``step(state, batch) -> (state, {"loss"})`` with
-    ``state = {"params", "opt"}``, both updated in place."""
+    ``state = {"params", "opt"}``, both updated in place. With ``group``
+    (:func:`data_parallel`'s) ``batch`` is this rank's share, and the loss
+    and gradients are averaged over the group's ranks in float32."""
 
     def step(state: Dict[str, Any], batch) -> tuple:
         p, o = state["params"], state["opt"]
         loss, g = value_and_grad(loss_fn, p, batch)
+        if group is not None:
+            n = dist.get_world_size(group)
+            loss = coll.psum(loss.float(), group) / n
+            g = {k: (coll.psum(v.float(), group) / n).to(v.dtype) for k, v in g.items()}
         lr_scale = cosine_schedule(o["step"], warmup=warmup, total=total)
         adamw_update_(p, g, o, oc, lr_scale=lr_scale)
         return state, {"loss": loss}
 
     return step
+
+
+def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
+    """How JAX's sharded step takes its batches on ``mesh``: ``(batch_for_step,
+    group, on_mesh)``. On several ranks an LM batch whose rows the data
+    ranks divide is split over them: each rank's step sees its rows, runs
+    the model off the mesh and averages over ``group`` (:func:`make_step`).
+    Any other batch is whole on every rank and the model runs on the mesh
+    (``on_mesh``; ``group`` None): a GNN's regions split the edges, an MoE
+    layer its tokens. On one rank each batch is placed on the mesh's
+    device, on its 1×1 mesh."""
+    if mesh.device_mesh is None:
+        bshard = shd.batch_shardings(family, batch_for_step(0), mesh)
+        return (lambda i: place(batch_for_step(i), bshard)), None, True
+    if family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"training the {family!r} family on a {mesh.size}-rank mesh is not "
+            f"ported (ROADMAP A8d)")
+    group = shd.axis_group(mesh, shd.data_axes(mesh))
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    b = batch_for_step(0)["tokens"].shape[0] if family == "lm" else None
+    if b is None or b % n:
+        return batch_for_step, None, True
+    rows = slice(r * b // n, (r + 1) * b // n)
+    return (lambda i: {k: v[rows] for k, v in batch_for_step(i).items()}), group, False
 
 
 def state_tree(params, opt: Dict[str, Any]) -> Dict[str, Any]:
@@ -177,7 +230,8 @@ def place(tree, shardings):
 class Supervised:
     """The JAX trainer's ``main`` loop: the step of :func:`make_step` over
     ``params`` (and ``opt_state``, else zeros) under a ``TrainSupervisor``
-    checkpointing to ``ckpt_dir``. ``total`` is the schedule's length and
+    checkpointing to ``ckpt_dir``, on :func:`make_train_mesh`'s mesh with the
+    batches of :func:`data_parallel`. ``total`` is the schedule's length and
     :meth:`run`'s ``n_steps`` where the run stops (a job cut short runs to
     fewer steps than its schedule). ``losses`` collects ``(step index,
     loss)`` of every step run, replays included; ``sup`` is the supervisor
@@ -191,40 +245,36 @@ class Supervised:
         self.params = params
         self.opt = opt_state or adamw_init(params, oc)
         self.mesh = make_train_mesh(device)
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f"training on a {self.mesh.size}-rank mesh: the models on the mesh "
-                f"are not ported (ROADMAP A8c)")
-        # explicit placement, as JAX's: params by the family's path-keyed
-        # rules, the moments like the params, batches over the data group
+        batches, group, self.on_mesh = data_parallel(family, batch_for_step, self.mesh)
         live = state_tree(params, self.opt)
+        dev = resolve_device(self.mesh.device)
+        if any(t.to(dev) is not t for _, t in _flatten(live)):  # ``to``: itself if there
+            raise ValueError(f"the state is not on the mesh's device {dev}")
+        # the layout the checkpoints record, as JAX places the state: params
+        # by the family's path-keyed rules, the moments like the params
         pshard = shd.param_shardings(family, live["params"], self.mesh)
-        self.state_shard = {
-            "params": pshard,
-            "opt": {"m": pshard, "v": pshard,
-                    "step": shd.replicated(self.opt["step"], self.mesh)},
-        }
-        self.batch_shard = shd.batch_shardings(family, batch_for_step(0), self.mesh)
-        placed = place(live, self.state_shard)
-        if any(a is not b for (_, a), (_, b) in zip(_flatten(live), _flatten(placed))):
-            raise ValueError(f"the state is not on the mesh's device {self.mesh.device}")
+        layout = {"params": pshard, "opt": {"m": pshard, "v": pshard,
+                                            "step": shd.replicated(self.opt["step"], self.mesh)}}
+        specs = ({k: spec_json(sh.spec) for k, sh in _flatten(layout)}
+                 if self.mesh.device_mesh is not None else None)
         self._view = None
         # the step updates the live tensors in place, so the supervisor's
         # restore-and-replay template must be durable: a host copy
         self.init_state = host_copy(live)
         self.losses: List[Tuple[int, float]] = []
         self.log, self.log_every = log, log_every
-        self._step = make_step(loss_fn, oc, warmup, total)
+        self._step = make_step(loss_fn, oc, warmup, total, group)
         self._last = time.perf_counter()
         self.sup = TrainSupervisor(
             self._wrapped_step,
-            lambda i: place(batch_for_step(i), self.batch_shard),
+            batches,
             ckpt_dir=ckpt_dir,
             ckpt_every=ckpt_every,
             injector=FailureInjector(list(inject_failures)) if inject_failures else None,
             straggler=StragglerMonitor(),
             on_straggler=lambda ev: log(f"[straggler] {ev}"),
         )
+        self.sup.ckpt = AsyncCheckpointer(ckpt_dir, specs=specs)
 
     def tree(self) -> Dict[str, Any]:
         """The live state in the JAX nesting (what the step hands back)."""
@@ -259,7 +309,8 @@ class Supervised:
         """Train to ``n_steps`` (resuming from the newest checkpoint); the
         live tensors then hold the final state. Returns ``(step,
         metrics)``; ``metrics`` is ``None`` when no step ran."""
-        shd.activate(self.mesh)
+        if self.on_mesh:
+            shd.activate(self.mesh)
         try:
             state, step, metrics = self.sup.run(self.init_state, n_steps)
         finally:
@@ -297,18 +348,25 @@ def train(arch: str, reduced: bool = False, steps: int = 100, batch: int = 8,
             f"restarts={sup.restarts} stragglers={len(sup.straggler.events)}")
         return [x for _, x in run.losses]
     state = {"params": p, "opt": opt_state or adamw_init(p, oc)}
-    step_fn = make_step(loss_fn, oc, warmup, steps)
+    mesh = make_train_mesh(device)
+    batches, group, on_mesh = data_parallel(spec.family, batch_for_step, mesh)
+    step_fn = make_step(loss_fn, oc, warmup, steps, group)
     losses: List[float] = []
     last = time.perf_counter()
-    for i in range(steps):
-        state, metrics = step_fn(state, batch_for_step(i))
-        losses.append(float(metrics["loss"]))
-        s = int(state["opt"]["step"])
-        if s % log_every == 0:
-            now = time.perf_counter()
-            log(f"step {s:5d} loss {losses[-1]:.4f} "
-                f"({now - last:.2f}s/{log_every} steps)")
-            last = now
+    if on_mesh:
+        shd.activate(mesh)
+    try:
+        for i in range(steps):
+            state, metrics = step_fn(state, batches(i))
+            losses.append(float(metrics["loss"]))
+            s = int(state["opt"]["step"])
+            if s % log_every == 0:
+                now = time.perf_counter()
+                log(f"step {s:5d} loss {losses[-1]:.4f} "
+                    f"({now - last:.2f}s/{log_every} steps)")
+                last = now
+    finally:
+        shd.deactivate()
     log(f"done at step {int(state['opt']['step'])}: loss={losses[-1]:.4f}")
     return losses
 

@@ -5,8 +5,8 @@ float32 as there. The JAX package's ``optimization_barrier`` needs no
 counterpart: it is the identity, there to stop XLA's loop-invariant code
 motion from hoisting an f32 upcast of the remat carry out of the backward
 scan, and PyTorch runs each layer eagerly, with no such pass.
-``dist.sharding.constrain`` (a no-op without a mesh) is not called either:
-the models do not run on a multi-rank mesh yet (ROADMAP A8c).
+The models call ``dist.sharding.constrain`` where the JAX models do;
+this module, as JAX's, calls none.
 Random initialisers draw from an explicit ``torch.Generator``, whose device
 is where the parameters are made.
 """

@@ -11,10 +11,16 @@ Palgol main path.
 
 Each layer takes the ``offsets`` of its ascending ``dst`` (the model's
 ``forward`` computes them once per batch); the card needs them, the CPU's
-plain versions read the ids. The JAX package's sharding hints (``_ce``,
-``constrain``) do nothing without a mesh and are dropped;
-``pna_layer_fused`` / ``mpnn_layer_fused`` fall back to :func:`pna_layer` /
-:func:`mpnn_layer` on one device and come with the mesh (ROADMAP A8).
+plain versions read the ids. On a multi-rank mesh the ``mp_*`` calls run
+each rank's edge rows (``graph.ops``): their edge results are edge-sharded
+DTensors, so the elementwise work between them runs on each rank's rows,
+as does a product of one with a weight (:func:`_mm`).
+:func:`pna_layer_fused` and :func:`mpnn_layer_fused` run a whole layer's
+edge work in one region — the node state replicated
+once a layer, the sums reduce-scattered to node shards, the node update on
+this rank's shard, then gathered whole — and fall back to
+:func:`pna_layer` / :func:`mpnn_layer` off-mesh or when the mesh does not
+divide the edges, as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -22,8 +28,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import ALL, constrain
 from repro_torch.graph import ops as gops
 from repro_torch.models.common import dense_init
+
+
+def _ce(t):
+    """Shard an edge-indexed tensor over every mesh axis."""
+    return constrain(t, (ALL,) + (None,) * (t.ndim - 1))
+
+
+def _mm(edges, w):
+    """``edges @ w``; on an edge-sharded DTensor each rank's rows times the
+    replicated weight (a region input: its gradient sums over the ranks)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(edges, DTensor):
+        return edges @ w
+    local = edges.to_local() @ coll.copy_in(w, edges.device_mesh.get_group())
+    shape = tuple(edges.shape[:-1]) + (w.shape[-1],)
+    return DTensor.from_local(local, edges.device_mesh, edges.placements, run_check=False,
+                              shape=shape, stride=gops._contiguous_strides(shape))
 
 
 def _mean(vals, dst, n, mask, offsets=None, cnt=None):
@@ -50,7 +76,7 @@ def init_sage_layer(gen, d_in, d_out, dtype):
 
 
 def sage_layer(p, x, src, dst, emask, n, aggregator="mean", offsets=None):
-    nbr_vals = gops.mp_gather(x, src)
+    nbr_vals = _ce(gops.mp_gather(x, src))
     if aggregator == "mean":
         agg = _mean(nbr_vals, dst, n, emask, offsets)
     else:
@@ -74,13 +100,13 @@ def gat_layer(p, x, src, dst, emask, n, n_heads, d_out, concat=True, offsets=Non
     h = (x @ p["w"]).reshape(n, n_heads, d_out)
     alpha_src = torch.einsum("nhd,hd->nh", h, p["a_src"])
     alpha_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
-    scores = F.leaky_relu(
+    scores = _ce(F.leaky_relu(
         gops.mp_gather(alpha_src, src) + gops.mp_gather(alpha_dst, dst),
         negative_slope=0.2,
-    )  # [E, H]
-    att = gops.mp_edge_softmax(scores, dst, n, mask=emask, offsets=offsets)
+    ))  # [E, H]
+    att = _ce(gops.mp_edge_softmax(scores, dst, n, mask=emask, offsets=offsets))
     del scores
-    vals = gops.mp_gather(h, src)  # [E, H, D]
+    vals = _ce(gops.mp_gather(h, src))  # [E, H, D]
     if vals.requires_grad or att.requires_grad:  # the product's backward reads both
         vals = vals * att[..., None]
     else:  # serving: no second [E, H, D] buffer
@@ -102,7 +128,8 @@ def init_pna_layer(gen, d_in, d_out, n_agg, n_scale, dtype):
 
 
 def pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=None):
-    msg = F.relu(gops.mp_gather(x, src) @ p["w_pre"])
+    nbr = gops.mp_gather(x, src)
+    msg = _ce(F.relu(_mm(nbr, p["w_pre"])))
     # the in-degree of every aggregator and scaler: one sum of ones in the
     # compute dtype, as the JAX layer's (which sums it once for ``deg`` and
     # once in each ``_mean``, to the same value)
@@ -146,11 +173,115 @@ def init_mpnn_layer(gen, d_node, d_edge, dtype):
 
 def mpnn_layer(p, x, e_feat, src, dst, emask, n, offsets=None):
     """x: [N, Dn]; e_feat: [E, De] → (x', e') with residuals (GraphCast)."""
-    cat = torch.cat(
+    e_feat = _ce(gops.edge_sharded(e_feat))
+    cat = _ce(torch.cat(
         [gops.mp_gather(x, src), gops.mp_gather(x, dst), e_feat], dim=-1
-    )
-    e_new = F.silu(cat @ p["edge_w1"]) @ p["edge_w2"] + e_feat
+    ))
+    e_new = _ce(_mm(F.silu(_mm(cat, p["edge_w1"])), p["edge_w2"]) + e_feat)
     del cat
     agg = gops.mp_segment_reduce(e_new, dst, n, "sum", mask=emask, offsets=offsets)
     x_new = F.silu(torch.cat([x, agg], dim=-1) @ p["node_w1"]) @ p["node_w2"] + x
     return x_new, e_new
+
+
+def _node_rows(region, n):
+    """This rank's block of the ``n`` node rows (``psum_scatter(tiled)``'s)."""
+    if n % region.n:
+        raise ValueError(f"tiled reduce_scatter operand scatter dimension size {n} must "
+                         f"be divisible by shard_count {region.n}")
+    n_loc = n // region.n
+    return slice(region.rank * n_loc, (region.rank + 1) * n_loc)
+
+
+def pna_layer_fused(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=None):
+    """PNA with all aggregations in ONE region: the node state is replicated
+    once per layer (instead of once per ``mp_*`` call), the peak-memory
+    lever on 62M-edge graphs. ``cnt``, ``sum`` and ``sumsq`` are
+    reduce-scattered to node shards; ``max`` and ``min`` are all-reduced
+    (``_diff_pminmax``), then this rank's rows kept — so, as in the JAX
+    package, a max's gradient reaches only the ranks that attain it among
+    those whose rows hold it. The scalers and the output layer run on this
+    rank's node rows, gathered whole at the end. Falls back to
+    :func:`pna_layer` off-mesh or when the mesh does not divide the edges."""
+    region = gops._region(src.shape[0])
+    if region is None or src.shape[0] % region.n != 0:
+        return pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets)
+    rows = _node_rows(region, n)
+    g = region.group
+    x_full, w_pre = coll.copy_in(x, g), coll.copy_in(p["w_pre"], g)
+    src_l, dst_l, m_l = region.rows(src, 0), region.rows(dst, n), region.rows(emask, False)
+    off_l = region.offsets(offsets)
+    msg = F.relu(gops.gather(x_full, src_l) @ w_pre)
+
+    def seg(v, op):
+        return gops.segment_reduce(v, dst_l, n, op, mask=m_l, offsets=off_l)
+
+    r = {}
+    ones = torch.ones(msg.shape[:1] + (1,), dtype=msg.dtype, device=msg.device)
+    r["cnt"] = coll.reduce_scatter_rows(seg(ones, "sum"), g)
+    r["sum"] = coll.reduce_scatter_rows(seg(msg, "sum"), g)
+    if "std" in aggregators:
+        r["sumsq"] = coll.reduce_scatter_rows(seg(msg.square(), "sum"), g)
+    for op in ("max", "min"):
+        if op in aggregators:
+            r[op] = coll.pminmax(seg(msg, op), g, op == "max")[rows]
+    del msg
+    cnt = torch.clamp(r["cnt"][:, :1], min=1.0)
+    mean = r["sum"] / cnt
+    deg = r["cnt"][:, 0]
+    aggs = []
+    for a in aggregators:
+        if a == "mean":
+            aggs.append(mean)
+        elif a == "std":
+            sq = r["sumsq"] / cnt
+            aggs.append(torch.sqrt(torch.clamp(sq - mean.square(), min=0.0) + 1e-5))
+        elif a in ("max", "min"):
+            aggs.append(torch.where(torch.isfinite(r[a]), r[a], 0.0))
+    agg = torch.stack(aggs, dim=1)  # [N/n, A, D]
+    logd = torch.log1p(deg)[:, None, None]
+    outs = []
+    for s in scalers:
+        if s == "identity":
+            outs.append(agg)
+        elif s == "amplification":
+            outs.append(agg * (logd / delta))
+        elif s == "attenuation":
+            outs.append(agg * (delta / torch.clamp(logd, min=1e-3)))
+    n_loc = agg.shape[0]
+    feats = torch.cat([x_full[rows]] + [o.reshape(n_loc, -1) for o in outs], dim=-1)
+    out = F.relu(feats @ coll.copy_in(p["w"], g) + coll.copy_in(p["b"], g))
+    return coll.all_gather_rows(out, g)
+
+
+def mpnn_layer_fused(p, x, e_feat, src, dst, emask, n, offsets=None):
+    """GraphCast block with the gathers, the edge MLP and the aggregation in
+    one region: one node-state replication per layer. The aggregate is
+    reduce-scattered (no replicated ``[N, D]`` buffer), the node MLP runs on
+    this rank's node rows, gathered whole; ``e'`` stays edge-sharded. Falls
+    back to :func:`mpnn_layer` off-mesh or when the mesh does not divide the
+    edges."""
+    region = gops._region(src.shape[0])
+    if region is None or src.shape[0] % region.n != 0:
+        return mpnn_layer(p, x, e_feat, src, dst, emask, n, offsets)
+    rows = _node_rows(region, n)
+    g = region.group
+    x_full = coll.copy_in(x, g)
+    e_loc = region.values(e_feat)
+    cat = torch.cat([gops.gather(x_full, region.rows(src, 0)),
+                     gops.gather(x_full, region.rows(dst, n)), e_loc], dim=-1)
+    e_new = (F.silu(cat @ coll.copy_in(p["edge_w1"], g)) @ coll.copy_in(p["edge_w2"], g)
+             + e_loc)
+    del cat
+    # the partial sums in f32, reduce-scattered in f32 and rounded once, as
+    # one rank's segment sum accumulates (JAX psums them in the compute
+    # dtype: in bf16 that moved GraphCast's outputs past gnn_serve's rule)
+    agg = coll.reduce_scatter_rows(
+        gops.segment_reduce(e_new.float(), region.rows(dst, n), n, "sum",
+                            mask=region.rows(emask, False), offsets=region.offsets(offsets)),
+        g,
+    ).to(x.dtype)
+    x_loc = x_full[rows]
+    x_new = (F.silu(torch.cat([x_loc, agg], dim=-1) @ coll.copy_in(p["node_w1"], g))
+             @ coll.copy_in(p["node_w2"], g) + x_loc)
+    return coll.all_gather_rows(x_new, g), region.shard(e_new)

@@ -25,6 +25,12 @@ stacked leading dimension here and run as a Python loop over it, each
 layer checkpointed (``torch.utils.checkpoint``) under ``cfg.remat`` when a
 gradient is wanted, as JAX's ``jax.checkpoint``; ``optimization_barrier``
 has no counterpart (``models.common``).
+
+On a multi-rank mesh (``dist.sharding.activate``) every rank holds the
+batch and the parameters whole; PNA and GraphCast run their fused layers
+(one region a layer) and SAGE and GAT reach the mesh through the ``mp_*``
+ops, so each rank works on its share of the edges, and the output is the
+replicated ``[N, n_out]``, equal on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import ALL, constrain
 from repro_torch.graph import ops as gops
 from repro_torch.graph.structure import resolve_device, segment_offsets
 from repro_torch.models import common
@@ -152,14 +159,20 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     n = x.shape[0]
     off = dst_offsets(dst, n)
 
+    def _c(t):  # shard node/edge activations over every mesh axis
+        return constrain(t, (ALL,) + (None,) * (t.ndim - 1))
+
+    x = _c(x)
     if cfg.variant == "graphcast":
         cp = _cast(params, cdt)
-        h = F.silu(x @ cp["encode_node"])
+        h = _c(F.silu(x @ cp["encode_node"]))
         w = batch.get("ew")
         w = torch.ones(src.shape, dtype=cdt, device=x.device) if w is None else w.to(cdt)
-        e = F.silu(w[:, None] @ cp["encode_edge"])  # [E, De]
+        e = _c(F.silu(w[:, None] @ cp["encode_edge"]))  # [E, De]
+
         def gc_body(lp, h, e):
-            return L.mpnn_layer(lp, h, e, src, dst, emask, n, offsets=off)
+            h, e = L.mpnn_layer_fused(lp, h, e, src, dst, emask, n, offsets=off)
+            return _c(h), _c(e)
 
         for i in range(cp["layers"]["edge_w1"].shape[0]):
             h, e = _ckpt(cfg, gc_body)(_layer(cp["layers"], i), h, e)
@@ -169,8 +182,8 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
         cp = _cast(params, cdt)
 
         def pna_apply(lp, h):
-            return L.pna_layer(lp, h, src, dst, emask, n, cfg.pna_aggregators,
-                               cfg.pna_scalers, cfg.pna_delta, offsets=off)
+            return _c(L.pna_layer_fused(lp, h, src, dst, emask, n, cfg.pna_aggregators,
+                                        cfg.pna_scalers, cfg.pna_delta, offsets=off))
 
         h = _ckpt(cfg, pna_apply)(cp["layer0"], x)
         if cp.get("layers") is not None:
@@ -180,9 +193,11 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
 
     def one_layer(lp, h):
         if cfg.variant == "sage":
-            return L.sage_layer(lp, h, src, dst, emask, n, cfg.aggregator, offsets=off)
-        return L.gat_layer(lp, h, src, dst, emask, n, cfg.n_heads, cfg.d_hidden,
-                           offsets=off)
+            h = L.sage_layer(lp, h, src, dst, emask, n, cfg.aggregator, offsets=off)
+        else:
+            h = L.gat_layer(lp, h, src, dst, emask, n, cfg.n_heads, cfg.d_hidden,
+                            offsets=off)
+        return _c(h)
 
     h = x
     for lp in params["layers"]:

@@ -32,6 +32,13 @@ MoE configs (``cfg.moe``) take :mod:`moe`'s FFN in every layer, its
 dispatch and combine on the ``gather_rows`` and ``segment_reduce``
 kernels; ``forward`` returns the balance loss summed over the layers, as
 the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
+
+On a multi-rank mesh (``dist.sharding.activate``) every rank holds the
+tokens, the parameters and the activations whole — the JAX module's
+``constrain`` calls sit where its do, and change nothing on a plain tensor
+— and the MoE FFN runs expert-parallel (``moe.moe_ffn_ep``): each rank
+routes its data shard's tokens to its model shard's experts, and the
+combine's collectives hand every rank the whole ``[T, D]``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import BATCH, constrain
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import common
 from repro_torch.models.transformer import attention as attn_mod
@@ -207,9 +215,9 @@ def project_qkv(p, x, pos, cfg: TransformerConfig):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    q = constrain(q.reshape(b, s, h, hd), (BATCH, None, "model", None))
+    k = constrain(k.reshape(b, s, hkv, hd), (BATCH, None, "model", None))
+    v = constrain(v.reshape(b, s, hkv, hd), (BATCH, None, "model", None))
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"])
         k = common.rms_norm(k, p["k_norm"])
@@ -260,16 +268,17 @@ def _embed(params: TransformerParams, tokens, cfg):
 def _layer_fn(lp, x, pos, cfg):
     """One layer of the forward: (x after the layer, its MoE aux)."""
     a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
-    x = x + a
+    x = constrain(x + a, (BATCH, None, None))
     f, aux = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
-    return x + f, aux
+    # sequence-parallel layer boundary (Megatron SP), as in JAX
+    return constrain(x + f, (BATCH, "model", None)), aux
 
 
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig):
     """Full forward over ``tokens [B, S]``. Returns (hidden [B, S, D], aux);
     ``aux`` is the MoE balance loss summed over the layers (0.0 dense).
     With gradients enabled and ``cfg.remat`` each layer is checkpointed."""
-    x = _embed(params, tokens, cfg)
+    x = constrain(_embed(params, tokens, cfg), (BATCH, None, None))
     pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
@@ -293,7 +302,7 @@ def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.T
 
 def logits_from_hidden(params: TransformerParams, hidden, cfg):
     table = params.embed if cfg.tie_embeddings else params.unembed
-    return hidden @ table.T
+    return constrain(hidden @ table.T, (BATCH, None, "model"))  # keep vocab sharded
 
 
 # ---------------------------------------------------------------------------
@@ -390,15 +399,17 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         a, nk, nv = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
-        x = x + a
+        x = constrain(x + a, (BATCH, None, None))
         x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]
+        x = constrain(x, (BATCH, "model", None))
         ks[i][:, kept_slots] = nk[:, s - keep:]
         vs[i][:, kept_slots] = nv[:, s - keep:]
     x = common.rms_norm(x, params.ln_f)
     if full_logits:
         logits = logits_from_hidden(params, x, cfg)
     else:
-        logits = logits_from_hidden(params, x[:, -1:, :], cfg)[:, 0]
+        last = constrain(x[:, -1:, :], (BATCH, None, None))
+        logits = logits_from_hidden(params, last, cfg)[:, 0]
     cache = {
         "k": ks,
         "v": vs,

@@ -1,9 +1,10 @@
-"""Mixture-of-Experts FFN with sort-based token dispatch, on one device.
+"""Mixture-of-Experts FFN with sort-based token dispatch.
 
-The one-device half of ``repro.models.transformer.moe``: ``route``,
-``dispatch_indices``, ``capacity`` and ``_moe_ffn_local`` as
-:func:`moe_ffn`. Its expert-parallel ``moe_ffn_ep`` waits for the port's
-``dist`` layer (ROADMAP A8).
+The JAX package's ``repro.models.transformer.moe``: ``route``,
+``dispatch_indices``, ``capacity``, ``_moe_ffn_local`` (here
+:func:`moe_ffn_local`) and the expert-parallel :func:`moe_ffn_ep`, which
+:func:`moe_ffn` takes on a multi-rank mesh with a ``model`` axis when the
+mesh divides the experts and the tokens (the JAX dispatch rule).
 
 The JAX module builds its dispatch on the Pregel substrate's gather and
 scatter-with-combiner primitives; here those primitives are the kernels
@@ -132,6 +133,24 @@ def dispatch(x: torch.Tensor, slot: torch.Tensor, token_id: torch.Tensor,
 
 
 def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
+    """``x [T, D]`` → (y [T, D], aux). Under an active multi-rank mesh with a
+    ``model`` axis that divides the experts, and data axes (pod × data) that
+    divide the tokens, the expert-parallel :func:`moe_ffn_ep` — also when
+    ``model`` has size 1, as the trainer's ``(world, 1)`` mesh has it;
+    otherwise :func:`moe_ffn_local`, on every rank alike."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = shd.active_mesh()
+    if mesh is not None and mesh.device_mesh is not None and "model" in mesh.shape:
+        n_model = mesh.shape["model"]
+        daxes = shd.data_axes(mesh)
+        n_data = math.prod(mesh.shape[a] for a in daxes)
+        if mcfg.n_experts % n_model == 0 and x.shape[0] % n_data == 0:
+            return moe_ffn_ep(x, params, mcfg, mesh, daxes, n_data, n_model)
+    return moe_ffn_local(x, params, mcfg)
+
+
+def moe_ffn_local(x: torch.Tensor, params, mcfg: MoEConfig):
     """``x [T, D]`` → (y [T, D], aux): the JAX ``_moe_ffn_local`` on the
     port's ``graph.ops`` (see module)."""
     t, d = x.shape
@@ -148,16 +167,8 @@ def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     slot = torch.where(keep, expert_idx.reshape(-1) * cap + pos, e * cap)  # [T·k]
     expert_in = dispatch(x, slot, token_id, e * cap).reshape(e, cap, d)
 
-    h = torch.bmm(expert_in, params["w1"])
-    g = torch.bmm(expert_in, params["w3"])
+    out_slots = _experts(expert_in, params["w1"], params["w3"], params["w2"])
     del expert_in
-    if h.requires_grad or g.requires_grad:  # the backward reads h and g
-        h = F.silu(h) * g
-    else:  # silu(h) * g in place, each rounded as in JAX
-        h = F.silu(h, inplace=True).mul_(g)
-    del g
-    out_slots = torch.bmm(h, params["w2"]).reshape(e * cap, d)
-    del h
 
     vals = graph_ops.gather(out_slots, slot.clamp(max=e * cap - 1))  # [T·k, D]
     del out_slots
@@ -165,6 +176,124 @@ def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     vals = vals * weight if vals.requires_grad or weight.requires_grad else vals.mul_(weight)
     offsets = torch.arange(0, k * (t + 1), k, dtype=torch.int32, device=dev)
     y = graph_ops.segment_reduce(vals, token_id, t, "sum", offsets=offsets)
+
+    if "shared" in params:
+        sh = params["shared"]
+        y = y + common.swiglu(x, sh["w1"], sh["w3"], sh["w2"])
+    return y, aux
+
+
+def _experts(expert_in, w1, w3, w2):
+    """Per-expert SwiGLU ``[E, C, D] → [E·C, D]`` by ``torch.bmm``."""
+    e, cap, d = expert_in.shape
+    h = torch.bmm(expert_in, w1)
+    g = torch.bmm(expert_in, w3)
+    if h.requires_grad or g.requires_grad:  # the backward reads h and g
+        h = F.silu(h) * g
+    else:  # silu(h) * g in place, each rounded as in JAX
+        h = F.silu(h, inplace=True).mul_(g)
+    del g
+    return torch.bmm(h, w2).reshape(e * cap, d)
+
+
+def _own_rows(vals, owner, rank: int, group):
+    """The weighted rows ``vals [T·k, D]`` of every (token, slot) from the
+    rank that owns its expert, gathered over ``group`` into place (0 for a
+    dropped slot). ``owner [T·k]`` names that rank (the group's size for a
+    dropped slot); every rank of the group routes the same tokens alike, so
+    each works out from it where every rank's rows go, and sends only its
+    own (padded to the most any rank holds): one collective of about
+    ``T·k·D`` elements, where a psum of ``vals`` would carry twice that.
+    The result equals that psum bit for bit (one nonzero row among zeros)."""
+    from repro_torch.dist import collectives as coll
+
+    n, world = vals.shape[0], torch.distributed.get_world_size(group)
+    counts = torch.bincount(owner, minlength=world + 1)[:world]
+    most = int(counts.max())
+    order = torch.argsort(owner, stable=True)  # each rank's slots, in order
+    col = torch.arange(most, device=vals.device)
+    starts = torch.cumsum(counts, 0) - counts
+    idx = torch.where(col < counts[:, None], order[(starts[:, None] + col).clamp(max=n - 1)],
+                      n)  # [world, most], n: padding
+    rows = coll.all_gather_rows(vals[idx[rank].clamp(max=n - 1)], group)
+    out = vals.new_zeros((n + 1,) + tuple(vals.shape[1:])).index_copy(0, idx.reshape(-1), rows)
+    return out[:n]
+
+
+def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: int):
+    """The JAX package's expert-parallel flow (GShard-style) on the rank at
+    data index ``i`` (flattened over ``daxes``) and model index ``j``:
+
+    1. **dispatch**: the rank routes its ``T/n_data`` tokens (capacity
+       ``capacity(T/n_data)``: drops and ties are per data shard), keeps the
+       slots of its ``E/n_model`` experts and fills their ``[E_loc·C_loc,
+       D]`` input by one fill-mode gather — no collective;
+    2. **expert compute**: the batched SwiGLU of its experts (a view of
+       rows ``j·E_loc…`` of the stacked weights);
+    3. **combine**: its slots read back by one clip-mode gather and
+       gate-mixed, its own slots' rows gathered over ``model`` into place
+       (:func:`_own_rows`: the EP combine's collective), then summed per
+       token by the segment sum, and the data shards' rows gathered whole.
+       JAX psums each rank's per-token partial ``[T/n_data, D]``, added in
+       the input dtype; the port moves the weighted rows ``[T/n_data·k,
+       D]`` (up to k/2× the bytes), so that each token's k rows are added
+       in float32 and rounded once, as on one rank: expert-parallel output
+       equals the one-rank output bit for bit at ``n_data`` 1. (A psum of
+       each rank's float32 partial, rounded once, reorders the adds: on an
+       H100 it moved deepseek-moe-16b's decode logits 5.3 % of max|logit|
+       off the one-rank serve.)
+
+    ``aux`` is the balance loss of each data shard, pmean'd over the data
+    axes. ``x`` and the parameters are replicated inputs (each rank holds
+    them whole): their gradients sum over the ranks; the shared experts run
+    on every rank over all tokens, as JAX runs them outside the region.
+    Returns the replicated ``(y [T, D], aux)``.
+    """
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+
+    t, d = x.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    e_loc, t_loc = e // n_model, t // n_data
+    cap_loc = capacity(t_loc, mcfg)
+    world = shd.axis_group(mesh, mesh.axis_names)
+    g_data = shd.axis_group(mesh, daxes)
+    g_model = shd.axis_group(mesh, ("model",))
+    i = torch.distributed.get_rank(g_data) if n_data > 1 else 0
+    j = torch.distributed.get_rank(g_model) if n_model > 1 else 0
+    x_loc = coll.copy_in(x, world)[i * t_loc:(i + 1) * t_loc]
+
+    expert_idx, gate, aux = route(x_loc, coll.copy_in(params["router"], world), mcfg)
+    pos, keep = dispatch_indices(expert_idx, e, cap_loc)
+    moe_ffn.slots += keep.numel()
+    moe_ffn.dropped = moe_ffn.dropped + (keep.numel() - keep.sum())
+    e_local = expert_idx.reshape(-1) - j * e_loc  # [T_loc·k]
+    mine = (e_local >= 0) & (e_local < e_loc) & keep
+    n_slots = e_loc * cap_loc
+    slot = torch.where(mine, e_local * cap_loc + pos, n_slots)
+    dev = x.device
+    token_id = torch.arange(t_loc, dtype=torch.int32, device=dev)[:, None].expand(
+        t_loc, k).reshape(-1)
+    w1, w3, w2 = (coll.copy_in(params[w], world)[j * e_loc:(j + 1) * e_loc]
+                  for w in ("w1", "w3", "w2"))
+    expert_in = dispatch(x_loc, slot, token_id, n_slots).reshape(e_loc, cap_loc, d)
+    out_slots = _experts(expert_in, w1, w3, w2)
+    del expert_in
+
+    vals = graph_ops.gather(out_slots, slot.clamp(max=n_slots - 1))  # [T_loc·k, D]
+    del out_slots
+    weight = (gate.reshape(-1) * mine).to(x.dtype)[:, None]
+    vals = vals * weight if vals.requires_grad or weight.requires_grad else vals.mul_(weight)
+    if n_model > 1:  # the EP combine
+        owner = torch.where(keep, expert_idx.reshape(-1).long() // e_loc, n_model)
+        vals = _own_rows(vals, owner, j, g_model)
+    offsets = torch.arange(0, k * (t_loc + 1), k, dtype=torch.int32, device=dev)
+    y = graph_ops.segment_reduce(vals, token_id, t_loc, "sum", offsets=offsets)
+    if n_data > 1:
+        y = coll.all_gather_rows(y, g_data)
+    # every rank holds its data shard's aux; JAX hands each rank the
+    # replicated pmean's cotangent divided over all the ranks
+    aux = coll.pmean(aux, g_data, 1.0 / (n_data * n_model))
 
     if "shared" in params:
         sh = params["shared"]

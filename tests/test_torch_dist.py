@@ -8,8 +8,9 @@
   full-size parameters;
 * ``_maybe`` never emits an indivisible entry, and keeps every entry that
   divides (the property of tests/test_dist_extra.py);
-* ``constrain`` returns its input with no mesh and on one rank, and raises
-  on more (the models on the mesh are not ported);
+* ``constrain`` returns its input with no mesh, on one rank, and for a
+  plain tensor (every rank's global value) on a mesh of more ranks (the
+  models on the mesh: tests/test_torch_mesh.py);
 * the checkpoint's spec-cleaning rule (``checkpoint.clean_spec``) on hand
   cases taken from ``repro.checkpoint.checkpoint.restore_checkpoint``, and
   against JAX's restore on a one-device mesh; JAX's ``KeyError`` for an
@@ -232,8 +233,7 @@ def test_constrain_without_a_mesh_or_on_one_rank():
     try:
         assert tshd.constrain(x, (tshd.ALL, None)) is x
         tshd.activate(tmesh.make_mesh((2, 2), ("data", "model"), device="cpu"))
-        with pytest.raises(NotImplementedError):
-            tshd.constrain(x, (tshd.BATCH, None))
+        assert tshd.constrain(x, (tshd.BATCH, None)) is x
     finally:
         tshd.deactivate()
     assert tshd.active_mesh() is None
