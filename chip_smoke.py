@@ -222,6 +222,23 @@ on the first thing that is wrong:
    references included, and prints no result line; ``--mesh-probe``
    compares graphcast on the mesh with one rank layer by layer, in bf16
    and in f32, and prints no result line).
+10. runs the four ``examples/torch_*.py`` on the card through the
+   functions they expose, each one's assertions held (``example`` lines),
+   then the dry-run phase: ``flash_attention``'s Python route rule (which
+   the kernels' fake route takes) against the built libraries' own for
+   every D of 1..128 in f32 and bf16, and every cell of
+   ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors
+   (``dryrun_cell`` lines: fits against the card's memory, peak GB,
+   bottleneck). Throughout the run, each step that a phase also runs for
+   real — the h2o-danube and deepseek-moe prefill and decode step, the
+   four GNN forwards and the minibatch, AutoInt's three serve shapes, the
+   four training steps — is dry-run at that phase's shapes and run twice
+   more (:func:`dry_vs_card`): its launches per route must equal the
+   card's, its predicted peak be within ``DRY_PEAK_TOL`` of the card's,
+   and a ``dryrun_vs_card`` line prints both beside the predicted step
+   lower bound, the warm time and ``mfu`` (``--dryrun-only`` runs the
+   build, the examples, the h2o-danube serve, a gat-cora forward, AutoInt's
+   serve, three trainers and the dry-run phase, and prints no result line).
 
 Each path's launch counters are set to 0 just before it is driven and read
 just after. Every number is printed beside the card's name and power
@@ -1522,6 +1539,7 @@ def gnn_serve(arch, cfg, batch, seed, device, card, keep=None):
     graph kernels' wrappers pointed at their plain versions, held to
     ``GNN_TOL``. Returns the launches of one forward; into ``keep`` (a
     dict) go the weights, the output and the warm ms, for the mesh phase."""
+    from repro_torch.launch import dryrun
     from repro_torch.models.gnn import models as gm
 
     n, e = batch["x"].shape[0], batch["src"].shape[0]
@@ -1568,9 +1586,12 @@ def gnn_serve(arch, cfg, batch, seed, device, card, keep=None):
         plain_check_peak_allocated_gb=plain_peak, launches=launches,
         versus_plain_max_abs_diff=err, max_abs_out=scale, check=check,
         argmax_agree_share=agree)
+    del ref
+    dry_vs_card(f"{arch} forward", lambda p, b: gm.forward(p, b, cfg), (params, batch), device,
+                card, dryrun.gnn_model_flops(cfg, n, e) / 3)
     if keep is not None:  # the output in host memory: kept on the card it splits the cache
         keep.update(params=params, want=out.cpu(), one_rank_ms=warm_s * 1e3)
-    del params, out, ref
+    del params, out
     return launches
 
 
@@ -1635,6 +1656,7 @@ def minibatch_serve(cfg, graph, feats, labels, batch_nodes, n_batches, seed, dev
     hop-1 feature read, ``(features + sentinel row, flat neighbour ids)``."""
     from repro_torch.data import gnn_minibatches
     from repro_torch.graph.sampler import CSR, sample_khop
+    from repro_torch.launch import dryrun
     from repro_torch.models.gnn import models as gm
 
     params = gm.init(cfg, seed=seed, device=device)
@@ -1689,6 +1711,9 @@ def minibatch_serve(cfg, graph, feats, labels, batch_nodes, n_batches, seed, dev
         peak_allocated_gb=peak, launches=launches, checked_pairs=pairs,
         mask_share_per_hop=masked, check_s=time.perf_counter() - t0,
         versus="float64 numpy forward, rtol 1e-5")
+    dry_vs_card(f"{cfg.name} minibatch forward",
+                lambda p, b: gm.sage_minibatch_forward(p, b, cfg), (params, first), device, card,
+                dryrun.gnn_model_flops(cfg, *block_graph(batch_nodes, cfg.fanouts)) / 3)
     return launches, (ext, blocks[1].neighbors.reshape(-1))
 
 
@@ -2400,7 +2425,9 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
         greedy_checked=int(decided.sum().item()),
         greedy_agree_all=int(agree.sum().item()),
     )
-    del ref, got_l, diff, params
+    del ref, got_l, diff
+    lm_dry_vs_card(params, cfg, prompts, res, prompt_len, steps, batch, device, card)
+    del params
     return {"launches": launches_tc, "q": q, "k": k, "v": v, "window": cfg.swa_window,
             "scale": scale, "max_abs_err": err}
 
@@ -2669,6 +2696,7 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
     say("moe_teacher_forced", card, checked=True, **served)
     if not served["within_limit"]:
         raise AssertionError(f"moe decode against the teacher-forced prefill: {served}")
+    lm_dry_vs_card(params, cfg, prompts, res, prompt_len, steps, batch, device, card)
     if one_rank is not None:
         one_rank.update(params=params, prompts=prompts, serve=res, counts=serve_counts)
     del params
@@ -2942,6 +2970,7 @@ def autoint_path(cfg, shapes, seed, device, card):
     ``repro_torch.models.recsys.autoint`` with float64 numpy oracles."""
     from repro_torch.data import recsys_batches
     from repro_torch.kernels import embedding_bag
+    from repro_torch.launch import dryrun
     from repro_torch.models.recsys import autoint as ai
 
     sync(device)
@@ -3018,6 +3047,13 @@ def autoint_path(cfg, shapes, seed, device, card):
         retrieval_exact_ids=bool(np.array_equal(got_ids, order[:100])),
         top100_min_gap=float(np.min(-np.diff(all_scores[order]))),
     )
+    for name in ("serve_p99", "serve_bulk"):
+        dry_vs_card(f"{cfg.name} {name}", lambda p, b: ai.forward(p, b, cfg),
+                    (params, batches[name]), device, card,
+                    dryrun.recsys_model_flops(cfg, shapes[name]))
+    dry_vs_card(f"{cfg.name} retrieval_cand",
+                lambda p, b: ai.retrieval_score(p, b, cfg, top_k=100), (params, retr), device,
+                card, dryrun.recsys_model_flops(cfg, shapes["retrieval_cand"]))
     f, v, d = params["tables"].shape
     flat_idx = (batches["serve_bulk"]["fields"]
                 + torch.arange(f, dtype=torch.int32, device=device) * v).reshape(-1, 1)
@@ -3420,7 +3456,7 @@ def check_backward_kernels(device, gen, flash_only=False):
 
 
 def train_run(name, cfg_dtype, params, loss_fn, batches, items, unit, want, device, card,
-              lr=TRAIN_LR):
+              lr=TRAIN_LR, model_flops=None):
     """``TRAIN_STEPS`` steps of ``launch.train.make_step`` (AdamW, the
     cosine schedule) on ``batches(i)``: (c) first step 0's loss and global
     gradient norm with the kernels against the same with every kernel's
@@ -3430,7 +3466,9 @@ def train_run(name, cfg_dtype, params, loss_fn, batches, items, unit, want, devi
     the loss of step 0's batch after the steps below its loss before them
     (the batches differ from step to step, so the last step's loss alone
     says little); then one more step under the profiler. Prints a
-    ``train`` line."""
+    ``train`` line, then the dry-run of the step on ``batches(0)`` against
+    two more (:func:`dry_vs_card`, with ``model_flops``)."""
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as tr
     from repro_torch.optim import AdamWConfig, adamw_init, global_norm
 
@@ -3485,6 +3523,9 @@ def train_run(name, cfg_dtype, params, loss_fn, batches, items, unit, want, devi
         step0={"loss": loss_k, "loss_plain": loss_p, "grad_norm": norm_k,
                "grad_norm_plain": norm_p, "tol": tol, "check_s": check_s,
                "loss_after_steps": after})
+    dry_vs_card(f"{name} train step",
+                dryrun.train_step(loss_fn, oc, warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
+                (params, state["opt"], batches(0)), device, card, model_flops)
     del state
     return launches
 
@@ -3498,10 +3539,11 @@ def train_path(minibatch, seed, device, card, reduced=False):
     sampled minibatches of the GNN phase's Reddit-sized graph (``minibatch``: cfg, graph, features,
     labels, seeds a batch; drawn before the steps); AutoInt on
     ``RECSYS_SHAPES``' ``train_batch`` (65,536 rows). ``reduced`` takes the
-    reduced configs at small batches: a CPU rehearsal. Returns each
-    model's launches."""
+    reduced configs at small batches: a CPU rehearsal; ``minibatch`` None
+    leaves graphsage-reddit out. Returns each model's launches."""
     from repro_torch import configs
     from repro_torch.data import gnn_full_batch, gnn_minibatches
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as tr
     from repro_torch.models import common
     from repro_torch.models.gnn import models as gm
@@ -3516,7 +3558,7 @@ def train_path(minibatch, seed, device, card, reduced=False):
         "h2o-danube-1.8b", cfg.compute_dtype, params, loss_fn, batches, lm_b * lm_s,
         "tokens", {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
                    "flash_attention_bwd": n, "flash_attention_bwd_tc": n}, device, card,
-        lr=LM_TRAIN_LR)
+        lr=LM_TRAIN_LR, model_flops=dryrun.lm_model_flops(cfg, lm_shape("train", lm_s, lm_b)))
     del params, loss_fn, batches
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3552,19 +3594,22 @@ def train_path(minibatch, seed, device, card, reduced=False):
                   "segment_reduce_bwd_sum": 2 * cfg.n_layers,
                   "segment_reduce_bwd_ties": cfg.n_layers,
                   "gather_rows_backward": 5 * cfg.n_layers,
-                  "segment_reduce_backward": 3 * cfg.n_layers}, device, card)
+                  "segment_reduce_backward": 3 * cfg.n_layers}, device, card,
+        model_flops=dryrun.gnn_model_flops(cfg, fb["x"].shape[0], fb["src"].shape[0]))
     del params, fb
 
-    mcfg, graph, feats, labels, batch_nodes = minibatch
-    params = common.trainable(gm.init(mcfg, seed, device))
-    data = gnn_minibatches(graph, feats, labels, batch_nodes, mcfg.fanouts,
-                           torch.Generator(device=device).manual_seed(seed))
-    mbs = [next(data) for _ in range(TRAIN_STEPS + 1)]
-    out["graphsage-reddit"] = train_run(
-        "graphsage-reddit minibatch", mcfg.compute_dtype, params,
-        lambda p, b: gm.sage_minibatch_loss(p, b, mcfg), lambda i: mbs[i], batch_nodes,
-        "seeds", {}, device, card)
-    del params, mbs, data
+    if minibatch is not None:
+        mcfg, graph, feats, labels, batch_nodes = minibatch
+        params = common.trainable(gm.init(mcfg, seed, device))
+        data = gnn_minibatches(graph, feats, labels, batch_nodes, mcfg.fanouts,
+                               torch.Generator(device=device).manual_seed(seed))
+        mbs = [next(data) for _ in range(TRAIN_STEPS + 1)]
+        out["graphsage-reddit"] = train_run(
+            "graphsage-reddit minibatch", mcfg.compute_dtype, params,
+            lambda p, b: gm.sage_minibatch_loss(p, b, mcfg), lambda i: mbs[i], batch_nodes,
+            "seeds", {}, device, card, model_flops=dryrun.gnn_model_flops(
+                mcfg, *block_graph(batch_nodes, mcfg.fanouts)))
+        del params, mbs, data
 
     _, cfg, params, loss_fn, batches = tr.build("autoint", reduced, 64 if reduced else 65_536,
                                                 0, seed, device)
@@ -3572,7 +3617,9 @@ def train_path(minibatch, seed, device, card, reduced=False):
         "autoint", cfg.param_dtype, params, loss_fn, batches,
         batches(0)["fields"].shape[0], "rows",
         {"embedding_bag": 1, "embedding_bag_vec": 1, "scatter_rows": 1,
-         "embedding_bag_backward": 1}, device, card)
+         "embedding_bag_backward": 1}, device, card,
+        model_flops=dryrun.recsys_model_flops(cfg, {"kind": "train",
+                                                    "batch": batches(0)["fields"].shape[0]}))
     del params, loss_fn, batches
     say("train_phase", card, seconds=time.perf_counter() - t_phase)
     return out
@@ -4634,6 +4681,240 @@ def mesh_train(seed, device, card, reduced=False):
     return total
 
 
+
+# -- 10. the examples and the dry-run against the card ------------------------
+
+#: the dry-run's predicted peak against the card's: within REL · card + ABS GB
+#: (PERF.md states it with the measured gaps)
+DRY_PEAK_TOL = (0.10, 0.25)
+#: every ``dryrun_vs_card`` line of this run
+DRY_CELLS = []
+#: the archs whose every cell the dry-run phase traces at full width (the
+#: CLI's ``--all`` takes minutes: qwen3-moe-235b's train step alone ~4.5)
+DRY_FULL_ARCHS = ("h2o-danube-1.8b", "pna", "graphsage-reddit", "graphcast", "gat-cora",
+                  "autoint")
+
+
+def dry_vs_card(cell, fn, args, device, card, model_flops=None):
+    """Dry-runs ``fn(*args)`` (``launch.dryrun.trace`` on fake twins of
+    ``args``), then runs it twice for real: the first run's launches per
+    route and its peak — ``max_memory_allocated`` after a reset, less what
+    was allocated before the step, plus the step's arguments as the dry-run
+    counts them — the second run's time. Prints a ``dryrun_vs_card`` line
+    with the predicted and the card's launches, peak GB, the predicted step
+    lower bound beside the warm time and ``mfu`` = model flops ÷ (warm s ×
+    989 TFLOP/s). Fails unless the launches are equal and the peak within
+    ``DRY_PEAK_TOL``. On the CPU (a rehearsal) it prints the dry-run alone:
+    there the wrappers take their plain versions."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import HW
+
+    hw = HW.from_card() if device.type == "cuda" else HW()
+    rec = dryrun.trace(fn, dryrun.fake_like(args), hw, 1, model_flops)
+    mem, roof = rec["memory"], rec["roofline"]
+    line = {"cell": cell, "launches_dry": rec["launches"],
+            "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "step_lower_bound_s": roof["step_lower_bound_s"], "bottleneck": roof["bottleneck"],
+            "flops_pred": rec["cost"]["flops_per_device"],
+            "bytes_pred": rec["cost"]["bytes_per_device"], "model_flops": model_flops,
+            "trace_s": rec["trace_s"]}
+    if device.type != "cuda":
+        say("dryrun_vs_card", card, **line, rehearsal=True)
+        return line
+    gc.collect()
+    sync(device)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = dryrun.launch_counts()
+    fn(*args)
+    sync(device)
+    launches = dryrun.launches_between(counts, dryrun.launch_counts())
+    raw_peak = torch.cuda.max_memory_allocated()
+    peak = raw_peak - before + mem["argument_bytes"]
+    t0 = time.perf_counter()
+    fn(*args)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    rel, abs_gb = DRY_PEAK_TOL
+    within = abs(mem["peak_per_device_bytes"] - peak) <= rel * peak + abs_gb * 1e9
+    line.update(launches_card=launches, launches_equal=launches == rec["launches"],
+                peak_gb_card=peak / 1e9, max_memory_allocated_gb=raw_peak / 1e9,
+                allocated_before_gb=before / 1e9, peak_tol=list(DRY_PEAK_TOL),
+                peak_within_tol=within, warm_s=warm_s,
+                mfu=None if model_flops is None else model_flops / (warm_s * hw.peak_flops))
+    say("dryrun_vs_card", card, **line)
+    DRY_CELLS.append(line)
+    if launches != rec["launches"]:
+        raise AssertionError(f"dry-run {cell}: launches {rec['launches']}, card {launches}")
+    if not within:
+        raise AssertionError(f"dry-run {cell}: peak {mem['peak_per_device_bytes'] / 1e9} GB "
+                             f"predicted, {peak / 1e9} GB on the card")
+    return line
+
+
+def lm_shape(kind, seq_len, batch):
+    return {"kind": kind, "seq_len": seq_len, "global_batch": batch}
+
+
+def lm_dry_vs_card(params, cfg, prompts, res, prompt_len, steps, batch, device, card):
+    """:func:`dry_vs_card` of the served LM's prefill and of one decode step
+    on its cache (the step writes the cache in place, as JAX's donates it)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import model as tm
+
+    def prefill(p, t):
+        return tm.prefill(p, t, cfg, capacity=res.capacity, full_logits=False)
+
+    def decode(p, c, t):
+        return tm.decode_step_(p, c, t, cfg), c
+
+    dry_vs_card(f"{cfg.name} prefill", prefill, (params, prompts), device, card,
+                dryrun.lm_model_flops(cfg, lm_shape("prefill", prompt_len, batch)))
+    _, cache = prefill(params, prompts)
+    dry_vs_card(f"{cfg.name} decode step", decode,
+                (params, cache, res.tokens[:, :1].contiguous()), device, card,
+                dryrun.lm_model_flops(cfg, lm_shape("decode", prompt_len + steps, batch)))
+
+
+def block_graph(batch_nodes, fanouts):
+    """A sampled minibatch's seeds and two hops as one block graph."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.gnn_graph_size({"kind": "minibatch", "batch_nodes": batch_nodes,
+                                  "fanouts": tuple(fanouts)})
+
+
+def check_flash_route_rule():
+    """``flash_attention``'s Python route rule (``ops.route``, ``ops.bwd_route``:
+    the dry-run's fake route takes it) against the built libraries' own
+    (``flash_attention_uses_tc``, ``flash_attention_bwd_uses_tc``), for
+    every D of 1..128 in f32 and bf16; returns the cases."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+
+    fwd = build.library("flash_attention").flash_attention_uses_tc
+    bwd = build.library("flash_attention_bwd").flash_attention_bwd_uses_tc
+    for fn in (fwd, bwd):
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    cases = 0
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in range(1, 129):
+            if (ops.route(dtype, d) == "tc") != bool(fwd(code, d)) or \
+                    (ops.bwd_route(dtype, d) == "tc") != bool(bwd(code, d)):
+                raise AssertionError(f"flash route rule: Python and library differ at "
+                                     f"{dtype}, D = {d}")
+            cases += 1
+    return cases
+
+
+def examples_phase(device, card):
+    """The four ``examples/torch_*.py`` on the card through the functions
+    they expose, each one's own assertions held (the interpreter oracle,
+    S-V equal across fused/pull/naive, the trained accuracy past 0.8); one
+    ``example`` line each with its seconds and launches per route."""
+    import importlib.util
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import model as tm
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def serve_lm(mod):
+        cfg = mod.config()
+        prompts = torch.randint(0, cfg.vocab_size, (4, 64),
+                                generator=torch.Generator().manual_seed(1)).to(torch.int32)
+        res = mod.serve(tm.init(cfg, seed=0, device=device), cfg, prompts.to(device), 32)
+        if tuple(res["tokens"].shape) != (4, 33) or res["capacity"] != 32:
+            raise AssertionError(f"serve_lm: tokens {tuple(res['tokens'].shape)}, "
+                                 f"capacity {res['capacity']}")
+        return {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+                "first_stream": res["tokens"][0, :8].tolist()}
+
+    runs = {
+        "torch_quickstart": lambda m: {"trips": m.run(device)["trips"]},
+        "torch_connected_components": lambda m: {
+            k if k == "trips" else f"regime_{k}": v for k, v in m.run(device).items()
+            if k in ("trips", "seconds")},
+        "torch_gnn_cora": lambda m: {"accs": m.train(device, log=lambda line: None)["accs"]},
+        "torch_serve_lm": serve_lm,
+    }
+    t_phase = time.perf_counter()
+    for name, run in runs.items():
+        counts = dryrun.launch_counts()
+        t0 = time.perf_counter()
+        out = run(load(name))
+        sync(device)
+        say("example", card, name=name, ok=True, seconds=time.perf_counter() - t0,
+            launches=dryrun.launches_between(counts, dryrun.launch_counts()), **out)
+    say("examples_phase", card, seconds=time.perf_counter() - t_phase)
+
+
+def dryrun_rehearsal(seed, device, card, lm_batch, prompt_len, decode_steps):
+    """``--dryrun-only``: the examples, then :func:`dry_vs_card` on the
+    h2o-danube-1.8b serve, gat-cora's forward on a scale-18 R-MAT, AutoInt's
+    serve cells and three trainers (h2o-danube, gat-cora, AutoInt), then
+    :func:`dryrun_phase`."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPE_CLASSES
+    from repro_torch.data import gnn_full_batch
+
+    examples_phase(device, card)
+    lm_path(configs.get_spec("h2o-danube-1.8b").config, lm_batch, prompt_len, decode_steps,
+            seed, device, card)
+    torch.cuda.empty_cache()
+    spec = configs.get_spec("gat-cora")
+    cfg = configs.resolve_gnn_config(spec.config, "ogb_products", spec.shapes["ogb_products"])
+    batch = gnn_full_batch(2**18, GNN_AVG_DEGREE["ogb_products"], cfg.d_in,
+                           GNN_SHAPE_CLASSES["ogb_products"], seed=seed, device=device)
+    gnn_serve("gat-cora", cfg, batch, seed, device, card)
+    del batch
+    spec = configs.get_spec("autoint")
+    autoint_path(spec.config, spec.shapes, seed, device, card)
+    torch.cuda.empty_cache()
+    train_path(None, seed, device, card)
+    torch.cuda.empty_cache()
+    dryrun_phase(device, card)
+
+
+def dryrun_phase(device, card):
+    """The flash route rule against the library, then every cell of
+    ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors (fits,
+    peak GB, bottleneck), and a summary of this run's ``dryrun_vs_card``
+    cells."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    say("flash_route_rule", card, ok=True, cases=check_flash_route_rule(),
+        versus="flash_attention_uses_tc, flash_attention_bwd_uses_tc")
+    hw = dryrun.default_hw(device.type)
+    n_ok = 0
+    for arch in DRY_FULL_ARCHS:
+        for shape_id in configs.get_spec(arch).shapes:
+            rec = dryrun.dryrun_cell(arch, shape_id, "card", device.type, hw)
+            if rec["status"] == "failed":
+                raise AssertionError(f"dry-run {arch} {shape_id}: {rec['error']}")
+            n_ok += rec["status"] == "ok"
+            if rec["status"] == "ok":
+                say("dryrun_cell", card, arch=arch, shape=shape_id,
+                    fits=rec["memory"]["fits"],
+                    peak_gb=rec["memory"]["peak_per_device_bytes"] / 1e9,
+                    bottleneck=rec["roofline"]["bottleneck"],
+                    step_lower_bound_s=rec["roofline"]["step_lower_bound_s"],
+                    launches=rec["launches"], trace_s=rec["trace_s"])
+    say("dryrun_phase", card, seconds=time.perf_counter() - t_phase, full_width_ok=n_ok,
+        hbm_gb=hw.hbm_bytes / 1e9, vs_card_cells=len(DRY_CELLS),
+        vs_card_launches_equal=all(c["launches_equal"] for c in DRY_CELLS),
+        vs_card_peak_within_tol=all(c["peak_within_tol"] for c in DRY_CELLS))
+
+
 def _plain_call(fn):
     with plain_kernels():
         return fn()
@@ -4721,6 +5002,9 @@ def main() -> int:
     if "--ckpt-drill" in sys.argv[1:]:  # the checkpoint drill alone: no result line
         ckpt_drill(seed, device, card)
         return 0
+    if "--dryrun-only" in sys.argv[1:]:  # the examples and the dry-run: no result line
+        dryrun_rehearsal(seed, device, card, lm_batch, prompt_len, decode_steps)
+        return 0
     if "--train-only" in sys.argv[1:]:  # a rehearsal of the training phase: no result line
         cases, ratio = check_backward_kernels(device, gen)
         say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
@@ -4782,6 +5066,9 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd"):  # the drill's launches
         row = next(r for r in rows if r["name"] == name and "path" not in r)
         row["launches_ckpt_drill"] = drill[name]
+    torch.cuda.empty_cache()
+    examples_phase(device, card)
+    dryrun_phase(device, card)
     names = {r["name"] for r in rows}
     for name in names:  # the mesh phase's launches, over its ranks
         row = next((r for r in rows if r["name"] == name and "path" not in r), None)

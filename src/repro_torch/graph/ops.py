@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.graph.structure import segment_offsets
 from repro_torch.kernels import autograd as kernel_grad
+from repro_torch.kernels import fake
 from repro_torch.kernels.segment_reduce import ops as segment_kernel
 
 # identity element per combiner, keyed by op name
@@ -137,7 +138,7 @@ def segment_reduce(
         if op == "or":
             return asint.clamp(min=0).to(torch.bool)
         return asint.clamp(max=1).to(torch.bool)
-    if values.device.type == "cuda" and offsets is None:
+    if fake.on_card(values) and offsets is None:
         if not indices_are_sorted:
             raise ValueError(
                 "segment_reduce on the card needs sorted segment ids "

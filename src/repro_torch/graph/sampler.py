@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph import ops as gops
+from repro_torch.models.common import fake_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +129,17 @@ def sample_khop(csr: CSR, seeds: torch.Tensor, fanouts: Sequence[int],
         blocks.append(blk)
         frontier = blk.neighbors.reshape(-1)
     return blocks
+
+
+def sampled_input_shapes(batch_nodes: int, fanouts: Sequence[int], d_feat: int,
+                         device="cuda"):
+    """Fake tensors of a sampled minibatch's features and masks (the JAX
+    package's ``sampled_input_shapes``, for the dry-run)."""
+    shapes = {}
+    b = batch_nodes
+    shapes["seed_feats"] = fake_tensor((b, d_feat), torch.float32, device)
+    for i, f in enumerate(fanouts):
+        shapes[f"hop{i}_feats"] = fake_tensor((b * f, d_feat), torch.float32, device)
+        shapes[f"hop{i}_mask"] = fake_tensor((b, f), torch.bool, device)
+        b = b * f
+    return shapes

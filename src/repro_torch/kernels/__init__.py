@@ -6,6 +6,9 @@ Each kernel package has one ``ops.py`` with three parts:
                     stream and counts its launches (``<wrapper>.launches``);
   the plain version — the same function in plain PyTorch, which the wrapper
                     takes only for tensors on the CPU or the meta device;
+  the fake route  — for the dry-run's fake tensors: the output's shape and
+                    dtype, the launch counted, its bound work recorded
+                    (``kernels.fake``), nothing built;
   a source note   — in the ``.cu`` file: the TPU kernel it replaces, its
                     bound on the card and what its design does about it.
 

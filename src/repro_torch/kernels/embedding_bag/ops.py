@@ -11,8 +11,10 @@ and the weights are then cast to the table's dtype. An index is clipped to
 ``[0, V-1]``, as the JAX package's ``ref.py`` and its model callers read.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device. The
-kernel has two routes, which its C entry chooses and reports: ``vec``
+version is taken only for tensors on the CPU or the meta device, and the
+dry-run's fake tensors take the fake route (``kernels.fake``). The
+kernel has two routes, which its C entry chooses and reports (:func:`route`
+is its rule): ``vec``
 (bags of one slot of rows a multiple of 16 bytes long, from a 16-byte
 aligned table, in 16-byte chunks; AutoInt's lookup) and ``scalar`` (one
 thread per output element, every other bag), counted in
@@ -27,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,6 +57,14 @@ def embedding_bag_plain(table, indices, weights=None, mask=None):
     return rows.sum(dim=1).to(table.dtype)
 
 
+def route(n_hot: int, d: int, dtype: torch.dtype, table_address: int) -> str:
+    """The C entry's route rule (``route`` in csrc/embedding_bag.cu): ``"vec"``
+    for one-slot bags of rows a multiple of 16 bytes from a 16-byte aligned
+    table, else ``"scalar"``."""
+    row_bytes = d * dtype.itemsize
+    return "vec" if n_hot == 1 and row_bytes % 16 == 0 and table_address % 16 == 0 else "scalar"
+
+
 @functools.cache
 def _entry():
     """The C entry point of the kernel's library, typed."""
@@ -71,7 +81,7 @@ def _entry():
 
 def embedding_bag(table, indices, weights=None, mask=None):
     """Bag sums on the card by ``csrc/embedding_bag.cu``; see module."""
-    if table.device.type != "cuda":
+    if not fake.on_card(table):
         return embedding_bag_plain(table, indices, weights, mask)
     if table.ndim != 2 or table.dtype not in _DTYPE_CODE:
         raise TypeError(f"table must be float32/bfloat16 [V, D], got "
@@ -97,6 +107,13 @@ def embedding_bag(table, indices, weights=None, mask=None):
     out = torch.empty((b, table.shape[1]), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
+    if fake.is_fake(table):  # the allocation is aligned; a view adds its offset
+        took = route(h, table.shape[1], table.dtype,
+                     table.storage_offset() * table.element_size())
+        rows = fake.distinct_rows(b * h, table.shape[0])
+        fake.record("embedding_bag", rows * table.shape[1] * table.element_size()
+                    + fake.nbytes(indices, w, out))
+        return _count(took, out)
     took = ctypes.c_int(-1)
     rc = _entry()(
         table.device.index or 0, table.data_ptr(), indices.data_ptr(),
@@ -106,8 +123,12 @@ def embedding_bag(table, indices, weights=None, mask=None):
     )
     if rc != 0:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {rc}")
+    return _count("vec" if took.value == 0 else "scalar", out)
+
+
+def _count(took: str, out):
     embedding_bag.launches += 1
-    if took.value == 0:
+    if took == "vec":
         embedding_bag.launches_vec += 1
     else:
         embedding_bag.launches_scalar += 1

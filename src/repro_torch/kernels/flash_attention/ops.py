@@ -18,7 +18,9 @@ The TPU kernel keeps its scores in f32 (``preferred_element_type``), so
 the default is ``False``; the port's model path sets it.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device. The
+version is taken only for tensors on the CPU or the meta device, and the
+dry-run's fake tensors take the fake route (``kernels.fake``: kept pairs
+× 4·D flops, × 10·D for the backward). The
 kernel has two routes, chosen by :func:`route` from dtype and D alone:
 bf16 with D % 8 == 0 runs on the tensor cores (TMA + ``wgmma``, counted in
 ``flash_attention.launches_tc``), everything else on the f32 units
@@ -47,7 +49,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the SIMT kernel's query tile and the grid's limit on tiles
@@ -336,14 +338,21 @@ def _check(q, k, v):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k and v")
-    if route(q.dtype, d) == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if (route(q.dtype, d) == "tc" and not fake.is_fake(q)
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
+
+
+def _pair_flops(q, k, causal, window, per_pair: int) -> int:
+    """``per_pair · D`` flops for every kept (query, key) pair of every head."""
+    b, h, sq, d = q.shape
+    return fake.kept_pairs(sq, k.shape[2], causal, window) * b * h * per_pair * d
 
 
 def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=False,
                     round_scores=False):
     """Attention on the card by ``csrc/flash_attention.cu``; see module."""
-    if q.device.type != "cuda":
+    if not fake.on_card(q):
         return flash_attention_plain(q, k, v, causal, window, scale, return_lse,
                                      round_scores)
     _check(q, k, v)
@@ -353,6 +362,10 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=Fal
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
+    if fake.is_fake(q):
+        fake.record("flash_attention", fake.nbytes(q, k, v, out, lse),
+                    _pair_flops(q, k, causal, window, 4))
+        return _count_fwd(q, out, lse, return_lse)
     rc = _entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -363,8 +376,12 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=Fal
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    return _count_fwd(q, out, lse, return_lse)
+
+
+def _count_fwd(q, out, lse, return_lse):
     flash_attention.launches += 1
-    if route(q.dtype, d) == "tc":
+    if route(q.dtype, q.shape[3]) == "tc":
         flash_attention.launches_tc += 1
     else:
         flash_attention.launches_simt += 1
@@ -385,7 +402,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
     D]``. The tensor-core route takes its scratch from ``torch.empty``:
     an f32 dQ accumulator ``[B·H, ⌈Sq/64⌉, 64, D rounded up to 16]`` (168
     MB at h2o-danube's training shape) beside f32 rows and int32 counters."""
-    if q.device.type != "cuda":
+    if not fake.on_card(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, window, scale,
                                          round_scores)
     _check(q, k, v)
@@ -401,6 +418,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
     if -(-k.shape[2] // _BLOCK_Q) > _MAX_Q_TILES:
         raise ValueError(f"Sk = {k.shape[2]} exceeds the kernel's grid")
     tc = bwd_route(q.dtype, d) == "tc"
+    if fake.is_fake(q):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        fake.record("flash_attention_bwd", fake.nbytes(q, k, v, out, lse, dout, dq, dk, dv),
+                    _pair_flops(q, k, causal, window, 10))
+        return _count_bwd(tc, dq, dk, dv)
     if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("the backward's tensor-core route needs q, k, v and dout "
                          "16-byte aligned")
@@ -425,6 +447,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    return _count_bwd(tc, dq, dk, dv)
+
+
+def _count_bwd(tc: bool, dq, dk, dv):
     flash_attention_bwd.launches += 1
     if tc:
         flash_attention_bwd.launches_tc += 1

@@ -10,7 +10,8 @@ a table ``[V, ...]`` of 1-, 2- or 4-byte elements and int32 indices ``[N]``:
   ``jnp.take(mode="fill")`` does.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device. The
+version is taken only for tensors on the CPU or the meta device, and the
+dry-run's fake tensors take the fake route (``kernels.fake``). The
 kernel has two routes, chosen by row length alone (:func:`route`):
 ``"vec"`` (rows of one element, a warp over 32 neighbouring outputs) and
 ``"scalar"`` (wider rows, a group of lanes a row, copied in the widest
@@ -30,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor, fill=None):
@@ -129,7 +130,7 @@ def _launch(table, idx, out, row_len, mode, fill_bits):
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
     """``table[idx]`` on the card by ``csrc/gather_rows.cu``; see module."""
-    if table.device.type != "cuda":
+    if not fake.on_card(table):
         return gather_rows_plain(table, idx, fill)
     if idx.device != table.device:
         raise ValueError(f"idx on {idx.device}, table on {table.device}")
@@ -150,8 +151,14 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fill=None):
     if out.numel() == 0:
         return out
     row_len = math.prod(table.shape[1:])
-    gather_rows.last_access_bytes = _launch(
-        table, idx, out, row_len, 0 if fill is None else 1, _fill_bits(fill, table.dtype))
+    if fake.is_fake(table):
+        rows = table.shape[0] if route(row_len) == "vec" else fake.distinct_rows(
+            idx.shape[0], table.shape[0])
+        fake.record("gather_rows",
+                    rows * row_len * table.element_size() + fake.nbytes(idx, out))
+    else:
+        gather_rows.last_access_bytes = _launch(
+            table, idx, out, row_len, 0 if fill is None else 1, _fill_bits(fill, table.dtype))
     gather_rows.launches += 1
     if route(row_len) == "vec":
         gather_rows.launches_vec += 1

@@ -15,7 +15,8 @@ num_rows)`` are dropped; a row that no id names is 0. f32 and bf16 sum in
 f32 and round once.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device. The C
+version is taken only for tensors on the CPU or the meta device, and the
+dry-run's fake tensors take the fake route (``kernels.fake``). The C
 entry plans the launch (:func:`plan`: the access width, 16 bytes where the
 row and both base addresses allow it, and the positions a tile), the
 wrapper sizes the scratch by that plan, and the launch is counted in
@@ -30,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,7 +103,7 @@ def scatter_rows(sorted_rows: torch.Tensor, perm: torch.Tensor, values: torch.Te
                  num_rows: int, w=None, h: int = 1) -> torch.Tensor:
     """The reduce-by-key on the card by ``csrc/scatter_rows.cu``; see
     module."""
-    if values.device.type != "cuda":
+    if not fake.on_card(values):
         return scatter_rows_plain(sorted_rows, perm, values, num_rows, w, h)
     if values.dtype not in _DTYPE_CODE:
         raise TypeError(f"scatter_rows takes f32 or bf16 values, got {values.dtype}")
@@ -123,7 +124,10 @@ def scatter_rows(sorted_rows: torch.Tensor, perm: torch.Tensor, values: torch.Te
                       device=values.device)
     if out.numel() == 0:
         return out
-    _launch(sorted_rows, perm, values, w, out, h, math.prod(values.shape[1:]))
+    if fake.is_fake(values):
+        fake.record("scatter_rows", fake.nbytes(sorted_rows, perm, values, w, out))
+    else:
+        _launch(sorted_rows, perm, values, w, out, h, math.prod(values.shape[1:]))
     scatter_rows.launches += 1
     return out
 

@@ -13,7 +13,8 @@ Masked rows contribute the identity; an empty segment gets the identity
 return the input dtype; int32 sums wrap.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version is taken only for tensors on the CPU or the meta device. The
+version is taken only for tensors on the CPU or the meta device, and the
+dry-run's fake tensors take the fake route (``kernels.fake``). The
 kernel has two routes, by width alone (:func:`route`), both merge-path
 tiles over the rows and the segment ends: rows of one element (the message
 combiner's) take tiles of one chunk, counted in
@@ -45,7 +46,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.gather_rows.ops import gather_rows_plain
 
 OPS = ("sum", "prod", "min", "max", "or", "and")
@@ -201,7 +202,7 @@ def segment_reduce(
     """Segment reduction on the card by ``csrc/segment_reduce.cu``; see
     module. On the card ``segment_ids`` is not read: ``offsets`` carry the
     segmentation and must agree with the ids."""
-    if values.device.type != "cuda":
+    if not fake.on_card(values):
         return segment_reduce_plain(
             values, segment_ids, num_segments, op, mask, offsets
         )
@@ -230,7 +231,10 @@ def segment_reduce(
     if out.numel() == 0:
         return out
     width = math.prod(values.shape[1:])
-    _launch(values, mask, offsets, out, op, width)
+    if fake.is_fake(values):
+        fake.record("segment_reduce", fake.nbytes(values, mask, offsets, out))
+    else:
+        _launch(values, mask, offsets, out, op, width)
     segment_reduce.launches += 1
     if route(width) == "rows":
         segment_reduce.launches_rows += 1
@@ -322,7 +326,7 @@ def segment_reduce_bwd(g, values, out, segment_ids, num_segments: int, op: str, 
     """The values' gradient on the card by ``csrc/segment_reduce_bwd.cu``;
     see module. On the card ``segment_ids`` give only the row count:
     ``offsets`` carry the segmentation, as for the forward."""
-    if g.device.type != "cuda":
+    if not fake.on_card(g):
         return segment_reduce_bwd_plain(g, values, out, segment_ids, num_segments, op, mask,
                                         offsets)
     _no_gradient(op)
@@ -348,7 +352,11 @@ def segment_reduce_bwd(g, values, out, segment_ids, num_segments: int, op: str, 
     dv = torch.empty(shape, dtype=g.dtype, device=g.device)
     if dv.numel() == 0:
         return dv
-    _bwd_launch(g, values, out, offsets, mask, dv, op)
+    if fake.is_fake(g):
+        read = (values, out) if op != "sum" else ()
+        fake.record("segment_reduce_bwd", fake.nbytes(g, offsets, mask, dv, *read))
+    else:
+        _bwd_launch(g, values, out, offsets, mask, dv, op)
     segment_reduce_bwd.launches += 1
     if op == "sum":
         segment_reduce_bwd.launches_sum += 1

@@ -161,15 +161,41 @@ def value_and_grad(loss_fn: Callable, params, batch):
     }
 
 
-def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group=None):
+def accumulate(loss_fn: Callable, params, batch, micro: int):
+    """``(loss, grads)`` over ``micro`` microbatches of ``batch``'s rows, as
+    the JAX dry-run accumulates them: each microbatch's loss and gradient
+    divided by ``micro`` and summed, bf16 leaves in bf16, others in f32."""
+    rows = next(iter(batch.values())).shape[0] // micro
+    loss, g = 0.0, None
+    for i in range(micro):
+        li, gi = value_and_grad(loss_fn, params,
+                                {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})
+        if g is None:
+            g = {k: torch.zeros(v.shape, device=v.device, dtype=torch.bfloat16
+                                if v.dtype == torch.bfloat16 else torch.float32)
+                 for k, v in gi.items()}
+        for k, v in gi.items():
+            g[k].add_(v / micro)
+        del gi
+        loss = loss + li / micro
+    return loss, g
+
+
+def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group=None,
+              micro: int = 1):
     """The JAX ``step_fn``: ``step(state, batch) -> (state, {"loss"})`` with
     ``state = {"params", "opt"}``, both updated in place. With ``group``
     (:func:`data_parallel`'s) ``batch`` is this rank's share, and the loss
-    and gradients are averaged over the group's ranks in float32."""
+    and gradients are averaged over the group's ranks in float32. With
+    ``micro`` > 1 the gradients are accumulated over that many microbatches
+    (:func:`accumulate`; the dry-run's largest train cells)."""
 
     def step(state: Dict[str, Any], batch) -> tuple:
         p, o = state["params"], state["opt"]
-        loss, g = value_and_grad(loss_fn, p, batch)
+        if micro == 1:
+            loss, g = value_and_grad(loss_fn, p, batch)
+        else:
+            loss, g = accumulate(loss_fn, p, batch, micro)
         if group is not None:
             n = dist.get_world_size(group)
             loss = coll.psum(loss.float(), group) / n

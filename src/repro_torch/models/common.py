@@ -8,7 +8,9 @@ scan, and PyTorch runs each layer eagerly, with no such pass.
 The models call ``dist.sharding.constrain`` where the JAX models do;
 this module, as JAX's, calls none.
 Random initialisers draw from an explicit ``torch.Generator``, whose device
-is where the parameters are made.
+is where the parameters are made. :func:`abstract_like` runs one under
+``FakeTensorMode`` (the dry-run's parameters: shapes and dtypes, nothing
+allocated) and :func:`count_params` counts a tree's elements.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 
 def dense_init(
@@ -102,3 +106,65 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (
         logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
     ).mean()
+
+
+def fake_mode(tensors=None) -> FakeTensorMode:
+    """The active ``FakeTensorMode`` (the dry-run's), else the one the fake
+    ``tensors`` (a list) belong to, else a new one."""
+    return detect_fake_mode(tensors) or FakeTensorMode()
+
+
+def fake_tensor(shape, dtype, device="cuda") -> torch.Tensor:
+    """A fake tensor of ``shape`` and ``dtype`` on ``device`` in
+    :func:`fake_mode`: a dry-run spec, with no memory behind it."""
+    with fake_mode():
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def map_tensors(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """``tree`` with ``fn`` applied to every tensor leaf, in the same nesting
+    of dicts, lists and tuples (``None`` stays); a module is rebuilt by its
+    own ``map_tensors(fn)``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if hasattr(tree, "map_tensors"):
+        return tree.map_tensors(fn)
+    if isinstance(tree, Mapping):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def abstract_like(init_fn: Callable, *args, device="cuda", **kwargs) -> Any:
+    """The tree ``init_fn(*args, **kwargs)`` makes, with nothing allocated:
+    the initialiser runs on the CPU under :func:`fake_mode` (its draws read
+    no bits) and each leaf becomes a fake tensor on ``device`` of the same
+    shape, dtype and ``requires_grad``. ``init_fn`` takes ``device=``."""
+    with fake_mode():
+        tree = init_fn(*args, device="cpu", **kwargs)
+        if torch.device(device).type == "cpu":
+            return tree
+
+        def move(t):
+            out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=device)
+            return out.requires_grad_(t.requires_grad)
+
+        return map_tensors(tree, move)
+
+
+def count_params(tree: Any) -> int:
+    """The elements of every tensor leaf of ``tree`` (a module's parameters)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, Mapping):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return 0

@@ -1,7 +1,7 @@
 """GNN models: init, forward and loss for the four assigned architectures.
 
-The JAX package's ``repro.models.gnn.models`` on torch tensors
-(``abstract_params`` / ``input_specs`` come with ROADMAP A10). ``forward``,
+The JAX package's ``repro.models.gnn.models`` on torch tensors, with the
+dry-run's ``abstract_params`` / ``input_specs`` (fake tensors). ``forward``,
 ``loss_fn`` (every task branch) and ``sage_minibatch_loss`` carry
 gradients through ``graph.ops`` (``kernels.autograd``) wherever the
 parameters require them; serving calls them with frozen parameters or
@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.dist.sharding import ALL, constrain
 from repro_torch.graph import ops as gops
 from repro_torch.graph.structure import resolve_device, segment_offsets
+from repro_torch.kernels import fake
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 from repro_torch.models.gnn import layers as L
@@ -110,6 +111,12 @@ def params_from_arrays(cfg: GNNConfig, tree: Mapping[str, Any], device="cuda",
     return common.trainable(tree) if trainable else tree
 
 
+def abstract_params(cfg: GNNConfig, device="cuda") -> Dict[str, Any]:
+    """:func:`init`'s parameters as fake tensors on ``device``
+    (``models.common.abstract_like``): shapes and dtypes, nothing allocated."""
+    return common.abstract_like(init, cfg, device=device)
+
+
 def _cast(params, dtype):
     """Every float32 leaf cast to the compute dtype (else bf16 activations
     would promote back to f32), as the JAX forward casts."""
@@ -128,7 +135,11 @@ def _layer(stacked: Mapping[str, torch.Tensor], i: int) -> Dict[str, torch.Tenso
 def dst_offsets(dst: torch.Tensor, n: int) -> Optional[torch.Tensor]:
     """The segment offsets ``i32[n + 1]`` of a batch's ``dst``, after one
     check that it is ascending. Unsorted ids raise on the card; on the CPU
-    they give ``None`` (the plain versions read the ids)."""
+    they give ``None`` (the plain versions read the ids). The dry-run's
+    fake ids have no values to check: its batches are the pipeline's, in
+    the graph's pull ordering (``input_specs``), so they count as ascending."""
+    if fake.is_fake(dst):
+        return segment_offsets(dst.to(torch.int32), n)
     ascending = bool((dst[1:] >= dst[:-1]).all()) if dst.numel() > 1 else True
     if not ascending:
         if dst.device.type == "cuda":
@@ -281,3 +292,55 @@ def sage_minibatch_loss(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """Cross-entropy of the sampled two-hop forward at the seeds."""
     logits = sage_minibatch_forward(params, batch, cfg)
     return common.softmax_cross_entropy(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs
+
+
+def input_specs(cfg: GNNConfig, shape_kind: str, device="cuda", **dims) -> Dict[str, Any]:
+    """Fake tensors of a batch (the JAX package's ``input_specs``, its keys,
+    shapes and dtypes), which are also what ``data.pipeline`` yields:
+    ``full_graph`` {x f32 [N, d], src/dst i32 [E], emask bool [E], labels
+    (i32 [N], or f32 [N, n_out] for regression), lmask f32 [N]};
+    ``minibatch`` the sampled blocks of ``gnn_minibatches``;
+    ``batched_graphs`` B graphs as one with ``graph_id`` i32 [B·N]. A fake
+    ``dst`` (and ``graph_id``) has no values: the forward takes it as
+    ascending, the pipeline's pull ordering (:func:`dst_offsets`)."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+
+    def spec(shape, dtype):
+        return common.fake_tensor(shape, dtype, device)
+
+    d = dims.get("d_feat", cfg.d_in)
+    if shape_kind == "full_graph":
+        n, e = dims["n_nodes"], dims["n_edges"]
+        out = {"x": spec((n, d), f32), "src": spec((e,), i32), "dst": spec((e,), i32),
+               "emask": spec((e,), b8)}
+        out["labels"] = (spec((n, cfg.n_out), f32) if cfg.task == "regression"
+                         else spec((n,), i32))
+        out["lmask"] = spec((n,), f32)
+        return out
+    if shape_kind == "minibatch":
+        b = dims["batch_nodes"]
+        f0, f1 = cfg.fanouts
+        return {
+            "seed_x": spec((b, d), f32),
+            "hop0_x": spec((b * f0, d), f32),
+            "hop0_mask": spec((b, f0), b8),
+            "hop1_x": spec((b * f0 * f1, d), f32),
+            "hop1_mask": spec((b * f0, f1), b8),
+            "labels": spec((b,), i32),
+        }
+    if shape_kind == "batched_graphs":
+        b, n, e = dims["batch"], dims["n_nodes"], dims["n_edges"]
+        return {
+            "x": spec((b * n, d), f32),
+            "src": spec((b * e,), i32),
+            "dst": spec((b * e,), i32),
+            "emask": spec((b * e,), b8),
+            "graph_id": spec((b * n,), i32),
+            "labels": (spec((b, cfg.n_out), f32) if cfg.task == "regression"
+                       else spec((b,), i32)),
+        }
+    raise ValueError(shape_kind)

@@ -58,6 +58,12 @@ def init(cfg: AutoIntConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return params
 
 
+def abstract_params(cfg: AutoIntConfig, device="cuda") -> Dict[str, Any]:
+    """:func:`init`'s parameters as fake tensors on ``device``
+    (``models.common.abstract_like``): shapes and dtypes, nothing allocated."""
+    return common.abstract_like(init, cfg, device=device)
+
+
 def params_from_arrays(cfg: AutoIntConfig, tree: Mapping[str, Any], device="cuda",
                        trainable: bool = False):
     """The JAX package's parameter tree (each leaf a numpy array) on
@@ -133,3 +139,17 @@ def retrieval_score(params, batch, cfg: AutoIntConfig, top_k: int = 100):
     scores = q @ batch["candidates"].T  # [B, N]
     top = torch.topk(scores, top_k, dim=-1)
     return top.values, top.indices.to(torch.int32)
+
+
+def input_specs(cfg: AutoIntConfig, kind: str, batch: int, n_candidates: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """Fake tensors of a batch (the JAX package's ``input_specs``): int32
+    ``fields [B, F]``, for ``train`` f32 ``labels [B]``, for ``retrieval``
+    f32 ``candidates [N, d_attn]``."""
+    spec = {"fields": common.fake_tensor((batch, cfg.n_fields), torch.int32, device)}
+    if kind == "train":
+        spec["labels"] = common.fake_tensor((batch,), torch.float32, device)
+    if kind == "retrieval":
+        spec["candidates"] = common.fake_tensor((n_candidates, cfg.d_attn), torch.float32,
+                                                device)
+    return spec

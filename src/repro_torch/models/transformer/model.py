@@ -83,6 +83,14 @@ class TransformerParams(nn.Module):
         """Layer ``i``'s parameters, as views of the stacked tensors."""
         return {name: t[i] for name, t in self.layers.items()}
 
+    def map_tensors(self, fn) -> "TransformerParams":
+        """A new module holding ``fn`` of each tensor (trainable as this one)."""
+        tensors = {"embed": fn(self.embed), "ln_f": fn(self.ln_f),
+                   "layers": {name: fn(t) for name, t in self.layers.items()}}
+        if self.unembed is not None:
+            tensors["unembed"] = fn(self.unembed)
+        return TransformerParams(tensors, trainable=self.embed.requires_grad)
+
     def layer_list(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's parameters from one ``unbind`` of each stacked
         tensor (whose backward stacks the layers' gradients once)."""
@@ -140,6 +148,13 @@ def init(cfg: TransformerConfig, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         tensors["unembed"] = embedding()
     return TransformerParams(tensors, trainable)
+
+
+def abstract_params(cfg: TransformerConfig, device="cuda",
+                    trainable: bool = False) -> TransformerParams:
+    """:func:`init`'s parameters as fake tensors on ``device``
+    (``models.common.abstract_like``): shapes and dtypes, nothing allocated."""
+    return common.abstract_like(init, cfg, device=device, trainable=trainable)
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -416,3 +431,30 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
         "length": torch.full((b,), s, dtype=torch.int32, device=dev),
     }
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs
+
+
+def input_specs(cfg: TransformerConfig, shape: str, seq_len: int, batch: int,
+                device="cuda") -> Dict[str, Any]:
+    """Fake tensors of a step's batch (the JAX package's ``input_specs``):
+    ``train`` int32 tokens and labels ``[B, S]``, ``prefill`` tokens, and
+    ``decode`` one token ``[B, 1]`` with the cache :func:`init_cache` makes
+    (``[L, B, C, Hkv, Dh]`` in the compute dtype, int32 ``length [B]``)."""
+    i32 = torch.int32
+    fake = common.fake_tensor
+    if shape == "train":
+        return {"tokens": fake((batch, seq_len), i32, device),
+                "labels": fake((batch, seq_len), i32, device)}
+    if shape == "prefill":
+        return {"tokens": fake((batch, seq_len), i32, device)}
+    if shape == "decode":
+        kv = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "tokens": fake((batch, 1), i32, device),
+            "cache": {"k": fake(kv, cfg.cdtype, device), "v": fake(kv, cfg.cdtype, device),
+                      "length": fake((batch,), i32, device)},
+        }
+    raise ValueError(shape)

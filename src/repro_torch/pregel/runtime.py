@@ -89,6 +89,12 @@ class _StagedStep:
         return f"{self.ns}nbr:{direction}:" + "/".join(pattern)
 
     # -- read supersteps -----------------------------------------------------
+    def read_stage_fns(self):
+        """List of ``(fields, mailbox) -> mailbox`` callables, one per
+        ReadRound op of the plan, in order (the accounting-mirror API; the
+        JAX package's are jitted, these run eagerly)."""
+        return [self._stage_fn(op) for op in self.plan.ops if isinstance(op, ReadRound)]
+
     def _ids(self) -> torch.Tensor:
         return torch.arange(
             self.graph.n_vertices, dtype=torch.int32, device=self.graph.device
