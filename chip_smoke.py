@@ -217,7 +217,18 @@ on the first thing that is wrong:
    and every rank's launches exactly the one-rank serve's; gat-cora's
    ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh) against
    one rank: ``TRAIN_STEPS`` losses and the final parameters within
-   ``TRAIN_TOL``, each rank's launches, backwards included, equal
+   ``TRAIN_TOL``, each rank's launches, backwards included, equal;
+   and the sharded trainer on 2 ranks against one rank, ``MESH_TRAIN_STEPS``
+   steps each: h2o-danube-1.8b at full width cut to ``CKPT_LAYERS`` layers
+   (4 × 4,096 tokens on one rank, 2 rows a rank on the mesh, each rank
+   holding its FSDP shards of the state) and AutoInt at full width
+   (``train_batch``'s 65,536 rows, 32,768 a rank, the tables whole): the
+   losses and the parameters' relative global distance within
+   ``TRAIN_TOL``, each rank's launches per route equal to one rank's, the
+   live state's bytes a rank beside the whole state's, the peak a rank
+   beside one rank's, the collective bytes and gloo walls; and h2o's rank
+   step dry-run (rank 0 of a fake 2-rank group) against the real rank's
+   (``dryrun_vs_card``: launches equal, peak within ``DRY_PEAK_TOL``)
    (``--mesh-only`` runs the build and this phase alone, its one-rank
    references included, and prints no result line; ``--mesh-probe``
    compares graphcast on the mesh with one rank layer by layer, in bf16
@@ -229,7 +240,9 @@ on the first thing that is wrong:
    every D of 1..128 in f32 and bf16, and every cell of
    ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors
    (``dryrun_cell`` lines: fits against the card's memory, peak GB,
-   bottleneck). Throughout the run, each step that a phase also runs for
+   bottleneck), and those of ``DRY_POD_ARCHS`` as rank 0 of the JAX
+   package's 256- and 512-rank meshes (a fake process group: the rank's
+   shards and rows; its peak and collective GB). Throughout the run, each step that a phase also runs for
    real — the h2o-danube and deepseek-moe prefill and decode step, the
    four GNN forwards and the minibatch, AutoInt's three serve shapes, the
    four training steps — is dry-run at that phase's shapes and run twice
@@ -4625,7 +4638,11 @@ def _clone_tree(tree):
 
 
 def _mesh_train_rank(rank, job, device):
-    """gat-cora's ``Supervised`` trainer on the ``(world, 1)`` mesh."""
+    """A trainer on the ``(world, 1)`` mesh: gat-cora's ``Supervised``, or
+    a sharded case of :data:`MESH_TRAIN_ARCHS` (:func:`_supervised_case`)."""
+    if "arch" in job:
+        return _supervised_case(job["arch"], job["seed"], device, job["reduced"],
+                                job["ckpt_dir"], want=job["want"], measure=job["measure"])
     losses, final, launches, seconds = _supervised_gat(job["cfg"], job["params"],
                                                         job["batch"], job["ckpt_dir"], device)
     # numpy, not tensors: the queue would share a tensor's memory with the
@@ -4634,12 +4651,247 @@ def _mesh_train_rank(rank, job, device):
             "launches": launches, "seconds": seconds}
 
 
+#: the sharded trainer's cases on the mesh, and their steps a run (each
+#: step's collectives go through the host: gloo, ~0.4 GB/s on the H100 machine)
+MESH_TRAIN_ARCHS = ("h2o-danube-1.8b", "autoint")
+MESH_TRAIN_STEPS = 2
+
+
+def _train_setup(arch, seed, device, reduced):
+    """``(family, lr, cfg, params, loss_fn, batches)`` of a sharded mesh
+    case, from ``launch.train.build``: h2o-danube-1.8b at full width cut to
+    ``CKPT_LAYERS`` layers on ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens,
+    AutoInt at full width on ``train_batch``'s 65,536 rows (``reduced``:
+    the reduced configs at small batches, a CPU rehearsal)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as tr
+
+    spec = configs.get_spec(arch)
+    if spec.family == "lm":
+        cfg = spec.reduced if reduced else dataclasses.replace(spec.config,
+                                                               n_layers=CKPT_LAYERS)
+        b, s = (4, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+        _, cfg, params, loss_fn, batches = tr.build(arch, reduced, b, s, seed, device,
+                                                    config=cfg)
+        return spec.family, LM_TRAIN_LR, cfg, params, loss_fn, batches
+    _, cfg, params, loss_fn, batches = tr.build(arch, reduced, 64 if reduced else 65_536, 0,
+                                                seed, device)
+    return spec.family, TRAIN_LR, cfg, params, loss_fn, batches
+
+
+def _param_distance(got, want, chunk=1 << 24):
+    """``got`` against ``want`` (each ``{name: tensor}``): the relative
+    global distance ‖got − want‖ / ‖want‖ over every leaf (float64 sums,
+    ``chunk`` elements at a time: two ranks' copies of AutoInt's table
+    would not fit the card beside their states), max|Δ| / max|want| and
+    the elements that differ."""
+    num = den = 0.0
+    worst = scale = 0.0
+    differ = 0
+    for k, w in want.items():
+        g, w = got[k].reshape(-1), w.reshape(-1)
+        for lo in range(0, w.numel(), chunk):
+            ws = w[lo:lo + chunk].double()
+            d = g[lo:lo + chunk].double() - ws
+            num += float(d.square().sum())
+            den += float(ws.square().sum())
+            worst = max(worst, float(d.abs().max()))
+            scale = max(scale, float(ws.abs().max()))
+            differ += int((d != 0).sum())
+            del ws, d
+    return {"param_rel_distance": math.sqrt(num / max(den, 1e-300)),
+            "max_param_diff_over_max": worst / max(scale, 1e-30), "params_differing": differ}
+
+
+def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=False):
+    """``MESH_TRAIN_STEPS`` steps of ``launch.train.Supervised`` over a
+    :data:`MESH_TRAIN_ARCHS` case on this process's mesh (one rank, or the
+    ``(world, 1)`` mesh of its gloo ranks), parameters and batches built
+    here from ``seed``. Returns the losses, launches per route, walls,
+    collectives, the live state's bytes beside the whole state's, and the
+    peak; the final parameters gathered whole (``final``), or with ``want``
+    (the one rank's) their distance from it; with ``measure`` one more
+    step measured as :func:`dry_vs_card` measures one (launches, peak
+    less what was allocated before it plus the step's arguments)."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import AdamWConfig, named_leaves
+
+    reset_peak(device)
+    family, lr, cfg, params, loss_fn, batches = _train_setup(arch, seed, device, reduced)
+    whole = sum(t.numel() * (t.element_size() + 8) for t in named_leaves(params).values()) + 4
+    coll.reset_counts()
+    run = tr.Supervised(family, params, loss_fn, batches, AdamWConfig(lr=lr),
+                        warmup=TRAIN_WARMUP, total=MESH_TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                        ckpt_every=MESH_TRAIN_STEPS, device=device, log=lambda line: None)
+    del params
+    sync(device)
+    train_counters(zero=True)
+    t0 = time.perf_counter()
+    run.run(MESH_TRAIN_STEPS)
+    sync(device)
+    rep = {"losses": [x for _, x in run.losses], "seconds": time.perf_counter() - t0,
+           "launches": train_counters(), "collectives": coll.reset_counts(),
+           "state_bytes": run.state_bytes(), "whole_state_bytes": whole,
+           "held_as_shards": len(run.shards.params), "run_peak_gb": peak_gb(device)}
+    final = {k: shd.unshard(t.detach(), run.shards.params[k]) if k in run.shards.params
+             else t.detach() for k, t in named_leaves(run.params).items()}
+    if want is None:
+        rep["final"] = final
+    else:
+        rep.update(_param_distance(final, want))
+    del final
+    if measure:
+        batch = run.sup.batch_for_step(0)
+        gc.collect()
+        sync(device)
+        before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+        reset_peak(device)
+        counts = dryrun.launch_counts()
+        coll.reset_counts()
+        run._step({"params": run.params, "opt": run.opt}, batch)
+        sync(device)
+        args = run.state_bytes() + sum(t.numel() * t.element_size() for t in batch.values())
+        rep["step_collectives"] = coll.reset_counts()
+        rep["step_launches"] = dryrun.launches_between(counts, dryrun.launch_counts())
+        rep["step_peak_gb"] = (None if device.type != "cuda" else
+                               (torch.cuda.max_memory_allocated() - before + args) / 1e9)
+        rep["step_argument_gb"] = args / 1e9
+    return rep
+
+
+def _mesh_rank_dryrun(arch, seed, device, card, reduced, real):
+    """Rank 0's step of a sharded case dry-run in a fake group of
+    ``MESH_TRAIN_RANKS`` (``launch.dryrun``: its shards and its rows, fake
+    tensors on ``device``) against the real rank's measured step
+    (``real``: :func:`_supervised_case`'s ``step_*``): a ``dryrun_vs_card``
+    line; fails unless the launches are equal and the peak within
+    ``DRY_PEAK_TOL``."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.roofline.analysis import HW
+
+    spec = configs.get_spec(arch)
+    cfg = spec.reduced if reduced else dataclasses.replace(spec.config, n_layers=CKPT_LAYERS)
+    b, s = (4, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    hw = HW.from_card() if device.type == "cuda" else HW()
+    oc = AdamWConfig(lr=LM_TRAIN_LR)
+    with dryrun.fake_ranks((MESH_TRAIN_RANKS, 1), ("data", "model"), device.type) as mesh, \
+            common.fake_mode():
+        params = tm.abstract_params(cfg, device.type, trainable=True)
+        opt = adamw_init(params, oc)
+        rank = dryrun.Rank.of("lm", b, mesh)
+        shards = rank.place("lm", params, opt)
+        fn = dryrun.train_step(lambda p, q: tm.loss_fn(p, q, cfg), oc, warmup=TRAIN_WARMUP,
+                               total=MESH_TRAIN_STEPS, group=rank.group, shards=shards)
+        args = (params, opt, tm.input_specs(cfg, "train", s, rank.rows, device.type))
+        rec = dryrun.trace(fn, args, hw, MESH_TRAIN_RANKS,
+                           dryrun.lm_model_flops(cfg, lm_shape("train", s, b)))
+    mem = rec["memory"]
+    line = {"cell": f"{cfg.name} train step, rank 0 of {MESH_TRAIN_RANKS}",
+            "launches_dry": rec["launches"], "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "collective_gb_pred": rec["collectives"]["total"] / 1e9,
+            "step_lower_bound_s": rec["roofline"]["step_lower_bound_s"],
+            "trace_s": rec["trace_s"]}
+    if device.type != "cuda":
+        say("dryrun_vs_card", card, **line, rehearsal=True)
+        return line
+    rel, abs_gb = DRY_PEAK_TOL
+    peak = real["step_peak_gb"]
+    within = abs(line["peak_gb_pred"] - peak) <= rel * peak + abs_gb
+    wire = sum(v for k, v in real["step_collectives"].items() if k.endswith("_wire_bytes"))
+    line.update(launches_card=real["step_launches"],
+                launches_equal=real["step_launches"] == rec["launches"],
+                peak_gb_card=peak, argument_gb_card=real["step_argument_gb"],
+                collective_gb_card=wire / 1e9, collectives_card=real["step_collectives"],
+                peak_tol=list(DRY_PEAK_TOL), peak_within_tol=within)
+    say("dryrun_vs_card", card, **line)
+    DRY_CELLS.append(line)
+    if real["step_launches"] != rec["launches"]:
+        raise AssertionError(f"dry-run {line['cell']}: launches {rec['launches']}, card "
+                             f"{real['step_launches']}")
+    if not within:
+        raise AssertionError(f"dry-run {line['cell']}: peak {line['peak_gb_pred']} GB "
+                             f"predicted, {peak} GB on the card")
+    return line
+
+
+def mesh_train_sharded(arch, seed, device, card, reduced=False):
+    """A :data:`MESH_TRAIN_ARCHS` case on ``MESH_TRAIN_RANKS`` gloo ranks
+    against one rank in this process (:func:`_supervised_case` in both):
+    the losses within ``TRAIN_TOL`` relative, the parameters' relative
+    global distance within ``TRAIN_TOL`` (bf16 leaves a rounding apart
+    flip by an ulp: max|Δ| / max is printed beside it), each rank's
+    launches per route equal to one rank's; a ``mesh_train`` line with
+    each rank's live state beside the whole state's, its peak beside one
+    rank's, its collective bytes and walls; for the LM its rank step
+    dry-run (:func:`_mesh_rank_dryrun`). Returns the launches over the
+    ranks."""
+    from repro_torch import configs
+
+    family = configs.get_spec(arch).family
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        one = _supervised_case(arch, seed, device, reduced, str(Path(tmp) / "one"))
+        shutil.rmtree(Path(tmp) / "one", ignore_errors=True)  # the files live in host memory
+        want = one.pop("final")
+        gc.collect()  # the trainer and its supervisor hold each other: free its state
+        job = {"kind": "train", "world": MESH_TRAIN_RANKS, "arch": arch, "seed": seed,
+               "reduced": reduced, "want": want, "ckpt_dir": str(Path(tmp) / "ranks"),
+               "measure": family == "lm"}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_TRAIN_RANKS,
+                                     what=f"mesh train {arch}")
+        del job, want
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+    tol = TRAIN_TOL["bfloat16" if family == "lm" and not reduced else "float32"]
+    total, worst = {}, {"loss": 0.0, "param": 0.0}
+    for r, rep in sorted(reports.items()):
+        for a, b in zip(rep["losses"], one["losses"]):
+            worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+        worst["param"] = max(worst["param"], rep["param_rel_distance"])
+        if device.type == "cuda" and rep["launches"] != one["launches"]:
+            raise AssertionError(f"mesh train {arch} rank {r}: launches {rep['launches']}, "
+                                 f"one rank's {one['launches']}")
+        add_launches(total, rep["launches"])
+    if worst["loss"] > tol or worst["param"] > tol:
+        raise AssertionError(f"mesh train {arch}: {worst} past {tol} of the one-rank run")
+    say("mesh_train", card, arch=arch, ranks=MESH_TRAIN_RANKS,
+        mesh={"data": MESH_TRAIN_RANKS, "model": 1}, steps=MESH_TRAIN_STEPS,
+        losses=one["losses"], losses_rank0=reports[0]["losses"],
+        max_rel_loss_diff=worst["loss"], param_rel_distance=worst["param"], tol=tol,
+        max_param_diff_over_max=[rep["max_param_diff_over_max"] for rep in reports.values()],
+        params_differing=[rep["params_differing"] for rep in reports.values()],
+        state_gb_per_rank=[rep["state_bytes"] / 1e9 for rep in reports.values()],
+        state_gb_one_rank=one["state_bytes"] / 1e9, whole_state_gb=one["whole_state_bytes"] / 1e9,
+        leaves_held_as_shards=reports[0]["held_as_shards"],
+        peak_gb_per_rank=[rep["run_peak_gb"] for rep in reports.values()],
+        peak_gb_one_rank=one["run_peak_gb"],
+        collectives_per_rank=[rep["collectives"] for rep in reports.values()],
+        gloo_wall_s=[rep["seconds"] for rep in reports.values()], one_rank_s=one["seconds"],
+        ranks_s=ranks_s, launches_per_rank=reports[0]["launches"], transport=MESH_TRANSPORT)
+    if family == "lm":
+        _mesh_rank_dryrun(arch, seed, device, card, reduced, reports[0])
+    return total
+
+
 def mesh_train(seed, device, card, reduced=False):
     """gat-cora's trainer on 2 gloo ranks (``launch.train.Supervised`` on
     its ``(2, 1)`` mesh) against the same ``TRAIN_STEPS`` steps on one rank
     in this process: the losses and the final parameters within
     ``TRAIN_TOL``, each rank's launches per route, backwards included,
-    equal to the one rank's. Returns the launches over the ranks."""
+    equal to the one rank's; then the sharded cases of
+    :data:`MESH_TRAIN_ARCHS` (:func:`mesh_train_sharded`). Returns the
+    launches over the ranks."""
     t0 = time.perf_counter()
     cfg, params, fb = _gat_train_setup(seed, device, reduced)
     with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
@@ -4677,6 +4929,8 @@ def mesh_train(seed, device, card, reduced=False):
         launches_per_rank=reports[0]["launches"],
         peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
         transport=MESH_TRANSPORT)
+    for arch in MESH_TRAIN_ARCHS:
+        add_launches(total, mesh_train_sharded(arch, seed, device, card, reduced))
     say("mesh_phase", card, part="train", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
     return total
 
@@ -4693,6 +4947,10 @@ DRY_CELLS = []
 #: CLI's ``--all`` takes minutes: qwen3-moe-235b's train step alone ~4.5)
 DRY_FULL_ARCHS = ("h2o-danube-1.8b", "pna", "graphsage-reddit", "graphcast", "gat-cora",
                   "autoint")
+#: the archs whose every cell the dry-run phase also traces as rank 0 of
+#: the JAX package's pod meshes (``single``, ``multi``; the CLI's
+#: ``--mesh both`` traces all 40 cells on each)
+DRY_POD_ARCHS = ("h2o-danube-1.8b", "gat-cora", "autoint")
 
 
 def dry_vs_card(cell, fn, args, device, card, model_flops=None):
@@ -4886,8 +5144,9 @@ def dryrun_rehearsal(seed, device, card, lm_batch, prompt_len, decode_steps):
 def dryrun_phase(device, card):
     """The flash route rule against the library, then every cell of
     ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors (fits,
-    peak GB, bottleneck), and a summary of this run's ``dryrun_vs_card``
-    cells."""
+    peak GB, bottleneck), those of ``DRY_POD_ARCHS`` again as rank 0 of
+    the pod meshes (peak and collective GB a rank), and a summary of this
+    run's ``dryrun_vs_card`` cells."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
 
@@ -4896,16 +5155,19 @@ def dryrun_phase(device, card):
         versus="flash_attention_uses_tc, flash_attention_bwd_uses_tc")
     hw = dryrun.default_hw(device.type)
     n_ok = 0
-    for arch in DRY_FULL_ARCHS:
+    cells = [(arch, "card") for arch in DRY_FULL_ARCHS] + [
+        (arch, mesh) for mesh in ("single", "multi") for arch in DRY_POD_ARCHS]
+    for arch, mesh in cells:
         for shape_id in configs.get_spec(arch).shapes:
-            rec = dryrun.dryrun_cell(arch, shape_id, "card", device.type, hw)
+            rec = dryrun.dryrun_cell(arch, shape_id, mesh, device.type, hw)
             if rec["status"] == "failed":
-                raise AssertionError(f"dry-run {arch} {shape_id}: {rec['error']}")
+                raise AssertionError(f"dry-run {arch} {shape_id} {mesh}: {rec['error']}")
             n_ok += rec["status"] == "ok"
             if rec["status"] == "ok":
-                say("dryrun_cell", card, arch=arch, shape=shape_id,
-                    fits=rec["memory"]["fits"],
+                say("dryrun_cell", card, arch=arch, shape=shape_id, mesh=mesh,
+                    n_devices=rec["n_devices"], fits=rec["memory"]["fits"],
                     peak_gb=rec["memory"]["peak_per_device_bytes"] / 1e9,
+                    collective_gb=rec["collectives"]["total"] / 1e9,
                     bottleneck=rec["roofline"]["bottleneck"],
                     step_lower_bound_s=rec["roofline"]["step_lower_bound_s"],
                     launches=rec["launches"], trace_s=rec["trace_s"])

@@ -26,8 +26,10 @@ bfloat16, which numpy lacks, is written as the JAX package writes its
 ``ml_dtypes`` arrays: the 2-byte patterns under a ``'<V2'`` header, and
 ``"bfloat16"`` in the manifest. Each leaf is read back by the manifest's
 dtype (the JAX package's own restore rejects that leaf: ROADMAP §C,
-quirks of the reference). A DTensor leaf is saved whole (a gather over
-its mesh) with its spec, and only the process of rank 0 writes.
+quirks of the reference). A DTensor leaf, and a leaf each rank holds as
+its FSDP slice (:class:`AsyncCheckpointer`'s ``shards``), is saved whole
+(a gather over its mesh) with its spec, and only the process of rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -344,7 +346,9 @@ def restore_checkpoint(
     """Restore into the structure of ``target_tree``.
 
     Without ``mesh`` each leaf is a tensor on the device of the target's
-    leaf (the CPU for a host snapshot: no copy). With ``mesh`` the
+    leaf (the CPU for a host snapshot: no copy), whole: the trainer on one
+    rank takes it as it is, a trainer holding FSDP shards its slice
+    (``launch.train.Supervised.load_``). With ``mesh`` the
     manifest's spec, cleaned for it (or ``sharding_fn(key, tensor) ->
     NamedSharding``), places each leaf (``dist.sharding.device_put``): on a
     multi-rank mesh a DTensor of this rank's slice — the elastic path: the
@@ -384,24 +388,35 @@ class AsyncCheckpointer:
     caller may update its tensors in place right after (the port's train
     step does). The buffers are kept and reused by the next save, once the
     write before it has been joined. ``specs`` (each leaf key's manifest
-    spec) marks a tree that every rank of the process group holds alike:
-    each rank snapshots it, rank 0 writes it with these specs, and every
-    :meth:`wait` ends at a barrier."""
+    spec) marks a tree that every rank of the process group holds: rank 0
+    snapshots it and writes it with these specs, and every :meth:`wait` ends
+    at a barrier. ``shards`` names the leaves each rank holds as its slice
+    under that ``NamedSharding`` (FSDP): the snapshot gathers them whole
+    (``dist.sharding.unshard``, every rank taking part) into rank 0's
+    buffers, so the file holds the whole arrays, as JAX's does."""
 
     def __init__(self, directory: str | os.PathLike, keep: int = 3,
-                 specs: Optional[Mapping[str, str]] = None):
+                 specs: Optional[Mapping[str, str]] = None,
+                 shards: Optional[Mapping[str, Any]] = None):
         self.directory = Path(directory)
         self.keep = keep
         self.specs = specs
+        self.shards = shards or {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._buffers: Dict[str, torch.Tensor] = {}
 
     def _snapshot(self, tree):
         host = []
+        writer = self.specs is None or dist.get_rank() == 0
         for key, leaf in _flatten(tree):
+            if key in self.shards:
+                leaf = shd.unshard(leaf.detach(), self.shards[key])
             if not isinstance(leaf, torch.Tensor) or _is_dtensor(leaf):
                 host.append(_host(leaf).clone())
+                continue
+            if not writer:  # rank 0 alone writes: no host copy here
+                host.append(None)
                 continue
             buf = self._buffers.get(key)
             if buf is None or buf.shape != leaf.shape or buf.dtype != leaf.dtype:

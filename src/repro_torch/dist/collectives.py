@@ -25,7 +25,12 @@ its cotangent divided by their size, ``psum``'s transpose is ``psum``):
   leading dimension, backward an ``all_gather`` of the cotangents;
 * :func:`all_gather_rows` — each rank's rows of a node-sharded result
   gathered into the replicated whole; backward this rank's rows of the
-  (replicated) cotangent.
+  (replicated) cotangent;
+* :func:`all_gather_dim` — a parameter held as this rank's FSDP shard
+  gathered whole along one dimension where it is used; backward a
+  reduce-scatter of the cotangents along the same dimension, summed in
+  float32 and averaged over the group (each rank's gradient is its share
+  of the batch's), or this rank's slice of a cotangent every rank holds.
 
 Transport: the ranks of one card talk through gloo (NCCL refuses two
 ranks on one device). On the H100 machine gloo took every collective here
@@ -35,7 +40,9 @@ copying them through the host itself, so none is staged by the port
 (:func:`transport` says so). DTensor's own redistributions (its functional
 collectives) hung there on gloo with CUDA tensors, so no DTensor of the
 port communicates: gathering one whole is :func:`full_tensor`, over these
-collectives. ``COUNTS`` counts the calls and bytes by collective.
+collectives. ``COUNTS`` counts the calls and input bytes by collective,
+and the bytes a rank puts on the wire by the ring formulas over the
+call's own group (``<name>_wire_bytes``; ``roofline.analysis``).
 """
 
 from __future__ import annotations
@@ -55,9 +62,17 @@ def reset_counts() -> Dict[str, int]:
     return out
 
 
-def _count(name: str, t: torch.Tensor):
-    COUNTS[name] = COUNTS.get(name, 0) + 1
-    COUNTS[f"{name}_bytes"] = COUNTS.get(f"{name}_bytes", 0) + t.numel() * t.element_size()
+def _count(name: str, t: torch.Tensor, group=None):
+    """One call of ``name`` on input ``t`` over ``group``: its input bytes,
+    and its wire bytes a rank by the ring formula (an all-gather sends its
+    output's other n − 1 parts, a reduce-scatter n − 1 parts of its input,
+    an all-reduce both)."""
+    nbytes = t.numel() * t.element_size()
+    n = dist.get_world_size(group)
+    wire = {"all_gather": nbytes * (n - 1), "reduce_scatter": nbytes * (n - 1) // n,
+            "all_reduce": 2 * nbytes * (n - 1) // n}[name]
+    for key, value in ((name, 1), (f"{name}_bytes", nbytes), (f"{name}_wire_bytes", wire)):
+        COUNTS[key] = COUNTS.get(key, 0) + value
 
 
 def transport(group=None) -> str:
@@ -69,7 +84,7 @@ def transport(group=None) -> str:
 
 
 def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -77,7 +92,7 @@ def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = t.new_empty((dist.get_world_size(group) * t.shape[0],) + t.shape[1:])
-    _count("all_gather", t)
+    _count("all_gather", t, group)
     dist.all_gather_into_tensor(out, t, group=group)
     return out
 
@@ -85,7 +100,7 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
 def _reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = t.new_empty((t.shape[0] // dist.get_world_size(group),) + t.shape[1:])
-    _count("reduce_scatter", t)
+    _count("reduce_scatter", t, group)
     dist.reduce_scatter_tensor(out, t, group=group)
     return out
 
@@ -170,6 +185,27 @@ class _AllGatherRows(torch.autograd.Function):
         return _rows(g, ctx.group), None
 
 
+def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _all_gather(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, mean):
+        ctx.dim, ctx.group, ctx.mean = dim, group, mean
+        return _all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g0 = g.movedim(ctx.dim, 0)
+        if ctx.mean:
+            n = dist.get_world_size(ctx.group)
+            out = (_reduce_scatter(g0.float(), ctx.group) / n).to(g.dtype)
+        else:
+            out = _rows(g0, ctx.group)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
 def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -220,6 +256,23 @@ def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's block of the leading dimension, in rank order."""
     return _AllGatherRows.apply(x, group) if _grad(x) else _all_gather(x, group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, mean: bool = True) -> torch.Tensor:
+    """Every rank's block of dimension ``dim``, in rank order: an FSDP
+    shard gathered whole. Backward (see module): with ``mean`` the
+    cotangents reduce-scattered along ``dim`` in float32, divided by the
+    group's size and cast back; without, this rank's block of the
+    cotangent."""
+    if _grad(x):
+        return _AllGatherDim.apply(x, dim, group, mean)
+    return _all_gather_dim(x, dim, group)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of dimension ``dim`` of the sum over the group's
+    ranks (no gradient): a ZeRO-1 gradient onto its slice."""
+    return _reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim)
 
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:

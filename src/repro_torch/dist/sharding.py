@@ -44,6 +44,13 @@ norms / biases         ``[L, D]`` / ``[D]``    ``P()``
 
 ``zero1`` mode keeps only the ``model`` shards on the stored params.
 
+FSDP shards (:func:`shard_of`, :func:`unshard`, :class:`Gather`): a rank
+holds a leaf as its slice under the leaf's ``NamedSharding`` — the shape
+JAX's ``NamedSharding.shard_shape`` gives (:func:`shard_shape`) — and a
+model gathers it whole where it uses it (``dist.collectives.
+all_gather_dim`` over each sharded dimension's axes), the gather's
+backward handing the shard its gradient.
+
 The vertex-partition half (:func:`shard_mesh`, :class:`ShardMesh`) places
 one shard of a partitioned graph per rank of a process group; the caller
 starts the processes and initialises the group (``dist.init_process_
@@ -147,23 +154,32 @@ def _names(entry: _AxisEntry) -> Tuple[str, ...]:
 # active mesh context
 
 _ACTIVE_MESH: Optional[Mesh] = None
+_BATCH_SPLIT = False
 
 
-def activate(mesh: Mesh) -> Mesh:
-    """Make ``mesh`` the process-wide active mesh (``constrain`` reads it)."""
-    global _ACTIVE_MESH
-    _ACTIVE_MESH = mesh
+def activate(mesh: Mesh, batch_split: bool = False) -> Mesh:
+    """Make ``mesh`` the process-wide active mesh (``constrain`` reads it).
+    ``batch_split``: each rank already holds only its data shard's rows (a
+    data-parallel step), so a region runs over the ``model`` axis alone
+    (:func:`batch_split`; the MoE's expert parallelism)."""
+    global _ACTIVE_MESH, _BATCH_SPLIT
+    _ACTIVE_MESH, _BATCH_SPLIT = mesh, batch_split
     return mesh
 
 
 def deactivate() -> None:
     """Clear the active mesh (idempotent)."""
-    global _ACTIVE_MESH
-    _ACTIVE_MESH = None
+    global _ACTIVE_MESH, _BATCH_SPLIT
+    _ACTIVE_MESH, _BATCH_SPLIT = None, False
 
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE_MESH
+
+
+def batch_split() -> bool:
+    """Whether the active mesh's data axes split the batch already."""
+    return _BATCH_SPLIT
 
 
 # --------------------------------------------------------------------------
@@ -470,6 +486,91 @@ def _local_slices(shape: Sequence[int], sharding: NamedSharding, coordinate) -> 
     return tuple(out)
 
 
+def _check_order(sharding: NamedSharding) -> None:
+    """A spec entry naming several axes names them in mesh order (the order
+    in which :func:`_local_slices` and :func:`axis_group` flatten them)."""
+    mesh = sharding.mesh
+    for entry in sharding.spec:
+        names = _names(entry)
+        if list(names) != sorted(names, key=mesh.axis_names.index):
+            raise NotImplementedError(f"spec entry {entry} is not in mesh order")
+
+
+def shard_shape(shape: Sequence[int], sharding: NamedSharding) -> Tuple[int, ...]:
+    """The shape of one rank's slice of a ``shape`` array: JAX's
+    ``NamedSharding.shard_shape`` for the specs the rules make (every
+    entry divides its dimension)."""
+    return tuple(n // axis_size(sharding.spec[d] if d < len(sharding.spec) else None,
+                                sharding.mesh) for d, n in enumerate(shape))
+
+
+def shard_of(x: torch.Tensor, sharding: NamedSharding, coordinate=None) -> torch.Tensor:
+    """The slice of the whole leaf ``x`` that the rank at ``coordinate``
+    holds under ``sharding`` (a view; its index along each mesh axis). By
+    default this process's place on the mesh; a mesh without a process
+    group is one rank, which holds ``x`` whole."""
+    _check_order(sharding)
+    if coordinate is None:
+        if sharding.mesh.device_mesh is None:
+            return x
+        coordinate = sharding.mesh.device_mesh.get_coordinate()
+    return x[_local_slices(x.shape, sharding, coordinate)]
+
+
+def sharded_dims(sharding: NamedSharding) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
+    """``(dimension, axes)`` of every dimension that ``sharding`` splits
+    over more than one rank (axes of size 1 left out)."""
+    mesh = sharding.mesh
+    out = []
+    for d, entry in enumerate(sharding.spec):
+        names = tuple(n for n in _names(entry) if mesh.shape[n] > 1)
+        if names:
+            out.append((d, names))
+    return tuple(out)
+
+
+def unshard(local: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """:func:`shard_of`'s inverse over the process group: this rank's slice
+    gathered with every other rank's into the whole leaf (an all-gather
+    over each split dimension's axes; no gradient). On one rank, ``local``."""
+    if sharding.mesh.device_mesh is None:
+        return local
+    for d, axes in sharded_dims(sharding):
+        local = collectives.all_gather_dim(local.detach(), d, axis_group(sharding.mesh, axes))
+    return local
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather:
+    """How a leaf held as this rank's shard becomes the whole leaf where a
+    model uses it: ``dims`` holds ``(dimension, process group, mean)`` for
+    each split dimension, gathered by ``collectives.all_gather_dim``, whose
+    backward gives the shard its gradient — reduce-scattered and averaged
+    over the group where ``mean`` (the group's ranks split the batch, so
+    each holds its share of the gradient), else this rank's slice (the
+    group's ranks repeat the same work, so each holds the whole one).
+    ``lead`` leading dimensions dropped: a layer's view of a stacked leaf."""
+
+    dims: Tuple[Tuple[int, Any, bool], ...]
+
+    def __call__(self, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        for d, group, mean in self.dims:
+            t = collectives.all_gather_dim(t, d - lead, group, mean)
+        return t
+
+    @classmethod
+    def of(cls, sharding: NamedSharding, batch_axes: Sequence[str] = (),
+           keep: Sequence[str] = ()) -> "Gather":
+        """The gather of a leaf under ``sharding``, the batch split over
+        ``batch_axes`` (a dimension split over those axes only averages its
+        gradient; any other takes its slice). A dimension split over an
+        axis of ``keep`` stays split: the model uses its slice (the MoE's
+        experts a rank)."""
+        return cls(tuple((d, axis_group(sharding.mesh, axes),
+                          bool(batch_axes) and set(axes) <= set(batch_axes))
+                         for d, axes in sharded_dims(sharding) if not set(axes) & set(keep)))
+
+
 def device_put(x: torch.Tensor, sharding: NamedSharding):
     """``x`` (the logical array) placed by ``sharding``: on a one-rank mesh
     the tensor on the mesh's device; on a multi-rank mesh a DTensor holding
@@ -483,12 +584,7 @@ def device_put(x: torch.Tensor, sharding: NamedSharding):
         return x.to(dev)
     from torch.distributed.tensor import DTensor
 
-    for entry in sharding.spec:
-        names = _names(entry)
-        if list(names) != sorted(names, key=mesh.axis_names.index):
-            raise NotImplementedError(f"spec entry {entry} is not in mesh order")
-    coord = mesh.device_mesh.get_coordinate()
-    local = x[_local_slices(x.shape, sharding, coord)].contiguous().to(dev)
+    local = shard_of(x, sharding).contiguous().to(dev)
     return DTensor.from_local(local, mesh.device_mesh, sharding.placements, run_check=False)
 
 

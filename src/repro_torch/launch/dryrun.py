@@ -1,20 +1,23 @@
-"""Dry-run: trace every (arch × shape) cell's step on the card, nothing allocated.
+"""Dry-run: trace every (arch × shape) cell's step, a rank's, nothing allocated.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b \
-        --shape prefill_32k --mesh card --device cpu
+        --shape prefill_32k --mesh both --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --palgol-partition \
         --shards 8 --graph-scale 10
 
-The JAX package's ``repro.launch.dryrun`` on the port, for the ``card``
-mesh: one H100 (the JAX package's pod meshes, ``single``/``multi``, wait
-for the sharded live state, ROADMAP A8e). For each cell it builds fake
-parameters and batches (``abstract_params``/``input_specs``: shapes and
-dtypes, no memory), runs the port's own step on them under
-``FakeTensorMode`` — the trainer's ``make_step`` (loss, gradients,
-cosine schedule, AdamW in place) with JAX's microbatch accumulation,
-``prefill``/``decode_step_``, AutoInt's ``forward``/``retrieval_score``,
-the GNN step of ``gnn_cell`` — and records:
+The JAX package's ``repro.launch.dryrun`` on the port, on the ``card``
+mesh (one H100) and on the JAX package's pod meshes, ``single`` (16 × 16,
+``("data", "model")``) and ``multi`` (2 × 16 × 16, ``("pod", "data",
+"model")``), one H100 a rank. For each cell it builds fake parameters and
+batches (``abstract_params``/``input_specs``: shapes and dtypes, no
+memory), places them as rank 0 of the mesh holds them, and runs the port's
+own step on them under ``FakeTensorMode`` — the trainer's ``make_step``
+(loss, gradients, cosine schedule, AdamW in place) with JAX's microbatch
+accumulation, ``prefill``/``decode_step_``, AutoInt's
+``forward``/``retrieval_score``, the GNN step of ``gnn_cell`` — and
+records:
 
 * ``memory``: the bytes of the step's arguments (parameters, optimiser
   state, batch, cache) and of its outputs, of which ``alias`` are
@@ -28,9 +31,25 @@ the GNN step of ``gnn_cell`` — and records:
   writing its outputs once (no fusion; views read nothing), plus each
   kernel's bound bytes (``kernels.fake``);
 * ``launches``: the kernel launches per route, counted by the wrappers'
-  own counters on their fake route; ``collectives`` from
-  ``dist.collectives.COUNTS`` (none on one card); ``roofline`` and
+  own counters on their fake route; ``collectives``, a rank's wire bytes,
+  from ``dist.collectives.COUNTS`` (none on one card); ``roofline`` and
   ``model_flops`` as JAX's.
+
+On a pod mesh the trace is rank 0's, in a fake process group of the
+mesh's 256 or 512 ranks (torch's ``"fake"`` backend: each collective
+returns at once and moves nothing; ``COUNTS`` records what it would move).
+The rank holds its shard of the state as the trainer does
+(``launch.train.shard_state_``), by ``PARAM_MODE`` — ``fsdp``, or ``zero1``
+for the three dense ``train_4k`` cells (parameters over the model axis
+only, moments in ``fsdp``, each rank updating its slice) — and its share
+of the batch (``launch.train.batch_axes``: an LM's rows over the data
+axes, AutoInt's over every axis; a batch they do not divide, and a GNN's
+graph, whole, with the model on the mesh). The port has no tensor
+parallelism: every model rank gathers a layer's dense weights whole and
+repeats its data shard's dense work, so ``flops_per_device`` is the port's
+own work a rank, not JAX's divided by the model axis. An MoE's experts
+stay split over the model axis, each rank computing its own for its data
+shard's tokens (``moe_ffn_ep``), as JAX's expert parallelism does.
 
 A Python layer loop is traced whole, every layer and every microbatch, so
 JAX's corrections for XLA have no counterpart here: the scan probe (XLA's
@@ -49,8 +68,10 @@ wrapper takes its fake route, whose routing is the card's. Records land in
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import time
 import traceback
 import weakref
@@ -62,10 +83,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
+import torch.distributed as dist
+
 from repro_torch import configs
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import fake
-from repro_torch.launch.train import make_step
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import batch_axes, make_step, shard_state_, state_layout
 from repro_torch.models import common
 from repro_torch.models.gnn import models as gm
 from repro_torch.models.recsys import autoint
@@ -86,8 +111,8 @@ MICROBATCH = {
 }
 
 #: the JAX package's parameter layout per train cell ("zero1": parameters
-#: sharded over the model axis only). On the card's one rank every layout
-#: holds the whole state, so the mode is recorded, not applied.
+#: sharded over the model axis only, the moments in "fsdp"; every other
+#: cell "fsdp"). On the card's one rank every layout holds the whole state.
 PARAM_MODE = {
     ("qwen3-32b", "train_4k"): "zero1",
     ("qwen2.5-32b", "train_4k"): "zero1",
@@ -96,6 +121,11 @@ PARAM_MODE = {
 
 #: the trainer's schedule defaults (``launch.train``), for the traced step
 WARMUP, TOTAL = 20, 100
+
+#: the meshes: shape and axes (the pod meshes are the JAX package's
+#: ``make_production_mesh``); ``card`` is one H100
+MESHES = {"card": ((1,), ("data",)), "single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
 
 #: ops that read and write no tensor data: factories of uninitialised
 #: memory, and views that the schema does not mark as views
@@ -288,12 +318,13 @@ def fake_like(tree, device=None):
 
 
 def train_step(loss_fn: Callable, oc: AdamWConfig, micro: int = 1,
-               warmup: int = WARMUP, total: int = TOTAL) -> Callable:
+               warmup: int = WARMUP, total: int = TOTAL, **placement) -> Callable:
     """``step(params, opt, batch) -> (params, opt, loss)``, the first two
     updated in place: ``launch.train.make_step`` (loss and gradients, with
     ``micro`` microbatches accumulated as the JAX dry-run accumulates them;
-    the cosine schedule of the pre-step counter; AdamW in place)."""
-    step = make_step(loss_fn, oc, warmup, total, micro=micro)
+    the cosine schedule of the pre-step counter; AdamW in place); on a mesh
+    ``placement`` is the rank's ``group`` and ``shards`` (:class:`Rank`)."""
+    step = make_step(loss_fn, oc, warmup, total, micro=micro, **placement)
 
     def fn(p, o, batch):
         _, metrics = step({"params": p, "opt": o}, batch)
@@ -302,30 +333,114 @@ def train_step(loss_fn: Callable, oc: AdamWConfig, micro: int = 1,
     return fn
 
 
-def lm_cell(spec, shape_id: str, shape: Dict, device="cuda", cfg=None):
+@contextlib.contextmanager
+def fake_ranks(shape, axes, device="cuda"):
+    """This process as rank 0 of a fake process group of ``prod(shape)``
+    ranks (torch's ``"fake"`` backend: every collective returns at once and
+    moves nothing), and the mesh over it; one rank is the one-rank mesh,
+    with no group. The group is destroyed on exit."""
+    size = math.prod(shape)
+    if size == 1:
+        yield make_mesh(shape, axes, device)
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    if dist.is_initialized():
+        raise RuntimeError("a rank's dry-run needs its own process group; one exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    try:
+        mesh = make_mesh(shape, axes, device)
+        shd.edge_mesh(mesh)  # made here, off the fake mode: a DeviceMesh reads its ranks
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@dataclasses.dataclass
+class Rank:
+    """A rank's place in a cell: its ``mesh`` (``None``: the card, one
+    rank), its ``rows`` of the batch, the ``group`` over which its step
+    averages (``None``: the batch whole, the model on the mesh) and the
+    batch ``axes`` it is split over."""
+
+    mesh: Optional[shd.Mesh]
+    rows: int
+    group: Any = None
+    axes: Tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, family: str, batch: int, mesh: Optional[shd.Mesh]) -> "Rank":
+        """The trainer's rule (``launch.train.data_parallel``): the batch's
+        rows split over the family's batch axes when they divide it."""
+        if mesh is None or mesh.size == 1:
+            return cls(None, batch)
+        axes = batch_axes(family, mesh)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if not axes or batch % n:
+            return cls(mesh, batch)
+        return cls(mesh, batch // n, shd.axis_group(mesh, axes), axes)
+
+    @property
+    def expert_parallel(self) -> bool:
+        """The batch split over the data axes, a model axis of several
+        ranks: each splits the MoE's experts (``moe_ffn_ep``)."""
+        return self.group is not None and self.mesh.shape.get("model", 1) > 1
+
+    def place(self, family: str, params, opt=None, mode: str = "fsdp"):
+        """Holds ``params`` and ``opt`` (fake, whole) as the rank's shards
+        (the experts split over the model axis where :attr:`expert_parallel`);
+        returns the ``launch.train.Shards``."""
+        if self.mesh is None:
+            return None
+        return shard_state_(params, opt, state_layout(family, params, self.mesh, mode),
+                            self.axes, local_experts=self.expert_parallel)
+
+    def run(self, fn: Callable) -> Callable:
+        """``fn`` under the mesh when the model runs on it: the batch whole,
+        or split over the data axes with a model axis to split the experts."""
+        if self.mesh is None or not (self.group is None or self.expert_parallel):
+            return fn
+
+        def on_mesh(*args):
+            shd.activate(self.mesh, batch_split=self.group is not None)
+            try:
+                return fn(*args)
+            finally:
+                shd.deactivate()
+
+        return on_mesh
+
+
+def lm_cell(spec, shape_id: str, shape: Dict, device="cuda", cfg=None, mesh=None):
     """``(fn, args, model_flops)`` of an LM cell: the train step, a prefill
-    (last-position logits only) or a decode step."""
+    (last-position logits only) or a decode step, of rank 0 of ``mesh``
+    (``None``: the card)."""
     cfg = cfg or spec.config
     kind = shape["kind"]
     seq, batch = shape["seq_len"], shape["global_batch"]
+    rank = Rank.of("lm", batch, mesh)
     if kind == "train":
         params = tm.abstract_params(cfg, device, trainable=True)
         oc = AdamWConfig(state_dtype="bfloat16" if cfg.n_params() > 1e11 else None)
         with common.fake_mode():
             opt = adamw_init(params, oc)
+        shards = rank.place("lm", params, opt, PARAM_MODE.get((spec.arch_id, shape_id), "fsdp"))
         micro = MICROBATCH.get((spec.arch_id, shape_id), 1)
-        fn = train_step(lambda p, b: tm.loss_fn(p, b, cfg), oc, micro)
-        args = (params, opt, tm.input_specs(cfg, "train", seq, batch, device))
+        fn = train_step(lambda p, b: tm.loss_fn(p, b, cfg), oc, micro, group=rank.group,
+                        shards=shards)
+        args = (params, opt, tm.input_specs(cfg, "train", seq, rank.rows, device))
     elif kind == "prefill":
         params = tm.abstract_params(cfg, device)
+        rank.place("lm", params)
 
         def fn(p, b):
             return tm.prefill(p, b["tokens"], cfg, full_logits=False)
 
-        args = (params, tm.input_specs(cfg, "prefill", seq, batch, device))
+        args = (params, tm.input_specs(cfg, "prefill", seq, rank.rows, device))
     elif kind == "decode":
         params = tm.abstract_params(cfg, device)
-        specs = tm.input_specs(cfg, "decode", seq, batch, device)
+        rank.place("lm", params)
+        specs = tm.input_specs(cfg, "decode", seq, rank.rows, device)
 
         def fn(p, cache, toks):  # the cache updated in place, as JAX's donated one
             return tm.decode_step_(p, cache, toks, cfg), cache
@@ -333,7 +448,7 @@ def lm_cell(spec, shape_id: str, shape: Dict, device="cuda", cfg=None):
         args = (params, specs["cache"], specs["tokens"])
     else:
         raise ValueError(kind)
-    return fn, args, lm_model_flops(cfg, shape)
+    return rank.run(fn), args, lm_model_flops(cfg, shape)
 
 
 def lm_model_flops(cfg, shape: Dict) -> float:
@@ -370,15 +485,26 @@ def gnn_graph_size(shape: Dict) -> Tuple[int, int]:
     return shape["batch"] * shape["n_nodes"], shape["batch"] * shape["n_edges"]
 
 
-def gnn_cell(spec, shape_id: str, shape: Dict, device="cuda"):
+def gnn_cell(spec, shape_id: str, shape: Dict, device="cuda", mesh=None):
     """``(fn, args, model_flops)`` of a GNN cell: the train step on the
-    batch graph of :func:`gnn_graph_size` (JAX's ``gnn_cell``)."""
+    batch graph of :func:`gnn_graph_size` (JAX's ``gnn_cell``); on a mesh
+    the graph whole on every rank, its regions splitting the edges."""
     cfg = configs.resolve_gnn_config(spec.config, shape_id, shape)
     n, e = gnn_graph_size(shape)
     if shape["kind"] == "batched_graphs":
         batch_specs = gm.input_specs(cfg, "batched_graphs", device, batch=shape["batch"],
                                      n_nodes=shape["n_nodes"], n_edges=shape["n_edges"],
                                      d_feat=shape["d_feat"])
+        if mesh is not None and n % mesh.size:
+            # the fused PNA and GraphCast layers scatter the node rows over
+            # every rank (JAX's tiled psum_scatter), which 3,840 nodes do not
+            # divide on 512 ranks: JAX's own dry-run fails there. The port
+            # pads the nodes to whole 1,024-row blocks, as JAX pads a full
+            # graph; a padding node has no edge and the sentinel graph id
+            x, gid = batch_specs["x"], batch_specs["graph_id"]
+            batch_specs["x"] = common.fake_tensor((_pad1024(n),) + tuple(x.shape[1:]),
+                                                  x.dtype, device)
+            batch_specs["graph_id"] = common.fake_tensor((_pad1024(n),), gid.dtype, device)
     else:
         batch_specs = gm.input_specs(cfg, "full_graph", device, n_nodes=n, n_edges=e,
                                      d_feat=shape["d_feat"])
@@ -387,7 +513,7 @@ def gnn_cell(spec, shape_id: str, shape: Dict, device="cuda"):
     with common.fake_mode():
         opt = adamw_init(params, oc)
     fn = train_step(lambda p, b: gm.loss_fn(p, b, cfg), oc)
-    return fn, (params, opt, batch_specs), gnn_model_flops(cfg, n, e)
+    return Rank.of("gnn", n, mesh).run(fn), (params, opt, batch_specs), gnn_model_flops(cfg, n, e)
 
 
 def gnn_model_flops(cfg, n_nodes: int, n_edges: int) -> float:
@@ -400,32 +526,35 @@ def gnn_model_flops(cfg, n_nodes: int, n_edges: int) -> float:
     return 3.0 * (2 * n_nodes * d_in * d + (cfg.n_layers - 1) * per_layer)
 
 
-def recsys_cell(spec, shape_id: str, shape: Dict, device="cuda"):
+def recsys_cell(spec, shape_id: str, shape: Dict, device="cuda", mesh=None):
     """``(fn, args, model_flops)`` of an AutoInt cell: the train step,
-    ``forward`` (serve) or ``retrieval_score``."""
+    ``forward`` (serve) or ``retrieval_score``; on a mesh the rank's rows
+    (the tables whole: JAX's rule gives them ``P()``)."""
     cfg = spec.config
     kind = shape["kind"]
     batch = shape["batch"]
+    rank = Rank.of("recsys", batch, mesh)
     if kind == "train":
         params = common.trainable(autoint.abstract_params(cfg, device))
         oc = AdamWConfig()
         with common.fake_mode():
             opt = adamw_init(params, oc)
-        fn = train_step(lambda p, b: autoint.loss_fn(p, b, cfg), oc)
-        args = (params, opt, autoint.input_specs(cfg, "train", batch, device=device))
+        fn = train_step(lambda p, b: autoint.loss_fn(p, b, cfg), oc, group=rank.group)
+        args = (params, opt, autoint.input_specs(cfg, "train", rank.rows, device=device))
     elif kind == "serve":
         def fn(p, b):
             return autoint.forward(p, b, cfg)
 
         args = (autoint.abstract_params(cfg, device),
-                autoint.input_specs(cfg, "serve", batch, device=device))
+                autoint.input_specs(cfg, "serve", rank.rows, device=device))
     else:
         def fn(p, b):
             return autoint.retrieval_score(p, b, cfg)
 
         args = (autoint.abstract_params(cfg, device),
-                autoint.input_specs(cfg, "retrieval", batch, shape["n_candidates"], device))
-    return fn, args, recsys_model_flops(cfg, shape)
+                autoint.input_specs(cfg, "retrieval", rank.rows, shape["n_candidates"],
+                                    device))
+    return rank.run(fn), args, recsys_model_flops(cfg, shape)
 
 
 def recsys_model_flops(cfg, shape: Dict) -> float:
@@ -474,15 +603,17 @@ def default_hw(device) -> HW:
 
 def dryrun_cell(arch_id: str, shape_id: str, mesh_kind: str = "card", device="cuda",
                 hw: Optional[HW] = None, reduced: bool = False) -> Dict[str, Any]:
-    """The record of one cell (see module); ``reduced`` traces the arch's
-    reduced config at the same shape."""
-    if mesh_kind != "card":
-        raise NotImplementedError(
-            f"mesh {mesh_kind!r}: the port's pod meshes wait for the sharded live "
-            "state (ROADMAP A8e); dry-run --mesh card")
+    """The record of one cell on ``mesh_kind`` (:data:`MESHES`; see
+    module); ``reduced`` traces the arch's reduced config at the same
+    shape."""
+    if mesh_kind not in MESHES:
+        raise ValueError(f"unknown mesh {mesh_kind!r}: one of {sorted(MESHES)}")
     spec = configs.get_spec(arch_id)
     shape = spec.shapes[shape_id]
+    mesh_shape, axes = MESHES[mesh_kind]
+    n_devices = math.prod(mesh_shape)
     rec: Dict[str, Any] = {"arch": arch_id, "shape": shape_id, "mesh": mesh_kind,
+                           "mesh_shape": dict(zip(axes, mesh_shape)),
                            "device": str(device), "reduced": reduced,
                            "shape_params": dict(shape)}
     skip = spec.skips.get(shape_id)
@@ -495,14 +626,15 @@ def dryrun_cell(arch_id: str, shape_id: str, mesh_kind: str = "card", device="cu
     rec["param_mode"] = PARAM_MODE.get((arch_id, shape_id), "fsdp")
     rec["microbatch"] = MICROBATCH.get((arch_id, shape_id), 1) if spec.family == "lm" else 1
     try:
-        with common.fake_mode():
-            fn, args, model_flops = CELLS[spec.family](spec, shape_id, shape, device)
-            result = trace(fn, args, hw, 1, model_flops)
+        with fake_ranks(mesh_shape, axes, device) as mesh, common.fake_mode():
+            fn, args, model_flops = CELLS[spec.family](
+                spec, shape_id, shape, device, mesh=None if n_devices == 1 else mesh)
+            result = trace(fn, args, hw, n_devices, model_flops)
     except Exception as e:  # record failures — they are bugs to fix
         rec.update(status="failed", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
         return rec
-    rec.update(status="ok", n_devices=1, model_flops=model_flops, **result)
+    rec.update(status="ok", n_devices=n_devices, model_flops=model_flops, **result)
     return rec
 
 
@@ -594,10 +726,12 @@ def palgol_partition_cell(n_shards: int = 256, scale: int = 18,
 
 
 def summary(rec: Dict[str, Any]) -> str:
-    """One line of an ``ok`` record: peak GB, fits, bottleneck, bound."""
+    """One line of an ``ok`` record: peak GB, fits, collective GB a rank,
+    bottleneck, bound."""
     m, r = rec["memory"], rec["roofline"]
     return (f"ok: trace={rec['trace_s']:.2f}s peak/dev={m['peak_per_device_bytes'] / 1e9:.2f}GB "
-            f"fits={m['fits']} bottleneck={r['bottleneck']} "
+            f"fits={m['fits']} coll/dev={rec['collectives']['total'] / 1e9:.3f}GB "
+            f"bottleneck={r['bottleneck']} "
             f"step_lower_bound={r['step_lower_bound_s']:.4g}s "
             f"roofline_frac={r.get('roofline_fraction', 0):.3f}")
 
@@ -606,7 +740,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="card", choices=["card"])
+    ap.add_argument("--mesh", default="card", choices=["card", "single", "multi", "both"],
+                    help="both: single and multi")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reduced", action="store_true", help="each arch's reduced config")
@@ -622,19 +757,20 @@ def main(argv=None) -> int:
         palgol_partition_cell(args.shards, args.graph_scale, Path(args.out))
         return 0
     archs = configs.all_arch_ids() if (args.all or not args.arch) else [args.arch]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     out_root = Path(args.out)
     n_ok = n_fail = n_skip = 0
-    for arch in archs:
+    for mesh_kind, arch in ((m, a) for m in meshes for a in archs):
         spec = configs.get_spec(arch)
         for shape_id in ([args.shape] if args.shape else list(spec.shapes)):
-            path = out_root / args.mesh / f"{arch}__{shape_id}.json"
+            path = out_root / mesh_kind / f"{arch}__{shape_id}.json"
             if args.skip_existing and path.exists():
                 if json.loads(path.read_text()).get("status") == "ok":
-                    print(f"[cached] {args.mesh} {arch} {shape_id}")
+                    print(f"[cached] {mesh_kind} {arch} {shape_id}")
                     n_ok += 1
                     continue
-            print(f"[dryrun] {args.mesh} {arch} {shape_id} ...", flush=True)
-            rec = dryrun_cell(arch, shape_id, args.mesh, args.device, reduced=args.reduced)
+            print(f"[dryrun] {mesh_kind} {arch} {shape_id} ...", flush=True)
+            rec = dryrun_cell(arch, shape_id, mesh_kind, args.device, reduced=args.reduced)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(rec, indent=2))
             st = rec["status"]

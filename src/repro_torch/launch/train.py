@@ -33,19 +33,29 @@ restored to host memory — into the live tensors before it runs
 makes no second copy of the state on the card.
 
 On several ranks (a process group of ``world`` ranks: the JAX trainer's
-``(world, 1)`` mesh) every rank holds the whole state and runs the same
-step, as :func:`data_parallel` splits the batch: an LM batch's rows over
-the ranks (each rank's loss and gradients on its rows, averaged over the
-ranks: JAX's psum over the data axes), a GNN's full graph whole on every
-rank with the model on the mesh, whose regions split the edges. The
-checkpoints record the state in JAX's FSDP layout (each leaf's spec) and
-rank 0 writes them; the live state is not sharded (ROADMAP A8e). The GNN
-and LM families (dense and MoE) train so; the recsys family raises.
+``(world, 1)`` mesh) each rank runs the same step on its share of the
+batch (:func:`data_parallel`): an LM's or AutoInt's rows split over the
+ranks (loss and replicated gradients averaged over them in float32: JAX's
+psum over the data axes), or a GNN's full graph whole on every rank with
+the model on the mesh, whose regions split the edges (likewise a batch the
+ranks do not divide). The live state is placed as JAX's ``main`` places it
+(``param_shardings`` in ``fsdp`` mode, the moments like the parameters;
+:func:`shard_state_`): each rank holds only its slice of every leaf the
+rules split — the LM's matrices and embeddings over ``data`` — and the
+whole of every other (norms, the router; GNN and AutoInt parameters are
+``P()``). The model gathers a sharded leaf where it uses it, one layer at a
+time (``dist.sharding.Gather``), and the gather's backward reduce-scatters
+its gradient in float32 and averages it over the data ranks, so AdamW
+updates each shard in place; the clipping norm is the whole gradient's.
+The checkpoints hold whole arrays with the leaves' specs: the snapshot
+gathers the shards into rank 0's host buffers, rank 0 writes, and a
+restore hands each rank its slice.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -81,9 +91,8 @@ from repro_torch.optim import (
     opt_state_tree,
 )
 
-#: the families that train on a multi-rank mesh (the recsys family's
-#: vocab-sharded tables are not ported: ROADMAP A8d)
-MESH_FAMILIES = ("lm", "gnn")
+#: the families that train on a multi-rank mesh (all three)
+MESH_FAMILIES = ("lm", "gnn", "recsys")
 
 
 def make_train_mesh(device="cuda") -> shd.Mesh:
@@ -182,13 +191,17 @@ def accumulate(loss_fn: Callable, params, batch, micro: int):
 
 
 def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group=None,
-              micro: int = 1):
+              micro: int = 1, shards: Optional["Shards"] = None):
     """The JAX ``step_fn``: ``step(state, batch) -> (state, {"loss"})`` with
     ``state = {"params", "opt"}``, both updated in place. With ``group``
     (:func:`data_parallel`'s) ``batch`` is this rank's share, and the loss
-    and gradients are averaged over the group's ranks in float32. With
+    and gradients are averaged over the group's ranks in float32 — but for
+    the leaves whose gathers' backwards averaged them already (``shards``,
+    :func:`shard_state_`, which also gives AdamW's clipping norm each
+    shard's group, and the ZeRO-1 leaves their update of a slice). With
     ``micro`` > 1 the gradients are accumulated over that many microbatches
     (:func:`accumulate`; the dry-run's largest train cells)."""
+    shards = shards or Shards()
 
     def step(state: Dict[str, Any], batch) -> tuple:
         p, o = state["params"], state["opt"]
@@ -199,45 +212,169 @@ def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group
         if group is not None:
             n = dist.get_world_size(group)
             loss = coll.psum(loss.float(), group) / n
-            g = {k: (coll.psum(v.float(), group) / n).to(v.dtype) for k, v in g.items()}
+            g = {k: v if k in shards.averaged else (coll.psum(v.float(), group) / n).to(v.dtype)
+                 for k, v in g.items()}
         lr_scale = cosine_schedule(o["step"], warmup=warmup, total=total)
-        adamw_update_(p, g, o, oc, lr_scale=lr_scale)
+        if not shards.zero1:
+            adamw_update_(p, g, o, oc, lr_scale=lr_scale, norm_groups=shards.norm_groups())
+            return state, {"loss": loss}
+        # ZeRO-1: a leaf's moments are a slice of its parameter; the rank
+        # updates that slice (its gradient reduce-scattered onto it) and the
+        # group's ranks gather the updated slices back into the parameter
+        leaves, views = named_leaves(p), {}
+        for k, (d, grp) in shards.zero1.items():
+            n, r = dist.get_world_size(grp), dist.get_rank(grp)
+            g[k] = (coll.reduce_scatter_dim(g[k].float(), d, grp) / n).to(g[k].dtype)
+            rows = leaves[k].shape[d] // n
+            views[k] = leaves[k].detach().narrow(d, r * rows, rows)
+        adamw_update_({k: views.get(k, t) for k, t in leaves.items()}, g, o, oc,
+                      lr_scale=lr_scale, norm_groups=shards.norm_groups())
+        with torch.no_grad():
+            for k, (d, grp) in shards.zero1.items():
+                leaves[k].copy_(coll.all_gather_dim(views[k], d, grp))
         return state, {"loss": loss}
 
     return step
 
 
+def batch_axes(family: str, mesh: shd.Mesh) -> Tuple[str, ...]:
+    """The mesh axes a family's batch rows are split over
+    (``batch_shardings``: an LM's over the data axes, AutoInt's over every
+    axis); a GNN's graph is whole on every rank."""
+    return {"lm": shd.data_axes(mesh), "recsys": shd.all_axes(mesh), "gnn": ()}[family]
+
+
 def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
     """How JAX's sharded step takes its batches on ``mesh``: ``(batch_for_step,
-    group, on_mesh)``. On several ranks an LM batch whose rows the data
-    ranks divide is split over them: each rank's step sees its rows, runs
-    the model off the mesh and averages over ``group`` (:func:`make_step`).
-    Any other batch is whole on every rank and the model runs on the mesh
-    (``on_mesh``; ``group`` None): a GNN's regions split the edges, an MoE
-    layer its tokens. On one rank each batch is placed on the mesh's
-    device, on its 1×1 mesh."""
+    group, on_mesh)``. On several ranks an LM's or AutoInt's batch whose
+    rows the ranks of :func:`batch_axes` divide is split over them: each
+    rank's step sees its rows, runs the model off the mesh and averages over
+    ``group`` (:func:`make_step`). Any other batch is whole on every rank
+    and the model runs on the mesh (``on_mesh``; ``group`` None): a GNN's
+    regions split the edges, an MoE layer its tokens. On one rank each batch
+    is placed on the mesh's device, on its 1×1 mesh."""
     if mesh.device_mesh is None:
         bshard = shd.batch_shardings(family, batch_for_step(0), mesh)
         return (lambda i: place(batch_for_step(i), bshard)), None, True
     if family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"training the {family!r} family on a {mesh.size}-rank mesh is not "
-            f"ported (ROADMAP A8d)")
-    group = shd.axis_group(mesh, shd.data_axes(mesh))
+        raise ValueError(f"unknown family {family!r}")
+    axes = batch_axes(family, mesh)
+    if not axes:
+        return batch_for_step, None, True
+    group = shd.axis_group(mesh, axes)
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    b = batch_for_step(0)["tokens"].shape[0] if family == "lm" else None
-    if b is None or b % n:
+    b = next(iter(batch_for_step(0).values())).shape[0]
+    if b % n:
         return batch_for_step, None, True
     rows = slice(r * b // n, (r + 1) * b // n)
     return (lambda i: {k: v[rows] for k, v in batch_for_step(i).items()}), group, False
+
+
+def params_tree(params):
+    """The parameters in the JAX nesting, over the live tensors."""
+    return tm.params_tree(params) if isinstance(params, tm.TransformerParams) else params
 
 
 def state_tree(params, opt: Dict[str, Any]) -> Dict[str, Any]:
     """The trainer's state in the JAX nesting, ``{"params", "opt"}``, over
     the live tensors (no copy): the tree the supervisor saves and restores,
     keyed as the JAX trainer's checkpoints."""
-    tree = tm.params_tree(params) if isinstance(params, tm.TransformerParams) else params
+    tree = params_tree(params)
     return {"params": tree, "opt": opt_state_tree(params, tree, opt)}
+
+
+def state_layout(family: str, params, mesh: shd.Mesh, mode: str = "fsdp"):
+    """The state's placement as JAX's trainer places it, in the JAX nesting:
+    the parameters by the family's rules in ``mode`` (``fsdp``; ``zero1``:
+    over the model axis only), the moments always in ``fsdp`` mode, the
+    step replicated."""
+    tree = params_tree(params)
+    oshard = shd.param_shardings(family, tree, mesh)
+    pshard = oshard if mode == "fsdp" else shd.param_shardings(family, tree, mesh, mode)
+    return {"params": pshard, "opt": {"m": oshard, "v": oshard,
+                                      "step": shd.replicated(None, mesh)}}
+
+
+@dataclasses.dataclass
+class Shards:
+    """The leaves this rank holds as slices (:func:`shard_state_`), by
+    ``named_leaves``' names: ``params`` and ``opt`` each leaf's sharding
+    (the parameter's, its moments'); ``averaged`` the leaves whose
+    gradients the gathers' backwards average over the batch's ranks;
+    ``zero1`` the leaves whose moments are a slice of the parameter:
+    ``(dimension, process group)`` of that slice."""
+
+    params: Dict[str, shd.NamedSharding] = dataclasses.field(default_factory=dict)
+    opt: Dict[str, shd.NamedSharding] = dataclasses.field(default_factory=dict)
+    averaged: frozenset = frozenset()
+    zero1: Dict[str, Tuple[int, Any]] = dataclasses.field(default_factory=dict)
+
+    def norm_groups(self) -> Dict[str, Any]:
+        """Each sharded gradient's process group over the axes its parts lie
+        on (the moments' layout): where AdamW's clipping norm sums them."""
+        return {k: shd.axis_group(sh.mesh, {a for _, axes in shd.sharded_dims(sh)
+                                            for a in axes})
+                for k, sh in self.opt.items()}
+
+
+#: the MoE's expert stacks (``named_leaves``' names)
+EXPERT_STACKS = ("layers.moe_w1", "layers.moe_w2", "layers.moe_w3")
+
+
+@torch.no_grad()
+def shard_state_(params, opt: Optional[Dict[str, Any]], layout, axes: Sequence[str] = (),
+                 local_experts: bool = False) -> Shards:
+    """Hold every leaf that ``layout`` (:func:`state_layout`) splits over
+    more than one rank as this rank's slice of it — the parameter (gathered
+    where the model uses it, the batch split over ``axes``) and its two
+    moments in ``opt``, if given — releasing the whole. With
+    ``local_experts`` the expert stacks are gathered over the data axes
+    only: the model axis splits the experts, each rank computing its own
+    (``moe_ffn_ep``). Returns the :class:`Shards` (empty on one rank, or
+    where the rules give ``P()``)."""
+    if layout["opt"]["step"].mesh.device_mesh is None:
+        return Shards()
+    leaves = named_leaves(params)
+    name_of = {id(t): k for k, t in leaves.items()}
+    names = [name_of[id(t)] for _, t in _flatten(params_tree(params))]
+    psplit = {k: sh for k, (_, sh) in zip(names, _flatten(layout["params"]))
+              if shd.sharded_dims(sh)}
+    osplit = {k: sh for k, (_, sh) in zip(names, _flatten(layout["opt"]["m"]))
+              if shd.sharded_dims(sh)}
+    if not osplit:
+        return Shards()
+    if not isinstance(params, tm.TransformerParams):
+        raise NotImplementedError("FSDP shards of a family other than the LM's")
+    gathers = {k: shd.Gather.of(sh, axes, ("model",) if local_experts and k in EXPERT_STACKS
+                                else ()) for k, sh in psplit.items()}
+    averaged = set()
+    for k, gather in gathers.items():
+        means = {a for d, _, mean in gather.dims if mean
+                 for a in dict(shd.sharded_dims(psplit[k]))[d]}
+        if means and means != set(axes):
+            raise NotImplementedError(f"{k}: split over part of the batch axes {axes}")
+        averaged |= {k} if means else set()
+    zero1 = {}
+    for k, sh in osplit.items():
+        held = {(d, a) for d, names_ in shd.sharded_dims(psplit[k]) for a in names_} \
+            if k in psplit else set()
+        extra = [(d, tuple(a for a in names_ if (d, a) not in held))
+                 for d, names_ in shd.sharded_dims(sh)]
+        extra = [(d, names_) for d, names_ in extra if names_]
+        if not extra:
+            continue
+        if len(extra) > 1 or set(extra[0][1]) != set(axes):
+            raise NotImplementedError(f"{k}: moments split past the parameter off the batch axes")
+        zero1[k] = (extra[0][0], shd.axis_group(sh.mesh, extra[0][1]))
+        averaged.add(k)  # its slice's reduce-scatter averages it
+
+    def cut(t, sh):
+        return shd.shard_of(t.detach(), sh).clone(memory_format=torch.contiguous_format)
+
+    params.shard_({k: cut(leaves[k], sh) for k, sh in psplit.items()}, gathers)
+    for part in ("m", "v") if opt is not None else ():
+        opt[part].update({k: cut(opt[part][k], sh) for k, sh in osplit.items()})
+    return Shards(params=psplit, opt=osplit, averaged=frozenset(averaged), zero1=zero1)
 
 
 def host_copy(tree):
@@ -269,27 +406,27 @@ class Supervised:
                  opt_state: Optional[Dict[str, Any]] = None, log_every: int = 10,
                  log=print, device="cuda"):
         self.params = params
-        self.opt = opt_state or adamw_init(params, oc)
         self.mesh = make_train_mesh(device)
         batches, group, self.on_mesh = data_parallel(family, batch_for_step, self.mesh)
-        live = state_tree(params, self.opt)
         dev = resolve_device(self.mesh.device)
-        if any(t.to(dev) is not t for _, t in _flatten(live)):  # ``to``: itself if there
+        if any(t.to(dev) is not t for t in named_leaves(params).values()):  # itself if there
             raise ValueError(f"the state is not on the mesh's device {dev}")
-        # the layout the checkpoints record, as JAX places the state: params
-        # by the family's path-keyed rules, the moments like the params
-        pshard = shd.param_shardings(family, live["params"], self.mesh)
-        layout = {"params": pshard, "opt": {"m": pshard, "v": pshard,
-                                            "step": shd.replicated(self.opt["step"], self.mesh)}}
-        specs = ({k: spec_json(sh.spec) for k, sh in _flatten(layout)}
-                 if self.mesh.device_mesh is not None else None)
+        # the state placed as JAX places it: each rank keeps its FSDP shards
+        # (the moments made on them when none are given)
+        self.layout = state_layout(family, params, self.mesh)
+        self.shards = shard_state_(params, opt_state, self.layout,
+                                   () if group is None else batch_axes(family, self.mesh))
+        self.opt = opt_state or adamw_init(params, oc)
+        multi = self.mesh.device_mesh is not None
+        flat_layout = dict(_flatten(self.layout))
         self._view = None
         # the step updates the live tensors in place, so the supervisor's
-        # restore-and-replay template must be durable: a host copy
-        self.init_state = host_copy(live)
+        # restore-and-replay template must be durable: a host copy (of the
+        # shards)
+        self.init_state = host_copy(state_tree(params, self.opt))
         self.losses: List[Tuple[int, float]] = []
         self.log, self.log_every = log, log_every
-        self._step = make_step(loss_fn, oc, warmup, total, group)
+        self._step = make_step(loss_fn, oc, warmup, total, group, shards=self.shards)
         self._last = time.perf_counter()
         self.sup = TrainSupervisor(
             self._wrapped_step,
@@ -300,22 +437,33 @@ class Supervised:
             straggler=StragglerMonitor(),
             on_straggler=lambda ev: log(f"[straggler] {ev}"),
         )
-        self.sup.ckpt = AsyncCheckpointer(ckpt_dir, specs=specs)
+        #: flat key → sharding of each state leaf held as this rank's slice
+        self.shardings = {k: sh for k, sh in flat_layout.items() if shd.sharded_dims(sh)}
+        self.sup.ckpt = AsyncCheckpointer(
+            ckpt_dir, specs={k: spec_json(sh.spec) for k, sh in flat_layout.items()}
+            if multi else None, shards=self.shardings if multi else None)
 
     def tree(self) -> Dict[str, Any]:
         """The live state in the JAX nesting (what the step hands back)."""
         self._view = state_tree(self.params, self.opt)
         return self._view
 
+    def state_bytes(self) -> int:
+        """Bytes of the live parameters and moments this rank holds."""
+        return sum(t.numel() * t.element_size() for _, t in _flatten(self.tree()))
+
     @torch.no_grad()
     def load_(self, state):
-        """Copy ``state`` (a host copy or a restored checkpoint, in the JAX
-        nesting) into the live tensors; nothing if it is the live state."""
+        """Copy ``state`` (in the JAX nesting: a host copy of the shards, or
+        a restored checkpoint's whole leaves, of which this rank takes its
+        slice) into the live tensors; nothing if it is the live state."""
         if state is self._view:
             return
         for (k, dst), (k2, src) in zip(_flatten(self.tree()), _flatten(state)):
             if k != k2:
                 raise KeyError(f"state leaf {k2!r} where {k!r} was expected")
+            if k in self.shardings and src.shape != dst.shape:
+                src = shd.shard_of(src, self.shardings[k])
             dst.copy_(src)
 
     def _wrapped_step(self, state, batch):
@@ -373,10 +521,12 @@ def train(arch: str, reduced: bool = False, steps: int = 100, batch: int = 8,
         log(f"done at step {step}: loss={loss:.4f} retries={sup.retries} "
             f"restarts={sup.restarts} stragglers={len(sup.straggler.events)}")
         return [x for _, x in run.losses]
-    state = {"params": p, "opt": opt_state or adamw_init(p, oc)}
     mesh = make_train_mesh(device)
     batches, group, on_mesh = data_parallel(spec.family, batch_for_step, mesh)
-    step_fn = make_step(loss_fn, oc, warmup, steps, group)
+    shards = shard_state_(p, opt_state, state_layout(spec.family, p, mesh),
+                          () if group is None else batch_axes(spec.family, mesh))
+    state = {"params": p, "opt": opt_state or adamw_init(p, oc)}
+    step_fn = make_step(loss_fn, oc, warmup, steps, group, shards=shards)
     losses: List[float] = []
     last = time.perf_counter()
     if on_mesh:

@@ -34,11 +34,20 @@ kernels; ``forward`` returns the balance loss summed over the layers, as
 the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
 
 On a multi-rank mesh (``dist.sharding.activate``) every rank holds the
-tokens, the parameters and the activations whole — the JAX module's
-``constrain`` calls sit where its do, and change nothing on a plain tensor
-— and the MoE FFN runs expert-parallel (``moe.moe_ffn_ep``): each rank
-routes its data shard's tokens to its model shard's experts, and the
-combine's collectives hand every rank the whole ``[T, D]``.
+tokens and the activations whole — the JAX module's ``constrain`` calls
+sit where its do, and change nothing on a plain tensor — and the MoE FFN
+runs expert-parallel (``moe.moe_ffn_ep``): each rank routes its data
+shard's tokens to its model shard's experts, and the combine's
+collectives hand every rank the whole ``[T, D]``.
+
+The parameters may be held as FSDP shards (:meth:`TransformerParams.
+shard_`, the trainer's live state): each sharded leaf is then gathered
+whole where it is used (``dist.sharding.Gather``) — a layer's weights
+inside the layer's function, so that under remat only one layer's whole
+weights are alive and the recompute gathers them again; ``embed`` and
+``unembed`` where they are read — and the gathers' backwards hand each
+shard its gradient. Whole parameters (one rank, serving) take the same
+code with no collective.
 """
 
 from __future__ import annotations
@@ -71,6 +80,9 @@ class TransformerParams(nn.Module):
 
     def __init__(self, tensors: Mapping[str, Any], trainable: bool = False):
         super().__init__()
+        #: leaf name (as ``named_parameters``) → its ``dist.sharding.Gather``
+        #: for a leaf held as this rank's shard (:meth:`shard_`)
+        self.gathers: Dict[str, Any] = {}
         param = lambda t: nn.Parameter(t, requires_grad=trainable)  # noqa: E731
         self.embed = param(tensors["embed"])
         self.unembed = param(tensors["unembed"]) if "unembed" in tensors else None
@@ -84,12 +96,42 @@ class TransformerParams(nn.Module):
         return {name: t[i] for name, t in self.layers.items()}
 
     def map_tensors(self, fn) -> "TransformerParams":
-        """A new module holding ``fn`` of each tensor (trainable as this one)."""
+        """A new module holding ``fn`` of each tensor (trainable as this
+        one, its leaves gathered as this one's)."""
         tensors = {"embed": fn(self.embed), "ln_f": fn(self.ln_f),
                    "layers": {name: fn(t) for name, t in self.layers.items()}}
         if self.unembed is not None:
             tensors["unembed"] = fn(self.unembed)
-        return TransformerParams(tensors, trainable=self.embed.requires_grad)
+        out = TransformerParams(tensors, trainable=self.embed.requires_grad)
+        out.gathers = dict(self.gathers)
+        return out
+
+    @torch.no_grad()
+    def shard_(self, shards: Mapping[str, torch.Tensor], gathers: Mapping[str, Any]):
+        """Hold each leaf named in ``shards`` (``named_parameters``' names)
+        as that tensor, this rank's slice of it, gathered by ``gathers``'
+        entry where it is used; the whole leaf is released."""
+        for name, t in shards.items():
+            p = nn.Parameter(t, requires_grad=self.embed.requires_grad)
+            if name.startswith("layers."):
+                self.layers[name[len("layers."):]] = p
+            else:
+                setattr(self, name, p)
+        self.gathers = dict(gathers)
+
+    def whole(self, name: str) -> torch.Tensor:
+        """The leaf ``name`` whole (``embed``, ``unembed``, ``ln_f``)."""
+        t = getattr(self, name)
+        g = self.gathers.get(name)
+        return t if g is None else g(t)
+
+    def whole_layer(self, lp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A layer's parameters (:meth:`layer`'s views) with every sharded
+        one gathered whole."""
+        if not self.gathers:
+            return lp
+        return {k: t if f"layers.{k}" not in self.gathers else
+                self.gathers[f"layers.{k}"](t, lead=1) for k, t in lp.items()}
 
     def layer_list(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's parameters from one ``unbind`` of each stacked
@@ -277,11 +319,14 @@ def _ffn_block(p, x, cfg):
 
 
 def _embed(params: TransformerParams, tokens, cfg):
-    return params.embed[tokens.long()].to(cfg.cdtype)
+    return params.whole("embed")[tokens.long()].to(cfg.cdtype)
 
 
-def _layer_fn(lp, x, pos, cfg):
-    """One layer of the forward: (x after the layer, its MoE aux)."""
+def _layer_fn(lp, x, pos, cfg, whole=None):
+    """One layer of the forward: (x after the layer, its MoE aux). ``whole``
+    gathers the layer's sharded weights (``TransformerParams.whole_layer``)."""
+    if whole is not None:
+        lp = whole(lp)
     a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
     x = constrain(x + a, (BATCH, None, None))
     f, aux = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
@@ -297,11 +342,12 @@ def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
+    whole = params.whole_layer if params.gathers else None
     for lp in params.layer_list():
         if remat:
-            x, aux_l = checkpoint(_layer_fn, lp, x, pos, cfg, use_reentrant=False)
+            x, aux_l = checkpoint(_layer_fn, lp, x, pos, cfg, whole, use_reentrant=False)
         else:
-            x, aux_l = _layer_fn(lp, x, pos, cfg)
+            x, aux_l = _layer_fn(lp, x, pos, cfg, whole)
         aux = aux + aux_l
     return common.rms_norm(x, params.ln_f), aux
 
@@ -316,7 +362,7 @@ def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.T
 
 
 def logits_from_hidden(params: TransformerParams, hidden, cfg):
-    table = params.embed if cfg.tie_embeddings else params.unembed
+    table = params.whole("embed" if cfg.tie_embeddings else "unembed")
     return constrain(hidden @ table.T, (BATCH, None, "model"))  # keep vocab sharded
 
 
@@ -374,7 +420,7 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
     )
     bidx = torch.arange(b, device=x.device)
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
+        lp = params.whole_layer(params.layer(i))
         kc, vc = cache["k"][i], cache["v"][i]
         a, nk, nv = _attn_block(
             lp, common.rms_norm(x, lp["ln1"]), q_pos, k_pos_full, cfg,
@@ -412,7 +458,7 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     ks = torch.zeros(shape, dtype=x.dtype, device=dev)
     vs = torch.zeros(shape, dtype=x.dtype, device=dev)
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
+        lp = params.whole_layer(params.layer(i))
         a, nk, nv = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
         x = constrain(x + a, (BATCH, None, None))
         x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]

@@ -137,13 +137,16 @@ def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     ``model`` axis that divides the experts, and data axes (pod × data) that
     divide the tokens, the expert-parallel :func:`moe_ffn_ep` — also when
     ``model`` has size 1, as the trainer's ``(world, 1)`` mesh has it;
-    otherwise :func:`moe_ffn_local`, on every rank alike."""
+    otherwise :func:`moe_ffn_local`, on every rank alike. On a mesh whose
+    data axes split the batch already (``dist.sharding.batch_split``: a
+    data-parallel step) the tokens are the rank's own and only the
+    ``model`` axis splits the experts."""
     from repro_torch.dist import sharding as shd
 
     mesh = shd.active_mesh()
     if mesh is not None and mesh.device_mesh is not None and "model" in mesh.shape:
         n_model = mesh.shape["model"]
-        daxes = shd.data_axes(mesh)
+        daxes = () if shd.batch_split() else shd.data_axes(mesh)
         n_data = math.prod(mesh.shape[a] for a in daxes)
         if mcfg.n_experts % n_model == 0 and x.shape[0] % n_data == 0:
             return moe_ffn_ep(x, params, mcfg, mesh, daxes, n_data, n_model)
@@ -196,7 +199,7 @@ def _experts(expert_in, w1, w3, w2):
     return torch.bmm(h, w2).reshape(e * cap, d)
 
 
-def _own_rows(vals, owner, rank: int, group):
+def _own_rows(vals, owner, rank: int, group, most_bound: int):
     """The weighted rows ``vals [T·k, D]`` of every (token, slot) from the
     rank that owns its expert, gathered over ``group`` into place (0 for a
     dropped slot). ``owner [T·k]`` names that rank (the group's size for a
@@ -204,17 +207,24 @@ def _own_rows(vals, owner, rank: int, group):
     each works out from it where every rank's rows go, and sends only its
     own (padded to the most any rank holds): one collective of about
     ``T·k·D`` elements, where a psum of ``vals`` would carry twice that.
-    The result equals that psum bit for bit (one nonzero row among zeros)."""
+    The result equals that psum bit for bit (one nonzero row among zeros).
+    On fake tensors (a dry-run) the rows a rank sends are the most it can
+    hold, ``most_bound`` (its experts' slots), at placeholder positions."""
     from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import fake
 
     n, world = vals.shape[0], torch.distributed.get_world_size(group)
-    counts = torch.bincount(owner, minlength=world + 1)[:world]
-    most = int(counts.max())
-    order = torch.argsort(owner, stable=True)  # each rank's slots, in order
-    col = torch.arange(most, device=vals.device)
-    starts = torch.cumsum(counts, 0) - counts
-    idx = torch.where(col < counts[:, None], order[(starts[:, None] + col).clamp(max=n - 1)],
-                      n)  # [world, most], n: padding
+    if fake.is_fake(owner):
+        idx = torch.full((world, min(n, most_bound)), n, dtype=torch.long, device=vals.device)
+    else:
+        counts = torch.bincount(owner, minlength=world + 1)[:world]
+        most = int(counts.max())
+        order = torch.argsort(owner, stable=True)  # each rank's slots, in order
+        col = torch.arange(most, device=vals.device)
+        starts = torch.cumsum(counts, 0) - counts
+        idx = torch.where(col < counts[:, None],
+                          order[(starts[:, None] + col).clamp(max=n - 1)],
+                          n)  # [world, most], n: padding
     rows = coll.all_gather_rows(vals[idx[rank].clamp(max=n - 1)], group)
     out = vals.new_zeros((n + 1,) + tuple(vals.shape[1:])).index_copy(0, idx.reshape(-1), rows)
     return out[:n]
@@ -247,7 +257,10 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
     axes. ``x`` and the parameters are replicated inputs (each rank holds
     them whole): their gradients sum over the ranks; the shared experts run
     on every rank over all tokens, as JAX runs them outside the region.
-    Returns the replicated ``(y [T, D], aux)``.
+    Expert stacks of ``E/n_model`` experts (an FSDP state gathered over the
+    data axes only) are this rank's own: taken as they are, their gradients
+    summed over the data axes alone. Returns the replicated ``(y [T, D],
+    aux)``.
     """
     from repro_torch.dist import collectives as coll
     from repro_torch.dist import sharding as shd
@@ -256,7 +269,7 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
     e, k = mcfg.n_experts, mcfg.top_k
     e_loc, t_loc = e // n_model, t // n_data
     cap_loc = capacity(t_loc, mcfg)
-    world = shd.axis_group(mesh, mesh.axis_names)
+    world = shd.axis_group(mesh, tuple(daxes) + ("model",))
     g_data = shd.axis_group(mesh, daxes)
     g_model = shd.axis_group(mesh, ("model",))
     i = torch.distributed.get_rank(g_data) if n_data > 1 else 0
@@ -274,8 +287,12 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
     dev = x.device
     token_id = torch.arange(t_loc, dtype=torch.int32, device=dev)[:, None].expand(
         t_loc, k).reshape(-1)
-    w1, w3, w2 = (coll.copy_in(params[w], world)[j * e_loc:(j + 1) * e_loc]
-                  for w in ("w1", "w3", "w2"))
+    if params["w1"].shape[0] == e_loc < e:  # this rank's own experts
+        w1, w3, w2 = (coll.copy_in(params[w], g_data) if n_data > 1 else params[w]
+                      for w in ("w1", "w3", "w2"))
+    else:
+        w1, w3, w2 = (coll.copy_in(params[w], world)[j * e_loc:(j + 1) * e_loc]
+                      for w in ("w1", "w3", "w2"))
     expert_in = dispatch(x_loc, slot, token_id, n_slots).reshape(e_loc, cap_loc, d)
     out_slots = _experts(expert_in, w1, w3, w2)
     del expert_in
@@ -286,7 +303,7 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
     vals = vals * weight if vals.requires_grad or weight.requires_grad else vals.mul_(weight)
     if n_model > 1:  # the EP combine
         owner = torch.where(keep, expert_idx.reshape(-1).long() // e_loc, n_model)
-        vals = _own_rows(vals, owner, j, g_model)
+        vals = _own_rows(vals, owner, j, g_model, n_slots)
     offsets = torch.arange(0, k * (t_loc + 1), k, dtype=torch.int32, device=dev)
     y = graph_ops.segment_reduce(vals, token_id, t_loc, "sum", offsets=offsets)
     if n_data > 1:

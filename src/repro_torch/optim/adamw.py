@@ -8,6 +8,11 @@ updates both in place under ``torch.no_grad()``: :func:`adamw_update_`.
 The update stays a loop over the leaves, one fused f32 pass each, as the
 JAX function's note explains (a map over layers raised its peak memory).
 
+On FSDP shards (the trainer's live state on a mesh) the update of each
+leaf runs on its shard as it is; only the clipping norm reaches across the
+ranks: ``norm_groups`` names the process group over which each sharded
+leaf's parts lie, and the norm is that of the whole gradient.
+
 A parameter tree is any nesting of dicts, lists and ``nn.Module``s whose
 leaves are tensors (``None`` is skipped); :func:`named_leaves` names each
 leaf by its path, and the optimiser state is keyed by those names.
@@ -16,10 +21,12 @@ leaf by its path, and the optimiser state is keyed by those names.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+
+from repro_torch.dist import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,27 +101,41 @@ def opt_state_tree(params, tree, state: Mapping[str, Any]) -> Dict[str, Any]:
     return {"m": pick(state["m"], tree), "v": pick(state["v"], tree), "step": state["step"]}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """√(Σ over the tensors of Σ x²), each squared in float32."""
-    total = 0
-    for x in tensors:
-        total = total + x.float().square().sum()
+def global_norm(tensors, groups: Optional[Sequence[Any]] = None) -> torch.Tensor:
+    """√(Σ over the tensors of Σ x²), each squared in float32. ``groups``
+    (one per tensor, ``None`` for a whole one) marks each tensor that is
+    this rank's part of a leaf split over that process group: the parts'
+    squares are summed over the group (one ``all_reduce`` a group), a whole
+    tensor's counted once."""
+    tensors = list(tensors)
+    groups = list(groups) if groups is not None else [None] * len(tensors)
+    total, split = 0, {}
+    for x, g in zip(tensors, groups):
+        sq = x.float().square().sum()
+        if g is None:
+            total = total + sq
+        else:
+            split[g] = split.get(g, 0) + sq
+    for g, sq in split.items():
+        total = total + collectives.psum(torch.as_tensor(sq, dtype=torch.float32), g)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 @torch.no_grad()
 def adamw_update_(params, grads: Mapping[str, torch.Tensor], state, cfg: AdamWConfig,
-                  lr_scale=1.0):
+                  lr_scale=1.0, norm_groups: Optional[Mapping[str, Any]] = None):
     """One AdamW step in place: ``params``' leaves and ``state``'s moments
     and step are overwritten. ``grads`` maps each leaf's name to its
     gradient. Math in float32, clipped by the global norm with
-    ``min(1, clip / max(gn, 1e-9))``, bias corrections from the
+    ``min(1, clip / max(gn, 1e-9))`` (``norm_groups``: each sharded leaf's
+    process group, :func:`global_norm`), bias corrections from the
     incremented int32 step; parameters keep their dtype. Returns ``state``."""
     leaves = named_leaves(params)
     step = state["step"] + 1
     scale = None  # each leaf's f32 gradient is made (and scaled) in the loop
     if cfg.clip_norm is not None:
-        gn = global_norm(grads[k] for k in leaves)
+        gn = global_norm([grads[k] for k in leaves],
+                         [(norm_groups or {}).get(k) for k in leaves])
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)

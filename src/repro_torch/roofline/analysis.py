@@ -14,7 +14,8 @@ HBM3 3.35 TB/s, NVLink 450 GB/s a direction, 80 GB), except that
 reads a step's collectives from the partitioned HLO; the port has no HLO,
 so :func:`collective_bytes_from_counts` charges the same ring formulas
 (:func:`ring_bytes`) to the per-kind bytes that ``dist.collectives.COUNTS``
-records as the step runs:
+records as the step runs, each call over its own group (a gather over the
+data axis of a 16 × 16 mesh rings over 16 ranks, not 256):
 
     all-gather       ≈ output_bytes × (n-1)/n
     reduce-scatter   ≈ input_bytes  × (n-1)/n
@@ -80,13 +81,17 @@ def ring_bytes(kind: str, out_bytes: float, n: int) -> float:
 
 def collective_bytes_from_counts(counts: Mapping[str, int], n_devices: int
                                  ) -> Dict[str, float]:
-    """Per-device wire bytes per collective kind from ``COUNTS`` (each
-    call's *input* bytes summed under ``<name>_bytes``), every call over
-    ``n_devices``: an all-gather's output is n × its input, a
+    """Per-device wire bytes per collective kind from ``COUNTS``: the
+    wire bytes each call recorded over its own group (``<name>_wire_bytes``)
+    where there are any, else each call's *input* bytes (``<name>_bytes``)
+    charged over ``n_devices``: an all-gather's output is n × its input, a
     reduce-scatter's its input / n."""
     n = n_devices
     per_kind = {k: 0.0 for k in COLLECTIVE_OPS}
     for name, kind in COUNTED.items():
+        if f"{name}_wire_bytes" in counts:
+            per_kind[kind] += float(counts[f"{name}_wire_bytes"])
+            continue
         nbytes = float(counts.get(f"{name}_bytes", 0))
         out = {"all-gather": nbytes * n, "reduce-scatter": nbytes / max(n, 1)}.get(kind, nbytes)
         per_kind[kind] += ring_bytes(kind, out, n)

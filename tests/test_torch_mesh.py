@@ -24,7 +24,9 @@ JAX's, values and gradients:
 * the reduced GNN forwards (PNA and GraphCast fused) and a reduced
   deepseek-moe prefill;
 * two steps of the trainer (``Supervised`` against JAX's ``step_fn`` on
-  ``(4, 1)``): the losses, the parameters and first moments after them.
+  ``(4, 1)``): the losses, the parameters and first moments after them —
+  gat-cora, deepseek-moe (rows split, and a batch whole), the dense
+  h2o-danube on its FSDP-sharded state and AutoInt with its tables whole.
 
 Tolerances: exact for int, bool, min, max, or and and; ``TOL`` (f32 2e-5,
 tests/test_kernels.py's) relative, or ``TOL`` · max|JAX's| absolute (sums
@@ -234,10 +236,11 @@ TRAIN_KEYS = [(arch, part) for arch in ref.TRAIN_ARCHS for part in ("losses", "p
 @pytest.mark.parametrize("arch,part", TRAIN_KEYS)
 def test_train_steps_on_mesh(results, arch, part):
     """Two ``Supervised`` steps on (4, 1) against JAX's ``step_fn`` there
-    (an LM batch of 4 rows split over the ranks, one of 2 rows whole):
-    the losses, and every parameter and first moment after them, within
-    ``TOL``; the LM's checkpointed parameters sharded (FSDP) as JAX's rules
-    place them."""
+    (an LM's or AutoInt's batch of 4 or 16 rows split over the ranks, an
+    LM's of 2 rows whole): the losses, and every parameter and first moment
+    after them (the shards gathered whole), within ``TOL``; the LM's
+    checkpointed parameters sharded (FSDP) as JAX's rules place them, and
+    held so (AutoInt's tables whole: JAX's rule gives them ``P()``)."""
     jax_res, port = results[:2]
     prefix = f"train/{arch}/{part}"
     keys = sorted(k for k in jax_res if k == prefix or k.startswith(prefix + "/"))
@@ -246,6 +249,7 @@ def test_train_steps_on_mesh(results, arch, part):
     for k in keys:
         _close(port[k], jax_res[k], k)
     # the model on the mesh unless the ranks split the batch's rows
-    assert bool(port[f"train/{arch}/on_mesh"]) == (arch != "deepseek-moe-16b")
-    if arch != "gat-cora":
-        assert int(port[f"train/{arch}/sharded"]) > 0
+    assert bool(port[f"train/{arch}/on_mesh"]) == (arch in ("gat-cora", "deepseek-moe-16b@2"))
+    lm = arch not in ("gat-cora", "autoint")
+    assert (int(port[f"train/{arch}/sharded"]) > 0) == lm
+    assert (len(port[f"train/{arch}/held"]) > 0) == lm

@@ -252,9 +252,11 @@ def train_cases(a, res, ckpt_root):
     import json
 
     from repro_torch import configs
+    from repro_torch.dist import sharding as shd
     from repro_torch.checkpoint import latest_step
     from repro_torch.launch.train import Supervised
     from repro_torch.models.gnn import models as gm
+    from repro_torch.models.recsys import autoint
     from repro_torch.models.transformer import model as tm
     from repro_torch.optim import AdamWConfig
 
@@ -270,14 +272,16 @@ def train_cases(a, res, ckpt_root):
             def loss_fn(p, b, cfg=cfg):
                 return gm.loss_fn(p, b, cfg)
         else:
-            cfg, family = configs.get_spec(arch).reduced, "lm"
-            params = tm.params_from_arrays(cfg, ref.unflat(a, "lm/params"), "cpu",
-                                           trainable=True)
-            batches = [{k: v[:rows] for k, v in _tree(a, f"train/lm/batch{i}").items()}
+            cfg = configs.get_spec(arch).reduced
+            family = "recsys" if arch == "autoint" else "lm"
+            model = autoint if family == "recsys" else tm
+            params = model.params_from_arrays(cfg, ref.unflat(a, ref.train_params_key(arch)),
+                                              "cpu", trainable=True)
+            batches = [{k: v[:rows] for k, v in _tree(a, f"train/{arch}/batch{i}").items()}
                        for i in range(ref.TRAIN_STEPS)]
 
-            def loss_fn(p, b, cfg=cfg):
-                return tm.loss_fn(p, b, cfg)
+            def loss_fn(p, b, cfg=cfg, model=model):
+                return model.loss_fn(p, b, cfg)
         ckpt_dir = os.path.join(ckpt_root, case)
         run = Supervised(family, params, loss_fn, lambda i: batches[i], oc,
                          warmup=ref.TRAIN_WARMUP, total=ref.TRAIN_STEPS,
@@ -285,10 +289,12 @@ def train_cases(a, res, ckpt_root):
         run.run(ref.TRAIN_STEPS)
         res[f"train/{case}/losses"] = np.asarray([x for _, x in run.losses], np.float32)
         res[f"train/{case}/on_mesh"] = np.asarray(run.on_mesh)
+        res[f"train/{case}/held"] = np.asarray(sorted(run.shards.params))
         state = run.tree()
         for part, tree in (("params", state["params"]), ("m", state["opt"]["m"])):
             for k, v in _leaves(tree):
-                res[f"train/{case}/{part}/{k}"] = _full(v)
+                sh = run.shardings.get(f"{'opt/m' if part == 'm' else 'params'}/{k}")
+                res[f"train/{case}/{part}/{k}"] = _full(v if sh is None else shd.unshard(v, sh))
         # the checkpoint's layout: the parameters FSDP-sharded as JAX places them
         step_dir = os.path.join(ckpt_dir, f"step_{latest_step(ckpt_dir):08d}")
         with open(os.path.join(step_dir, "manifest.json")) as f:

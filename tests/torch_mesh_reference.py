@@ -39,10 +39,16 @@ MOE_T, MOE_D = 64, 32
 GNN_ARCHS = ("graphsage-reddit", "gat-cora", "pna", "graphcast")
 #: the trainer's cases on (4, 1): "@2" takes each LM batch's first 2 rows,
 #: which 4 data ranks do not divide (the batch then stays whole, the MoE
-#: layers split its tokens), where the 4 rows of the other are split
-TRAIN_ARCHS = ("gat-cora", "deepseek-moe-16b", "deepseek-moe-16b@2")
+#: layers split its tokens), where the 4 rows of the others are split (the
+#: dense LM's over its FSDP-sharded state, AutoInt's over its whole tables)
+TRAIN_ARCHS = ("gat-cora", "deepseek-moe-16b", "deepseek-moe-16b@2", "h2o-danube-1.8b",
+               "autoint")
+#: the LM cases' parameters (drawn by the JAX initialisers)
+LM_ARCHS = ("deepseek-moe-16b", "h2o-danube-1.8b")
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 2, 3e-3, 1
 LM_BATCH, LM_SEQ = 4, 16
+#: AutoInt's rows a step (4 ranks, 4 rows each)
+RECSYS_BATCH = 16
 
 
 def flat(tree, prefix):
@@ -101,9 +107,10 @@ def make_inputs(path):
     import jax.numpy as jnp
 
     from repro import configs
-    from repro.data.pipeline import gnn_full_batch, token_batches
+    from repro.data.pipeline import gnn_full_batch, recsys_batches, token_batches
     from repro.models.gnn import layers as L
     from repro.models.gnn import models as gm
+    from repro.models.recsys import autoint
     from repro.models.transformer import model as tm
     from repro.models.transformer import moe as moe_mod
 
@@ -155,10 +162,20 @@ def make_inputs(path):
     lm = configs.get_spec("deepseek-moe-16b").reduced
     out.update(flat(tm.init(jax.random.PRNGKey(7), lm), "lm/params"))
     out["lm/tokens"] = rng.integers(0, lm.vocab_size, (2, 16)).astype(np.int32)
-    data = token_batches(LM_BATCH, LM_SEQ, lm.vocab_size, seed=2)
+    for arch in LM_ARCHS:
+        cfg = configs.get_spec(arch).reduced
+        if arch != "deepseek-moe-16b":
+            out.update(flat(tm.init(jax.random.PRNGKey(8), cfg), f"train/{arch}/params"))
+        data = token_batches(LM_BATCH, LM_SEQ, cfg.vocab_size, seed=2)
+        for i in range(TRAIN_STEPS):
+            for k, v in next(data).items():
+                out[f"train/{arch}/batch{i}/{k}"] = np.asarray(v)
+    rec = configs.get_spec("autoint").reduced
+    out.update(flat(autoint.init(jax.random.PRNGKey(9), rec), "train/autoint/params"))
+    data = recsys_batches(RECSYS_BATCH, rec.n_fields, rec.vocab_per_field, seed=3)
     for i in range(TRAIN_STEPS):
         for k, v in next(data).items():
-            out[f"train/lm/batch{i}/{k}"] = np.asarray(v)
+            out[f"train/autoint/batch{i}/{k}"] = np.asarray(v)
     np.savez(path, **out)
 
 
@@ -167,6 +184,11 @@ def train_case(case):
     ``rows`` rows (``None``: all)."""
     arch, _, rows = case.partition("@")
     return arch, int(rows) if rows else None
+
+
+def train_params_key(arch):
+    """Where ``make_inputs`` put a train case's parameters."""
+    return "lm/params" if arch == "deepseek-moe-16b" else f"train/{arch}/params"
 
 
 def _mesh(shape):
@@ -332,7 +354,8 @@ def model_cases(a, res, mesh):
 
 def train_cases(a, res, mesh):
     """JAX's trainer step (``repro.launch.train.main``'s ``step_fn``, its
-    placements) for two steps of the reduced gat-cora and deepseek-moe."""
+    placements) for two steps of the reduced gat-cora, deepseek-moe,
+    h2o-danube and AutoInt."""
     import functools
 
     import jax
@@ -341,6 +364,7 @@ def train_cases(a, res, mesh):
     from repro import configs
     from repro.dist import sharding as shd
     from repro.models.gnn import models as gm
+    from repro.models.recsys import autoint
     from repro.models.transformer import model as tm
     from repro.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
 
@@ -353,11 +377,14 @@ def train_cases(a, res, mesh):
             batches = [unflat(a, f"gnn/{arch}/batch")] * TRAIN_STEPS
             loss_fn = functools.partial(lambda p, b, cfg: gm.loss_fn(p, b, cfg), cfg=cfg)
         else:
-            cfg, family = configs.get_spec(arch).reduced, "lm"
-            params = unflat(a, "lm/params")
-            batches = [{k: v[:rows] for k, v in unflat(a, f"train/lm/batch{i}").items()}
+            cfg = configs.get_spec(arch).reduced
+            family = "recsys" if arch == "autoint" else "lm"
+            params = unflat(a, train_params_key(arch))
+            batches = [{k: v[:rows] for k, v in unflat(a, f"train/{arch}/batch{i}").items()}
                        for i in range(TRAIN_STEPS)]
-            loss_fn = functools.partial(lambda p, b, cfg: tm.loss_fn(p, b, cfg), cfg=cfg)
+            model_loss = autoint.loss_fn if family == "recsys" else tm.loss_fn
+            loss_fn = functools.partial(lambda p, b, cfg, f: f(p, b, cfg), cfg=cfg,
+                                        f=model_loss)
         params = jax.tree_util.tree_map(jnp.asarray, params)
         state = {"params": params, "opt": adamw_init(params, oc)}
         shd.activate(mesh)
