@@ -15,8 +15,8 @@ at the ``RECSYS_SHAPES`` serve shapes, and training of four of those
 models (h2o-danube-1.8b, gat-cora, graphsage-reddit, AutoInt) at full
 width, then a restart-and-replay drill of the h2o-danube trainer, and the
 models on a mesh of gloo ranks sharing the card (three GNNs, the MoE
-expert-parallel, gat-cora's trainer). What it does, in order, and fails
-on the first thing that is wrong:
+expert-parallel, the trainers sharded, h2o-danube-1.8b tensor-parallel).
+What it does, in order, and fails on the first thing that is wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of ``src/repro_torch/csrc`` from the checkout (one ``nvcc``
@@ -188,7 +188,7 @@ on the first thing that is wrong:
    order of its dQ adds costs against a build without it
    (``FLASH_BWD_UNORDERED``), and prints no result line).
 8. drills the supervised trainer (``ckpt_drill``): h2o-danube-1.8b at full
-   width as in 7, ``CKPT_LAYERS`` deep, ``CKPT_STEPS`` plain steps as the reference
+   width as in 7, ``DRILL_LAYERS`` deep, ``CKPT_STEPS`` plain steps as the reference
    (an async checkpoint written under its last steps, their ms against
    the warm ones'; ``compress_with_feedback`` over step 0's gradient, each
    leaf within scale/2), then through ``launch.train.Supervised`` a job
@@ -218,19 +218,30 @@ on the first thing that is wrong:
    ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh) against
    one rank: ``TRAIN_STEPS`` losses and the final parameters within
    ``TRAIN_TOL``, each rank's launches, backwards included, equal;
-   and the sharded trainer on 2 ranks against one rank, ``MESH_TRAIN_STEPS``
-   steps each: h2o-danube-1.8b at full width cut to ``CKPT_LAYERS`` layers
-   (4 × 4,096 tokens on one rank, 2 rows a rank on the mesh, each rank
-   holding its FSDP shards of the state) and AutoInt at full width
-   (``train_batch``'s 65,536 rows, 32,768 a rank, the tables whole): the
-   losses and the parameters' relative global distance within
-   ``TRAIN_TOL``, each rank's launches per route equal to one rank's, the
-   live state's bytes a rank beside the whole state's, the peak a rank
-   beside one rank's, the collective bytes and gloo walls; and h2o's rank
-   step dry-run (rank 0 of a fake 2-rank group) against the real rank's
-   (``dryrun_vs_card``: launches equal, peak within ``DRY_PEAK_TOL``)
+   and the sharded trainer (``Supervised.run``: ``MESH_TRAIN_STEPS`` steps
+   and the checkpoint at the end, the shards gathered into rank 0's host
+   buffers) on gloo ranks against one rank: AutoInt at full width on 2
+   ranks (``train_batch``'s 65,536 rows, 32,768 a rank, the tables whole),
+   and h2o-danube-1.8b at full width cut to ``CKPT_LAYERS`` layers (4 ×
+   4,096 tokens) on ``(data, model) = (2, 1)`` (each rank holding its FSDP
+   shards of the state) and tensor- and sequence-parallel on (1, 2) and
+   (2, 2) (its FSDP and model shards): the losses and the parameters'
+   relative global distance within ``TRAIN_TOL``, each rank's launches per
+   route equal to one rank's, every flash forward on ``H/m`` heads where
+   one rank's has ``H``, the live state's bytes a rank beside the whole
+   state's, the peak a rank beside one rank's, the collective bytes and
+   gloo walls; each h2o rank step (the run's last, measured) dry-run (rank
+   0 of a fake group on the same mesh) against the real rank's
+   (``dryrun_vs_card``: launches equal, peak within ``DRY_PEAK_TOL``); and
+   h2o's serve tensor-parallel on (1, 2) (``mesh_tp``): 4 × 6,144 prompt
+   tokens and ``MESH_TP_DECODE_STEPS`` teacher-forced decode steps, each
+   step's logits within ``MESH_LOGIT_TOL`` · max|logit|, the cache ``C/2``
+   slots a rank
    (``--mesh-only`` runs the build and this phase alone, its one-rank
-   references included, and prints no result line; ``--mesh-probe``
+   references included, and prints no result line; ``--mesh-tp`` h2o's
+   part alone; ``--mesh-tp-probe`` h2o's tensor-parallel serve against one
+   rank in float32 and bfloat16, at one layer and six, and prints no
+   result line; ``--mesh-probe``
    compares graphcast on the mesh with one rank layer by layer, in bf16
    and in f32, and prints no result line).
 10. runs the four ``examples/torch_*.py`` on the card through the
@@ -269,6 +280,7 @@ import json
 import math
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3644,9 +3656,13 @@ def train_path(minibatch, seed, device, card, reduced=False):
 #: ``CKPT_STOP`` (a job cut short, its checkpoint written), run B resumes
 #: there and fails once at step index ``CKPT_FAIL``
 CKPT_STEPS, CKPT_STOP, CKPT_FAIL = 6, 3, 4
-#: the drill's depth: h2o-danube-1.8b at full width, its 24 layers cut to 6
-#: (a 5.6 GB state for 18.3) to make room in the run's time for the mesh
-#: phase; what the drill checks (bit-equal replay) does not depend on depth
+#: the drill's depth: h2o-danube-1.8b at full width, its 24 layers cut to 3
+#: (6 until the dense LM's mesh cases came; 24 before the mesh phase) to
+#: make room in the run's time for the mesh phase; what the drill checks
+#: (bit-equal replay) does not depend on depth
+DRILL_LAYERS = 3
+#: the depth of h2o-danube-1.8b's mesh cases (its sharded and
+#: tensor-parallel trainers and serve): full width, 6 of its 24 layers
 CKPT_LAYERS = 6
 #: h2o-danube-1.8b's parameter paths in the JAX package's tree (``init`` of
 #: its config: no biases, no qk-norm, an untied unembedding), the keys of
@@ -3722,7 +3738,7 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def ckpt_drill(seed, device, card, reduced=False):
-    """Restart-and-replay drill of h2o-danube-1.8b at full width, ``CKPT_LAYERS``
+    """Restart-and-replay drill of h2o-danube-1.8b at full width, ``DRILL_LAYERS``
     deep (bf16, remat, ``LM_TRAIN_BATCH`` × ``LM_TRAIN_SEQ`` tokens,
     ``LM_TRAIN_LR``) through ``launch.train``: (1) the reference,
     ``CKPT_STEPS`` plain steps of ``make_step``, its state kept on the card;
@@ -3758,7 +3774,7 @@ def ckpt_drill(seed, device, card, reduced=False):
     oc = AdamWConfig(lr=LM_TRAIN_LR)
 
     cut = None if reduced else dataclasses.replace(
-        configs.get_spec("h2o-danube-1.8b").config, n_layers=CKPT_LAYERS)
+        configs.get_spec("h2o-danube-1.8b").config, n_layers=DRILL_LAYERS)
 
     def fresh():
         return tr.build("h2o-danube-1.8b", reduced, b, s, seed, device, config=cut)[1:]
@@ -4267,7 +4283,9 @@ def mesh_rank(rank, port, device, shared, queue):
             torch.cuda.set_device(torch.device("cuda", rank % torch.cuda.device_count()))
             torch.cuda.reset_peak_memory_stats()
         report = {"gnn": _mesh_gnn_rank, "moe": _mesh_moe_rank, "train": _mesh_train_rank,
-                  "probe": _mesh_probe_rank}[job["kind"]](rank, job, device)
+                  "probe": _mesh_probe_rank,
+                  "serve": lambda r, j, d: _mesh_tp_serve(j["serve"], d)}[job["kind"]](
+                      rank, job, device)
         report["peak_allocated_gb"] = peak_gb(device)
         queue.put((rank, report))
         dist.destroy_process_group()
@@ -4638,11 +4656,27 @@ def _clone_tree(tree):
 
 
 def _mesh_train_rank(rank, job, device):
-    """A trainer on the ``(world, 1)`` mesh: gat-cora's ``Supervised``, or
-    a sharded case of :data:`MESH_TRAIN_ARCHS` (:func:`_supervised_case`)."""
-    if "arch" in job:
-        return _supervised_case(job["arch"], job["seed"], device, job["reduced"],
-                                job["ckpt_dir"], want=job["want"], measure=job["measure"])
+    """A trainer on the job's mesh: gat-cora's ``Supervised`` on ``(world,
+    1)``, or the sharded cases of one arch (:func:`_supervised_case`), each
+    on its ``(data, model)`` mesh over the same ranks, after its serve job
+    if it has one; rank 0 drops each case's checkpoint once it is done."""
+    if "cases" in job:
+        from repro_torch.launch.mesh import make_mesh
+
+        out = []
+        for case in job["cases"]:
+            served = _mesh_tp_serve(case["serve"], device) if case["serve"] else None
+            mesh = make_mesh(case["shape"], ("data", "model"), device=device)
+            rep = _supervised_case(job["arch"], job["seed"], device, job["reduced"],
+                                   case["ckpt_dir"], want=job["want"], measure=job["measure"],
+                                   mesh=mesh)
+            out.append(dict(rep, serve=served))
+            if rank == 0:  # every rank passed the checkpoint's barrier
+                shutil.rmtree(case["ckpt_dir"], ignore_errors=True)
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        return {"cases": out}
     losses, final, launches, seconds = _supervised_gat(job["cfg"], job["params"],
                                                         job["batch"], job["ckpt_dir"], device)
     # numpy, not tensors: the queue would share a tensor's memory with the
@@ -4651,9 +4685,11 @@ def _mesh_train_rank(rank, job, device):
             "launches": launches, "seconds": seconds}
 
 
-#: the sharded trainer's cases on the mesh, and their steps a run (each
-#: step's collectives go through the host: gloo, ~0.4 GB/s on the H100 machine)
-MESH_TRAIN_ARCHS = ("h2o-danube-1.8b", "autoint")
+#: the sharded trainer's cases on the ``(MESH_TRAIN_RANKS, 1)`` mesh, and
+#: their steps a run (each step's collectives go through the host: gloo,
+#: ~0.4 GB/s on the H100 machine); the dense LM's cases run in the
+#: tensor-parallel part (:data:`MESH_LM_TRAIN`), against one one-rank run
+MESH_TRAIN_ARCHS = ("autoint",)
 MESH_TRAIN_STEPS = 2
 
 
@@ -4703,19 +4739,54 @@ def _param_distance(got, want, chunk=1 << 24):
             "max_param_diff_over_max": worst / max(scale, 1e-30), "params_differing": differ}
 
 
-def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=False):
+def _measure_last_step(run, device, out):
+    """Wraps the supervisor's step of ``run`` (``launch.train.Supervised``)
+    so that its last step is measured as :func:`dry_vs_card` measures one,
+    into ``out``: the step's launches and collectives, its peak less what
+    was allocated before it plus the step's arguments, and the run's peak
+    up to it (``run_peak_before_gb``)."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import dryrun
+
+    step_fn = run.sup.step_fn
+
+    def measured(state, batch):
+        if len(run.losses) < MESH_TRAIN_STEPS - 1:
+            return step_fn(state, batch)
+        gc.collect()
+        sync(device)
+        out["run_peak_before_gb"] = peak_gb(device)
+        before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+        reset_peak(device)
+        counts, sent = dryrun.launch_counts(), dict(coll.COUNTS)
+        result = step_fn(state, batch)
+        sync(device)
+        args = run.state_bytes() + sum(t.numel() * t.element_size() for t in batch.values())
+        out["step_collectives"] = {k: v - sent.get(k, 0) for k, v in coll.COUNTS.items()}
+        out["step_launches"] = dryrun.launches_between(counts, dryrun.launch_counts())
+        out["step_peak_gb"] = (None if device.type != "cuda" else
+                               (torch.cuda.max_memory_allocated() - before + args) / 1e9)
+        out["step_argument_gb"] = args / 1e9
+        return result
+
+    run.sup.step_fn = measured
+
+
+def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=False,
+                     mesh=None):
     """``MESH_TRAIN_STEPS`` steps of ``launch.train.Supervised`` over a
-    :data:`MESH_TRAIN_ARCHS` case on this process's mesh (one rank, or the
-    ``(world, 1)`` mesh of its gloo ranks), parameters and batches built
-    here from ``seed``. Returns the losses, launches per route, walls,
+    sharded case (:data:`MESH_TRAIN_ARCHS`, the dense LM's
+    :data:`MESH_LM_TRAIN`) on ``mesh`` (by default ``make_train_mesh``'s:
+    one rank, or the ``(world, 1)`` mesh of its gloo ranks), parameters and
+    batches built here from ``seed``, its checkpoint at the end written to
+    ``ckpt_dir`` (the shards gathered into rank 0's host buffers). Returns
+    the losses, launches per route, the heads of each flash forward, walls,
     collectives, the live state's bytes beside the whole state's, and the
     peak; the final parameters gathered whole (``final``), or with ``want``
-    (the one rank's) their distance from it; with ``measure`` one more
-    step measured as :func:`dry_vs_card` measures one (launches, peak
-    less what was allocated before it plus the step's arguments)."""
+    (the one rank's) their distance from it; with ``measure`` the run's
+    last step measured (:func:`_measure_last_step`)."""
     from repro_torch.dist import collectives as coll
     from repro_torch.dist import sharding as shd
-    from repro_torch.launch import dryrun
     from repro_torch.launch import train as tr
     from repro_torch.optim import AdamWConfig, named_leaves
 
@@ -4725,17 +4796,29 @@ def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=F
     coll.reset_counts()
     run = tr.Supervised(family, params, loss_fn, batches, AdamWConfig(lr=lr),
                         warmup=TRAIN_WARMUP, total=MESH_TRAIN_STEPS, ckpt_dir=ckpt_dir,
-                        ckpt_every=MESH_TRAIN_STEPS, device=device, log=lambda line: None)
+                        ckpt_every=MESH_TRAIN_STEPS, device=device, log=lambda line: None,
+                        mesh=mesh)
     del params
+    step = {}
+    if measure:
+        _measure_last_step(run, device, step)
     sync(device)
     train_counters(zero=True)
+    handler = signal.getsignal(signal.SIGTERM)
     t0 = time.perf_counter()
-    run.run(MESH_TRAIN_STEPS)
+    try:
+        with flash_heads([]) as heads:
+            run.run(MESH_TRAIN_STEPS)
+    finally:  # the supervisor's SIGTERM handler holds it, and the run's state, alive
+        signal.signal(signal.SIGTERM, handler)
     sync(device)
+    peaks = [p for p in (peak_gb(device), step.pop("run_peak_before_gb", None)) if p is not None]
     rep = {"losses": [x for _, x in run.losses], "seconds": time.perf_counter() - t0,
-           "launches": train_counters(), "collectives": coll.reset_counts(),
+           "launches": train_counters(), "flash_heads": heads,
+           "collectives": coll.reset_counts(),
            "state_bytes": run.state_bytes(), "whole_state_bytes": whole,
-           "held_as_shards": len(run.shards.params), "run_peak_gb": peak_gb(device)}
+           "held_as_shards": len(run.shards.params),
+           "run_peak_gb": max(peaks) if peaks else None, **step}
     final = {k: shd.unshard(t.detach(), run.shards.params[k]) if k in run.shards.params
              else t.detach() for k, t in named_leaves(run.params).items()}
     if want is None:
@@ -4743,28 +4826,13 @@ def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=F
     else:
         rep.update(_param_distance(final, want))
     del final
-    if measure:
-        batch = run.sup.batch_for_step(0)
-        gc.collect()
-        sync(device)
-        before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
-        reset_peak(device)
-        counts = dryrun.launch_counts()
-        coll.reset_counts()
-        run._step({"params": run.params, "opt": run.opt}, batch)
-        sync(device)
-        args = run.state_bytes() + sum(t.numel() * t.element_size() for t in batch.values())
-        rep["step_collectives"] = coll.reset_counts()
-        rep["step_launches"] = dryrun.launches_between(counts, dryrun.launch_counts())
-        rep["step_peak_gb"] = (None if device.type != "cuda" else
-                               (torch.cuda.max_memory_allocated() - before + args) / 1e9)
-        rep["step_argument_gb"] = args / 1e9
     return rep
 
 
-def _mesh_rank_dryrun(arch, seed, device, card, reduced, real):
-    """Rank 0's step of a sharded case dry-run in a fake group of
-    ``MESH_TRAIN_RANKS`` (``launch.dryrun``: its shards and its rows, fake
+def _mesh_rank_dryrun(arch, seed, device, card, reduced, real, shape=(MESH_TRAIN_RANKS, 1)):
+    """Rank 0's step of a sharded case dry-run in a fake group on the
+    ``(data, model)`` mesh ``shape`` (``launch.dryrun``: its shards and its
+    rows, tensor-parallel where the model axis has several ranks, fake
     tensors on ``device``) against the real rank's measured step
     (``real``: :func:`_supervised_case`'s ``step_*``): a ``dryrun_vs_card``
     line; fails unless the launches are equal and the peak within
@@ -4781,19 +4849,20 @@ def _mesh_rank_dryrun(arch, seed, device, card, reduced, real):
     b, s = (4, 48) if reduced else (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
     hw = HW.from_card() if device.type == "cuda" else HW()
     oc = AdamWConfig(lr=LM_TRAIN_LR)
-    with dryrun.fake_ranks((MESH_TRAIN_RANKS, 1), ("data", "model"), device.type) as mesh, \
+    with dryrun.fake_ranks(shape, ("data", "model"), device.type) as mesh, \
             common.fake_mode():
         params = tm.abstract_params(cfg, device.type, trainable=True)
         opt = adamw_init(params, oc)
         rank = dryrun.Rank.of("lm", b, mesh)
         shards = rank.place("lm", params, opt)
-        fn = dryrun.train_step(lambda p, q: tm.loss_fn(p, q, cfg), oc, warmup=TRAIN_WARMUP,
-                               total=MESH_TRAIN_STEPS, group=rank.group, shards=shards)
+        fn = rank.run(dryrun.train_step(lambda p, q: tm.loss_fn(p, q, cfg), oc,
+                                        warmup=TRAIN_WARMUP, total=MESH_TRAIN_STEPS,
+                                        group=rank.group, shards=shards))
         args = (params, opt, tm.input_specs(cfg, "train", s, rank.rows, device.type))
-        rec = dryrun.trace(fn, args, hw, MESH_TRAIN_RANKS,
+        rec = dryrun.trace(fn, args, hw, math.prod(shape),
                            dryrun.lm_model_flops(cfg, lm_shape("train", s, b)))
     mem = rec["memory"]
-    line = {"cell": f"{cfg.name} train step, rank 0 of {MESH_TRAIN_RANKS}",
+    line = {"cell": f"{cfg.name} train step, rank 0 of (data, model) = {tuple(shape)}",
             "launches_dry": rec["launches"], "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
             "argument_gb": mem["argument_bytes"] / 1e9,
             "collective_gb_pred": rec["collectives"]["total"] / 1e9,
@@ -4822,66 +4891,91 @@ def _mesh_rank_dryrun(arch, seed, device, card, reduced, real):
     return line
 
 
-def mesh_train_sharded(arch, seed, device, card, reduced=False):
-    """A :data:`MESH_TRAIN_ARCHS` case on ``MESH_TRAIN_RANKS`` gloo ranks
-    against one rank in this process (:func:`_supervised_case` in both):
-    the losses within ``TRAIN_TOL`` relative, the parameters' relative
-    global distance within ``TRAIN_TOL`` (bf16 leaves a rounding apart
-    flip by an ulp: max|Δ| / max is printed beside it), each rank's
-    launches per route equal to one rank's; a ``mesh_train`` line with
-    each rank's live state beside the whole state's, its peak beside one
-    rank's, its collective bytes and walls; for the LM its rank step
-    dry-run (:func:`_mesh_rank_dryrun`). Returns the launches over the
-    ranks."""
+def mesh_train_sharded(arch, seed, device, card, reduced=False,
+                       shapes=((MESH_TRAIN_RANKS, 1),), serves=None):
+    """A sharded case on gloo ranks of each ``(data, model)`` mesh of
+    ``shapes`` against one rank in this process (:func:`_supervised_case`
+    in both; the meshes of one size run in one spawn of their ranks, in
+    order, each after its serve job in ``serves``, a mesh shape → a
+    :func:`_mesh_tp_serve` job). For each mesh: the losses within
+    ``TRAIN_TOL`` relative, the parameters' relative global distance within
+    ``TRAIN_TOL`` (bf16 leaves a rounding apart flip by an ulp: max|Δ| /
+    max is printed beside it), each rank's launches per route equal to one
+    rank's, and on a model axis of m ranks each flash forward on ``H/m``
+    heads where one rank's had ``H``; a ``mesh_train`` line with each
+    rank's live state beside the whole state's, its peak beside one rank's,
+    its collective bytes and walls; for the LM its rank step dry-run
+    (:func:`_mesh_rank_dryrun`). Returns the launches over the ranks and
+    each mesh's reports by rank."""
     from repro_torch import configs
 
     family = configs.get_spec(arch).family
+    serves = serves or {}
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
         one = _supervised_case(arch, seed, device, reduced, str(Path(tmp) / "one"))
         shutil.rmtree(Path(tmp) / "one", ignore_errors=True)  # the files live in host memory
-        want = one.pop("final")
         gc.collect()  # the trainer and its supervisor hold each other: free its state
-        job = {"kind": "train", "world": MESH_TRAIN_RANKS, "arch": arch, "seed": seed,
-               "reduced": reduced, "want": want, "ckpt_dir": str(Path(tmp) / "ranks"),
-               "measure": family == "lm"}
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_TRAIN_RANKS,
-                                     what=f"mesh train {arch}")
-        del job, want
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.ipc_collect()
-            torch.cuda.empty_cache()
+        for world in sorted({math.prod(s) for s in shapes}):
+            group = [tuple(s) for s in shapes if math.prod(s) == world]
+            cases = [{"shape": s, "serve": serves.get(s),
+                      "ckpt_dir": str(Path(tmp) / "x".join(map(str, s)))} for s in group]
+            job = {"kind": "train", "world": world, "arch": arch, "seed": seed,
+                   "reduced": reduced, "want": one["final"], "measure": family == "lm",
+                   "cases": cases}
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=world,
+                                         what=f"mesh train {arch} on {group}")
+            del job, cases
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+            for i, s in enumerate(group):
+                runs[s] = ({r: rep["cases"][i] for r, rep in reports.items()}, ranks_s)
     tol = TRAIN_TOL["bfloat16" if family == "lm" and not reduced else "float32"]
-    total, worst = {}, {"loss": 0.0, "param": 0.0}
-    for r, rep in sorted(reports.items()):
-        for a, b in zip(rep["losses"], one["losses"]):
-            worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
-        worst["param"] = max(worst["param"], rep["param_rel_distance"])
-        if device.type == "cuda" and rep["launches"] != one["launches"]:
-            raise AssertionError(f"mesh train {arch} rank {r}: launches {rep['launches']}, "
-                                 f"one rank's {one['launches']}")
-        add_launches(total, rep["launches"])
-    if worst["loss"] > tol or worst["param"] > tol:
-        raise AssertionError(f"mesh train {arch}: {worst} past {tol} of the one-rank run")
-    say("mesh_train", card, arch=arch, ranks=MESH_TRAIN_RANKS,
-        mesh={"data": MESH_TRAIN_RANKS, "model": 1}, steps=MESH_TRAIN_STEPS,
-        losses=one["losses"], losses_rank0=reports[0]["losses"],
-        max_rel_loss_diff=worst["loss"], param_rel_distance=worst["param"], tol=tol,
-        max_param_diff_over_max=[rep["max_param_diff_over_max"] for rep in reports.values()],
-        params_differing=[rep["params_differing"] for rep in reports.values()],
-        state_gb_per_rank=[rep["state_bytes"] / 1e9 for rep in reports.values()],
-        state_gb_one_rank=one["state_bytes"] / 1e9, whole_state_gb=one["whole_state_bytes"] / 1e9,
-        leaves_held_as_shards=reports[0]["held_as_shards"],
-        peak_gb_per_rank=[rep["run_peak_gb"] for rep in reports.values()],
-        peak_gb_one_rank=one["run_peak_gb"],
-        collectives_per_rank=[rep["collectives"] for rep in reports.values()],
-        gloo_wall_s=[rep["seconds"] for rep in reports.values()], one_rank_s=one["seconds"],
-        ranks_s=ranks_s, launches_per_rank=reports[0]["launches"], transport=MESH_TRANSPORT)
-    if family == "lm":
-        _mesh_rank_dryrun(arch, seed, device, card, reduced, reports[0])
-    return total
+    total = {}
+    for shape in map(tuple, shapes):
+        reports, ranks_s = runs[shape]
+        m, worst = shape[1], {"loss": 0.0, "param": 0.0}
+        for r, rep in sorted(reports.items()):
+            for a, b in zip(rep["losses"], one["losses"]):
+                worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+            worst["param"] = max(worst["param"], rep["param_rel_distance"])
+            if device.type == "cuda" and rep["launches"] != one["launches"]:
+                raise AssertionError(f"mesh train {arch} on {shape} rank {r}: launches "
+                                     f"{rep['launches']}, one rank's {one['launches']}")
+            if rep["flash_heads"] != [h // m for h in one["flash_heads"]]:
+                raise AssertionError(f"mesh train {arch} on {shape} rank {r}: flash heads "
+                                     f"{rep['flash_heads']}, one rank's {one['flash_heads']} "
+                                     f"over {m}")
+            add_launches(total, rep["launches"])
+        if worst["loss"] > tol or worst["param"] > tol:
+            raise AssertionError(f"mesh train {arch} on {shape}: {worst} past {tol} of the "
+                                 f"one-rank run")
+        say("mesh_train", card, arch=arch, ranks=math.prod(shape),
+            mesh={"data": shape[0], "model": m}, steps=MESH_TRAIN_STEPS, losses=one["losses"],
+            losses_rank0=reports[0]["losses"], max_rel_loss_diff=worst["loss"],
+            param_rel_distance=worst["param"], tol=tol,
+            max_param_diff_over_max=[rep["max_param_diff_over_max"] for rep in reports.values()],
+            params_differing=[rep["params_differing"] for rep in reports.values()],
+            state_gb_per_rank=[rep["state_bytes"] / 1e9 for rep in reports.values()],
+            state_gb_one_rank=one["state_bytes"] / 1e9,
+            whole_state_gb=one["whole_state_bytes"] / 1e9,
+            leaves_held_as_shards=reports[0]["held_as_shards"],
+            peak_gb_per_rank=[rep["run_peak_gb"] for rep in reports.values()],
+            peak_gb_one_rank=one["run_peak_gb"],
+            flash_forwards_per_rank=len(reports[0]["flash_heads"]),
+            flash_heads_per_launch=sorted(set(reports[0]["flash_heads"])),
+            flash_heads_one_rank=sorted(set(one["flash_heads"])),
+            collectives_per_rank=[rep["collectives"] for rep in reports.values()],
+            gloo_wall_s=[rep["seconds"] for rep in reports.values()], one_rank_s=one["seconds"],
+            ranks_s=ranks_s, launches_per_rank=reports[0]["launches"],
+            transport=MESH_TRANSPORT)
+        if family == "lm":
+            _mesh_rank_dryrun(arch, seed, device, card, reduced, reports[0], shape)
+    return total, {s: reports for s, (reports, _) in runs.items()}
 
 
 def mesh_train(seed, device, card, reduced=False):
@@ -4930,10 +5024,205 @@ def mesh_train(seed, device, card, reduced=False):
         peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
         transport=MESH_TRANSPORT)
     for arch in MESH_TRAIN_ARCHS:
-        add_launches(total, mesh_train_sharded(arch, seed, device, card, reduced))
+        add_launches(total, mesh_train_sharded(arch, seed, device, card, reduced)[0])
     say("mesh_phase", card, part="train", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
     return total
 
+
+# -- 9c. the dense LM tensor-parallel on the mesh -----------------------------
+
+#: the dense LM on the mesh, h2o-danube-1.8b at full width, ``CKPT_LAYERS``
+#: layers, each run against one rank: its sharded trainer with FSDP alone on
+#: ``(data, model) = (MESH_TRAIN_RANKS, 1)``, then tensor- and
+#: sequence-parallel over ``model`` on (1, 2) and (2, 2); its serve on (1, 2)
+MESH_TP_ARCH = "h2o-danube-1.8b"
+MESH_LM_TRAIN, MESH_TP_SERVE = ((MESH_TRAIN_RANKS, 1), (1, 2), (2, 2)), (1, 2)
+MESH_TP_DECODE_STEPS = 8
+
+
+@contextlib.contextmanager
+def flash_heads(log: list):
+    """Appends the head count of every flash forward the model launches
+    inside (``attention.attention_chunked``'s kernel call) to ``log``."""
+    from repro_torch.models.transformer import attention as attn_mod
+
+    launch = attn_mod.flash_attention
+
+    def counted(q, *args, **kwargs):
+        log.append(q.shape[1])
+        return launch(q, *args, **kwargs)
+
+    attn_mod.flash_attention = counted
+    try:
+        yield log
+    finally:
+        attn_mod.flash_attention = launch
+
+
+def _mesh_tp_serve(job, device):
+    """The one-rank serve's traffic tensor-parallel on this rank of the
+    job's mesh: the parent's weights (CUDA IPC) cut to this rank's blocks
+    (``launch.train.shard_state_``), a prefill of the prompts, then the
+    one-rank serve's tokens fed step by step (teacher forcing), each step's
+    logits (this rank's vocabulary block, gathered over ``model``) held to
+    the one-rank's within ``MESH_LOGIT_TOL`` of its max|logit|."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model as tm
+
+    cfg, prompts, tokens = job["cfg"], job["prompts"], job["tokens"]
+    mesh = make_mesh(job["shape"], ("data", "model"), device=device)
+    params = tm.TransformerParams(job.pop("tensors"))  # views of the parent's weights
+    tr.shard_state_(params, None, tr.state_layout("lm", params, mesh), ())
+    state_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    model = shd.axis_group(mesh, ("model",))
+    reset_peak(device)
+    shd.activate(mesh)
+    train_counters(zero=True)
+    coll.reset_counts()
+    sync(device)
+    torch.distributed.barrier()
+    with flash_heads([]) as heads:
+        t0 = time.perf_counter()
+        logits, cache = tm.prefill(params, prompts, cfg, capacity=job["capacity"],
+                                   full_logits=False)
+        sync(device)
+        prefill_s = time.perf_counter() - t0
+        got = [logits]
+        t0 = time.perf_counter()
+        for i in range(tokens.shape[1] - 1):
+            got.append(tm.decode_step_(params, cache, tokens[:, i:i + 1], cfg))
+        sync(device)
+        decode_s = time.perf_counter() - t0
+    launches = train_counters()
+    collectives = coll.reset_counts()
+    shd.deactivate()
+    errs = []
+    for i, (g, want) in enumerate(zip(got, job["logits"])):
+        scale = float(want.abs().max())
+        err = float((coll.all_gather_dim(g, 1, model).float() - want).abs().max())
+        if err > MESH_LOGIT_TOL * scale:
+            raise AssertionError(f"mesh tp step {i}: max|Δlogit| {err} > "
+                                 f"{MESH_LOGIT_TOL}·{scale}")
+        errs.append(err / scale)
+    rep = {"prefill_s": prefill_s, "decode_s": decode_s, "launches": launches,
+           "flash_heads": heads, "collectives": collectives, "rel_err_per_step": errs,
+           "logits_shape": list(got[0].shape), "cache_shape": list(cache["k"].shape),
+           "state_gb": state_gb, "peak_gb": peak_gb(device)}
+    del params, cache, got
+    return rep
+
+
+def mesh_tp(seed, device, card, reduced=False):
+    """h2o-danube-1.8b on the mesh against one rank in this process: the
+    one-rank serve of ``MESH_TP_DECODE_STEPS`` steps after 4 × 6,144 prompt
+    tokens; on ``MESH_TP_SERVE`` gloo ranks the same serve tensor-parallel
+    (:func:`_mesh_tp_serve`: logits within ``MESH_LOGIT_TOL`` a step, the
+    flash launches one rank's, ``H/m`` heads each, the cache ``C/m`` slots a
+    rank); on each mesh of ``MESH_LM_TRAIN`` the sharded trainer against
+    one rank's at 4 × 4,096 tokens (:func:`mesh_train_sharded`, its rank
+    step dry-run against the card). Returns the launches over the ranks."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as srv
+    from repro_torch.models.transformer import model as tm
+
+    t0 = time.perf_counter()
+    spec = configs.get_spec(MESH_TP_ARCH)
+    cfg = spec.reduced if reduced else dataclasses.replace(spec.config, n_layers=CKPT_LAYERS)
+    batch, prompt_len = (4, 40) if reduced else (4, 6144)
+    params = tm.init(cfg, seed=seed, device=device)
+    prompts = srv.random_prompts(cfg, batch, prompt_len, seed + 1, device)
+    train_counters(zero=True)
+    with flash_heads([]) as heads:
+        ref = srv.serve(params, cfg, prompts, MESH_TP_DECODE_STEPS)
+    serve_launches = train_counters()
+    tensors = {"embed": params.embed.data, "ln_f": params.ln_f.data,
+               "layers": {k: v.data for k, v in params.layers.items()}}
+    if params.unembed is not None:
+        tensors["unembed"] = params.unembed.data
+    serve = {"cfg": cfg, "shape": MESH_TP_SERVE, "tensors": tensors, "prompts": prompts,
+             "tokens": ref.tokens, "logits": [x.float() for x in ref.logits],
+             "capacity": ref.capacity}
+    total, runs = mesh_train_sharded(MESH_TP_ARCH, seed, device, card, reduced, MESH_LM_TRAIN,
+                                     {MESH_TP_SERVE: serve})
+    reports, m = runs[MESH_TP_SERVE], MESH_TP_SERVE[1]
+    for r, rep in sorted(reports.items()):
+        rep = rep["serve"]
+        if device.type == "cuda" and rep["launches"] != serve_launches:
+            raise AssertionError(f"mesh tp serve rank {r}: launches {rep['launches']}, "
+                                 f"one rank's {serve_launches}")
+        if rep["flash_heads"] != [h // m for h in heads]:
+            raise AssertionError(f"mesh tp serve rank {r}: flash heads "
+                                 f"{rep['flash_heads']}, one rank's {heads} over {m}")
+        if rep["cache_shape"][2] * m != ref.capacity:
+            raise AssertionError(f"mesh tp serve rank {r}: cache {rep['cache_shape']}, "
+                                 f"not {ref.capacity} / {m} slots")
+        add_launches(total, rep["launches"])
+    say("mesh_tp_serve", card, arch=cfg.name, mesh=dict(zip(("data", "model"), MESH_TP_SERVE)),
+        layers=cfg.n_layers, batch=batch, prompt_len=prompt_len,
+        decode_steps=MESH_TP_DECODE_STEPS, one_rank_prefill_s=ref.prefill_s,
+        one_rank_decode_s=ref.decode_s,
+        prefill_s=[rep["serve"]["prefill_s"] for rep in reports.values()],
+        decode_s=[rep["serve"]["decode_s"] for rep in reports.values()],
+        max_rel_logit_err=max(max(rep["serve"]["rel_err_per_step"])
+                              for rep in reports.values()),
+        rel_logit_err_rank0=reports[0]["serve"]["rel_err_per_step"], tol=MESH_LOGIT_TOL,
+        logits_shape_rank=reports[0]["serve"]["logits_shape"],
+        cache_shape_rank=reports[0]["serve"]["cache_shape"],
+        flash_heads_per_launch=sorted(set(reports[0]["serve"]["flash_heads"])),
+        flash_heads_one_rank=sorted(set(heads)),
+        launches_per_rank=reports[0]["serve"]["launches"],
+        weights_gb_per_rank=[rep["serve"]["state_gb"] for rep in reports.values()],
+        peak_gb_per_rank=[rep["serve"]["peak_gb"] for rep in reports.values()],
+        collectives_per_rank=[rep["serve"]["collectives"] for rep in reports.values()],
+        transport=MESH_TRANSPORT)
+    del params, tensors, serve, ref
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    say("mesh_phase", card, part="tp", seconds=time.perf_counter() - t0)
+    return total
+
+
+
+def mesh_tp_probe(seed, device, card):
+    """Where the tensor-parallel serve's logit error comes from: the serve
+    of :func:`mesh_tp` on ``MESH_TP_SERVE`` gloo ranks against one rank in
+    float32 at ``CKPT_LAYERS`` layers, in bfloat16 at one layer and at
+    ``CKPT_LAYERS``; a ``mesh_tp_probe`` line each with every step's
+    max|Δlogit| / max|logit| (the prefill's first). No result line."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as srv
+    from repro_torch.models.transformer import model as tm
+
+    spec = configs.get_spec(MESH_TP_ARCH)
+    for dtype, layers in (("float32", CKPT_LAYERS), ("bfloat16", 1), ("bfloat16", CKPT_LAYERS)):
+        cfg = dataclasses.replace(spec.config, n_layers=layers, param_dtype=dtype,
+                                  compute_dtype=dtype)
+        params = tm.init(cfg, seed=seed, device=device)
+        prompts = srv.random_prompts(cfg, 4, 6144, seed + 1, device)
+        ref = srv.serve(params, cfg, prompts, MESH_TP_DECODE_STEPS)
+        tensors = {"embed": params.embed.data, "ln_f": params.ln_f.data,
+                   "layers": {k: v.data for k, v in params.layers.items()}}
+        if params.unembed is not None:
+            tensors["unembed"] = params.unembed.data
+        job = {"kind": "serve", "world": math.prod(MESH_TP_SERVE),
+               "serve": {"cfg": cfg, "shape": MESH_TP_SERVE, "tensors": tensors,
+                         "prompts": prompts, "tokens": ref.tokens,
+                         "logits": [x.float() for x in ref.logits], "capacity": ref.capacity}}
+        reports, _ = run_ranks([job], device, target=mesh_rank, world=job["world"],
+                               what=f"mesh tp probe {dtype} {layers}")
+        say("mesh_tp_probe", card, dtype=dtype, layers=layers,
+            rel_logit_err_rank0=reports[0]["rel_err_per_step"],
+            max_rel_logit_err=max(max(rep["rel_err_per_step"]) for rep in reports.values()))
+        del params, tensors, job, ref
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
 
 
 # -- 10. the examples and the dry-run against the card ------------------------
@@ -5260,6 +5549,14 @@ def main() -> int:
                  decode_steps, seed, device, card)
         torch.cuda.empty_cache()
         mesh_train(seed, device, card)
+        torch.cuda.empty_cache()
+        mesh_tp(seed, device, card)
+        return 0
+    if "--mesh-tp" in sys.argv[1:]:  # the dense LM on the mesh alone: no result line
+        mesh_tp(seed, device, card)
+        return 0
+    if "--mesh-tp-probe" in sys.argv[1:]:  # the TP serve's error by dtype, depth: no result
+        mesh_tp_probe(seed, device, card)
         return 0
     if "--ckpt-drill" in sys.argv[1:]:  # the checkpoint drill alone: no result line
         ckpt_drill(seed, device, card)
@@ -5321,6 +5618,8 @@ def main() -> int:
     del minibatch
     torch.cuda.empty_cache()
     add_launches(mesh_launches, mesh_train(seed, device, card))
+    torch.cuda.empty_cache()
+    add_launches(mesh_launches, mesh_tp(seed, device, card))
     torch.cuda.empty_cache()
     drill = ckpt_drill(seed, device, card)
     torch.cuda.empty_cache()

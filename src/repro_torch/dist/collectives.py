@@ -30,7 +30,20 @@ its cotangent divided by their size, ``psum``'s transpose is ``psum``):
   gathered whole along one dimension where it is used; backward a
   reduce-scatter of the cotangents along the same dimension, summed in
   float32 and averaged over the group (each rank's gradient is its share
-  of the batch's), or this rank's slice of a cotangent every rank holds.
+  of the batch's), or this rank's slice of a cotangent every rank holds;
+* :func:`all_gather_sum` — the tensor-parallel gather (Megatron's
+  sequence-parallel ``g``): the sequence-split residual, or a weight held
+  as this rank's ``model`` block, gathered whole along one dimension for a
+  rank's share of the work; backward a reduce-scatter of the ranks'
+  partial cotangents along it, summed in float32 and cast back;
+* :func:`reduce_scatter_dim` — its transpose (``ḡ``): each rank's float32
+  partial product reduce-scattered along one dimension (the sequence) and
+  rounded once by the caller; backward an all-gather of the cotangents;
+* :func:`pmax` — a cross-rank max with no gradient (the vocabulary-split
+  cross-entropy's shift);
+* :func:`all_to_all_dim` — blocks of one dimension sent rank to rank and
+  received along another, no gradient: the prefill's K/V from a rank's
+  heads to its cache slots.
 
 Transport: the ranks of one card talk through gloo (NCCL refuses two
 ranks on one device). On the H100 machine gloo took every collective here
@@ -70,7 +83,7 @@ def _count(name: str, t: torch.Tensor, group=None):
     nbytes = t.numel() * t.element_size()
     n = dist.get_world_size(group)
     wire = {"all_gather": nbytes * (n - 1), "reduce_scatter": nbytes * (n - 1) // n,
-            "all_reduce": 2 * nbytes * (n - 1) // n}[name]
+            "all_reduce": 2 * nbytes * (n - 1) // n, "all_to_all": nbytes * (n - 1) // n}[name]
     for key, value in ((name, 1), (f"{name}_bytes", nbytes), (f"{name}_wire_bytes", wire)):
         COUNTS[key] = COUNTS.get(key, 0) + value
 
@@ -189,21 +202,39 @@ def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _all_gather(x.movedim(dim, 0), group).movedim(0, dim)
 
 
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim)
+
+
 class _AllGatherDim(torch.autograd.Function):
+    """``reduce`` says what the backward does with the cotangents:
+    ``"mean"`` / ``"sum"`` reduce-scatter them in float32 (averaged or
+    summed), ``"slice"`` takes this rank's block."""
+
     @staticmethod
-    def forward(ctx, x, dim, group, mean):
-        ctx.dim, ctx.group, ctx.mean = dim, group, mean
+    def forward(ctx, x, dim, group, reduce):
+        ctx.dim, ctx.group, ctx.reduce = dim, group, reduce
         return _all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        g0 = g.movedim(ctx.dim, 0)
-        if ctx.mean:
-            n = dist.get_world_size(ctx.group)
-            out = (_reduce_scatter(g0.float(), ctx.group) / n).to(g.dtype)
-        else:
-            out = _rows(g0, ctx.group)
-        return out.movedim(0, ctx.dim), None, None, None
+        if ctx.reduce == "slice":
+            return _rows(g.movedim(ctx.dim, 0), ctx.group).movedim(0, ctx.dim), None, None, None
+        out = _reduce_scatter_dim(g.float(), ctx.dim, ctx.group)
+        if ctx.reduce == "mean":
+            out = out / dist.get_world_size(ctx.group)
+        return out.to(g.dtype), None, None, None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
 def _grad(x: torch.Tensor) -> bool:
@@ -265,14 +296,57 @@ def all_gather_dim(x: torch.Tensor, dim: int, group, mean: bool = True) -> torch
     group's size and cast back; without, this rank's block of the
     cotangent."""
     if _grad(x):
-        return _AllGatherDim.apply(x, dim, group, mean)
+        return _AllGatherDim.apply(x, dim, group, "mean" if mean else "slice")
+    return _all_gather_dim(x, dim, group)
+
+
+def all_gather_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block of dimension ``dim``, in rank order, where each
+    rank uses the whole for its share of the work (a tensor-parallel
+    region's input): backward the ranks' partial cotangents summed in
+    float32, each rank keeping its block, cast back to ``x``'s dtype."""
+    if _grad(x):
+        return _AllGatherDim.apply(x, dim, group, "sum")
     return _all_gather_dim(x, dim, group)
 
 
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block of dimension ``dim`` of the sum over the group's
-    ranks (no gradient): a ZeRO-1 gradient onto its slice."""
-    return _reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim)
+    ranks: a ZeRO-1 gradient onto its slice, or a tensor-parallel region's
+    float32 partials onto this rank's block of the sequence. With a
+    gradient its backward all-gathers the cotangents (:func:`all_gather_sum`'s
+    transpose)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter dimension size {x.shape[dim]} must be divisible "
+                         f"by shard_count {n}")
+    if _grad(x):
+        return _ReduceScatterDim.apply(x, dim, group)
+    return _reduce_scatter_dim(x, dim, group)
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The cross-rank elementwise max of ``x``, no gradient."""
+    return _all_reduce_(x.detach().contiguous().clone(), dist.ReduceOp.MAX, group)
+
+
+def all_to_all_dim(x: torch.Tensor, split: int, concat: int, group) -> torch.Tensor:
+    """``x`` cut into ``n`` equal blocks along ``split``, block ``t`` sent
+    to rank ``t``; the blocks received concatenated along ``concat`` in rank
+    order (no gradient)."""
+    n = dist.get_world_size(group)
+    if x.shape[split] % n:
+        raise ValueError(f"all_to_all dimension size {x.shape[split]} must be divisible "
+                         f"by the group's {n} ranks")
+    blocks = x.detach().movedim(split, 0)
+    shape = blocks.shape
+    blocks = blocks.reshape((n, shape[0] // n) + shape[1:]).contiguous()
+    out = torch.empty_like(blocks)
+    _count("all_to_all", blocks, group)
+    dist.all_to_all_single(out, blocks, group=group)
+    # [source rank, block, ...] with the block dimension back in place
+    out = out.movedim(1, split + 1)
+    return torch.cat(out.unbind(0), dim=concat)
 
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,10 @@ holds a leaf as its slice under the leaf's ``NamedSharding`` — the shape
 JAX's ``NamedSharding.shard_shape`` gives (:func:`shard_shape`) — and a
 model gathers it whole where it uses it (``dist.collectives.
 all_gather_dim`` over each sharded dimension's axes), the gather's
-backward handing the shard its gradient.
+backward handing the shard its gradient. A dimension split over ``model``
+may stay split (``Gather.of``'s ``keep``): the dense LM's tensor
+parallelism (:func:`model_axis`) uses each rank's ``model`` block where it
+is, as JAX's specs lay it out.
 
 The vertex-partition half (:func:`shard_mesh`, :class:`ShardMesh`) places
 one shard of a partitioned graph per rank of a process group; the caller
@@ -180,6 +183,36 @@ def active_mesh() -> Optional[Mesh]:
 def batch_split() -> bool:
     """Whether the active mesh's data axes split the batch already."""
     return _BATCH_SPLIT
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The active mesh's ``model`` axis as this rank sees it: the process
+    group of the ranks that share its data coordinates, their number and
+    this rank's index among them (tensor parallelism)."""
+
+    group: Any
+    size: int
+    rank: int
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` (split evenly over the axis, as
+        :func:`shard_of` splits a dimension whose entry names ``model``)."""
+        if n % self.size:
+            raise NotImplementedError(f"a dimension of {n} on a model axis of {self.size}: "
+                                      f"tensor parallelism needs it to divide")
+        b = n // self.size
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The active mesh's :class:`ModelAxis` when it has more than one rank
+    and runs on a process group, else ``None`` (no tensor parallelism)."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.device_mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    group = axis_group(mesh, ("model",))
+    return ModelAxis(group, mesh.shape["model"], dist.get_rank(group))
 
 
 # --------------------------------------------------------------------------

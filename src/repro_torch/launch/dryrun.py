@@ -44,12 +44,19 @@ for the three dense ``train_4k`` cells (parameters over the model axis
 only, moments in ``fsdp``, each rank updating its slice) — and its share
 of the batch (``launch.train.batch_axes``: an LM's rows over the data
 axes, AutoInt's over every axis; a batch they do not divide, and a GNN's
-graph, whole, with the model on the mesh). The port has no tensor
-parallelism: every model rank gathers a layer's dense weights whole and
-repeats its data shard's dense work, so ``flops_per_device`` is the port's
-own work a rank, not JAX's divided by the model axis. An MoE's experts
-stay split over the model axis, each rank computing its own for its data
-shard's tokens (``moe_ffn_ep``), as JAX's expert parallelism does.
+graph, whole, with the model on the mesh). A dense LM runs tensor- and
+sequence-parallel over the model axis, as JAX's specs lay it out
+(``models.transformer.model``): the rank uses its ``model`` block of every
+weight (gathered over the data axes only), computes its query heads, its
+``d_ff/m`` columns, its ``V/m`` logits and its block of the sequence, and
+holds its ``C/m`` slots of a cache (``lm_cache_spec``; a decode cell's
+cache argument is that block). So ``flops_per_device`` is the rank's own
+share — JAX's divided by the model axis, but for the heads that JAX's
+``_maybe`` holds whole (qwen2.5-32b's 40 query heads on 16 ranks, which
+every rank then attends with; the record's ``tp`` says which). An MoE's
+experts stay split over the model axis, each rank computing its own for
+its data shard's tokens (``moe_ffn_ep``), as JAX's expert parallelism
+does; its attention keeps whole heads on every model rank.
 
 A Python layer loop is traced whole, every layer and every microbatch, so
 JAX's corrections for XLA have no counterpart here: the scan probe (XLA's
@@ -231,6 +238,13 @@ def _leaves(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
+    """``bmm``'s flops, its ``out_dtype`` overload too (torch's own formula
+    takes that overload's dtype argument for the output's shape)."""
+    b, m, k = a_shape
+    return b * m * b_shape[-1] * 2 * k
+
+
 def trace(fn: Callable, args: Tuple, hw: Optional[HW] = None, n_devices: int = 1,
           model_flops: Optional[float] = None) -> Dict[str, Any]:
     """Runs ``fn(*args)`` on fake tensors (``args`` from ``abstract_params``
@@ -254,7 +268,8 @@ def trace(fn: Callable, args: Tuple, hw: Optional[HW] = None, n_devices: int = 1
         traffic.track(t)
     t0 = time.perf_counter()
     try:
-        with common.fake_mode(_leaves(args)), FlopCounterMode(display=False) as flops, traffic:
+        with common.fake_mode(_leaves(args)), FlopCounterMode(
+                display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flop}) as flops, traffic:
             out = fn(*args)
         launches = launches_between(before, launch_counts())
     finally:
@@ -376,15 +391,21 @@ class Rank:
             return cls(None, batch)
         axes = batch_axes(family, mesh)
         n = math.prod(mesh.shape[a] for a in axes)
-        if not axes or batch % n:
+        if not axes or batch % n or n == 1:
             return cls(mesh, batch)
         return cls(mesh, batch // n, shd.axis_group(mesh, axes), axes)
+
+    @property
+    def model_parallel(self) -> bool:
+        """A model axis of several ranks: a dense LM runs tensor-parallel
+        over it, an MoE splits its experts there (``moe_ffn_ep``)."""
+        return self.mesh is not None and self.mesh.shape.get("model", 1) > 1
 
     @property
     def expert_parallel(self) -> bool:
         """The batch split over the data axes, a model axis of several
         ranks: each splits the MoE's experts (``moe_ffn_ep``)."""
-        return self.group is not None and self.mesh.shape.get("model", 1) > 1
+        return self.group is not None and self.model_parallel
 
     def place(self, family: str, params, opt=None, mode: str = "fsdp"):
         """Holds ``params`` and ``opt`` (fake, whole) as the rank's shards
@@ -397,8 +418,9 @@ class Rank:
 
     def run(self, fn: Callable) -> Callable:
         """``fn`` under the mesh when the model runs on it: the batch whole,
-        or split over the data axes with a model axis to split the experts."""
-        if self.mesh is None or not (self.group is None or self.expert_parallel):
+        or split over the data axes with a model axis to split the heads or
+        the experts."""
+        if self.mesh is None or not (self.group is None or self.model_parallel):
             return fn
 
         def on_mesh(*args):
@@ -441,6 +463,16 @@ def lm_cell(spec, shape_id: str, shape: Dict, device="cuda", cfg=None, mesh=None
         params = tm.abstract_params(cfg, device)
         rank.place("lm", params)
         specs = tm.input_specs(cfg, "decode", seq, rank.rows, device)
+        if tm.tensor_parallel(cfg.moe is None, mesh):  # the rank's C/m slots of the cache
+            kv = specs["cache"]["k"]
+            block = shd.shard_shape(kv.shape, shd.NamedSharding(mesh, shd.lm_cache_spec(
+                mesh, cfg, kv.shape[1], kv.shape[2])))
+            if block[2] == kv.shape[2]:
+                raise NotImplementedError(f"a cache of {kv.shape[2]} slots the model axis "
+                                          f"does not divide")
+            specs["cache"]["k"], specs["cache"]["v"] = (
+                common.fake_tensor(kv.shape[:2] + block[2:], kv.dtype, device)
+                for _ in range(2))
 
         def fn(p, cache, toks):  # the cache updated in place, as JAX's donated one
             return tm.decode_step_(p, cache, toks, cfg), cache
@@ -627,6 +659,13 @@ def dryrun_cell(arch_id: str, shape_id: str, mesh_kind: str = "card", device="cu
     rec["microbatch"] = MICROBATCH.get((arch_id, shape_id), 1) if spec.family == "lm" else 1
     try:
         with fake_ranks(mesh_shape, axes, device) as mesh, common.fake_mode():
+            if spec.family == "lm" and tm.tensor_parallel(spec.config.moe is None, mesh):
+                cfg, m = spec.config, mesh.shape["model"]
+                (q0, q1), (k0, k1) = tm.head_plan(cfg, shd.ModelAxis(None, m, 0))
+                rec["tp"] = {"model": m, "query_heads_per_rank": q1 - q0,
+                             "kv_heads_per_rank": k1 - k0,
+                             "query_heads_whole": cfg.n_heads % m != 0,
+                             "kv_heads_whole": cfg.n_kv_heads % m != 0}
             fn, args, model_flops = CELLS[spec.family](
                 spec, shape_id, shape, device, mesh=None if n_devices == 1 else mesh)
             result = trace(fn, args, hw, n_devices, model_flops)

@@ -49,7 +49,11 @@ its gradient in float32 and averages it over the data ranks, so AdamW
 updates each shard in place; the clipping norm is the whole gradient's.
 The checkpoints hold whole arrays with the leaves' specs: the snapshot
 gathers the shards into rank 0's host buffers, rank 0 writes, and a
-restore hands each rank its slice.
+restore hands each rank its slice. On a mesh with several ranks on its
+model axis (``Supervised(..., mesh=)``) a dense LM runs tensor-parallel
+over them (``models.transformer.model``): each rank keeps its ``model``
+block of every leaf where it is, gathered over the data axes only, and
+the ranks of one data shard hold its rows.
 """
 
 from __future__ import annotations
@@ -248,11 +252,15 @@ def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
     """How JAX's sharded step takes its batches on ``mesh``: ``(batch_for_step,
     group, on_mesh)``. On several ranks an LM's or AutoInt's batch whose
     rows the ranks of :func:`batch_axes` divide is split over them: each
-    rank's step sees its rows, runs the model off the mesh and averages over
-    ``group`` (:func:`make_step`). Any other batch is whole on every rank
-    and the model runs on the mesh (``on_mesh``; ``group`` None): a GNN's
-    regions split the edges, an MoE layer its tokens. On one rank each batch
-    is placed on the mesh's device, on its 1×1 mesh."""
+    rank's step sees its rows and averages over ``group``
+    (:func:`make_step`); the model runs off the mesh unless the mesh has a
+    model axis of several ranks (``on_mesh``: the dense LM's tensor
+    parallelism, the MoE's expert parallelism, over the rows the rank's
+    data shard holds). Any other batch is whole on every rank and the model
+    runs on the mesh (``on_mesh``; ``group`` None): a GNN's regions split
+    the edges, an MoE layer its tokens, a dense LM its heads (a data axis of
+    one rank leaves the batch whole). On one rank each batch is placed on
+    the mesh's device, on its 1×1 mesh."""
     if mesh.device_mesh is None:
         bshard = shd.batch_shardings(family, batch_for_step(0), mesh)
         return (lambda i: place(batch_for_step(i), bshard)), None, True
@@ -264,10 +272,11 @@ def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
     group = shd.axis_group(mesh, axes)
     n, r = dist.get_world_size(group), dist.get_rank(group)
     b = next(iter(batch_for_step(0).values())).shape[0]
-    if b % n:
+    if b % n or n == 1:
         return batch_for_step, None, True
     rows = slice(r * b // n, (r + 1) * b // n)
-    return (lambda i: {k: v[rows] for k, v in batch_for_step(i).items()}), group, False
+    return ((lambda i: {k: v[rows] for k, v in batch_for_step(i).items()}), group,
+            mesh.shape.get("model", 1) > 1)
 
 
 def params_tree(params):
@@ -327,11 +336,14 @@ def shard_state_(params, opt: Optional[Dict[str, Any]], layout, axes: Sequence[s
     """Hold every leaf that ``layout`` (:func:`state_layout`) splits over
     more than one rank as this rank's slice of it — the parameter (gathered
     where the model uses it, the batch split over ``axes``) and its two
-    moments in ``opt``, if given — releasing the whole. With
-    ``local_experts`` the expert stacks are gathered over the data axes
-    only: the model axis splits the experts, each rank computing its own
-    (``moe_ffn_ep``). Returns the :class:`Shards` (empty on one rank, or
-    where the rules give ``P()``)."""
+    moments in ``opt``, if given — releasing the whole. A dense LM that
+    runs tensor-parallel (``models.transformer.model.tensor_parallel``)
+    gathers each leaf over the data axes only: the rank uses its ``model``
+    block where it is.
+    With ``local_experts`` the expert stacks likewise: the model axis
+    splits the experts, each rank computing its own (``moe_ffn_ep``).
+    Returns the :class:`Shards` (empty on one rank, or where the rules give
+    ``P()``)."""
     if layout["opt"]["step"].mesh.device_mesh is None:
         return Shards()
     leaves = named_leaves(params)
@@ -345,8 +357,10 @@ def shard_state_(params, opt: Optional[Dict[str, Any]], layout, axes: Sequence[s
         return Shards()
     if not isinstance(params, tm.TransformerParams):
         raise NotImplementedError("FSDP shards of a family other than the LM's")
-    gathers = {k: shd.Gather.of(sh, axes, ("model",) if local_experts and k in EXPERT_STACKS
-                                else ()) for k, sh in psplit.items()}
+    tp = tm.tensor_parallel(params.dense, layout["opt"]["step"].mesh)
+    gathers = {k: shd.Gather.of(sh, axes, ("model",) if tp or (local_experts and
+                                                            k in EXPERT_STACKS) else ())
+               for k, sh in psplit.items()}
     averaged = set()
     for k, gather in gathers.items():
         means = {a for d, _, mean in gather.dims if mean
@@ -393,8 +407,8 @@ def place(tree, shardings):
 class Supervised:
     """The JAX trainer's ``main`` loop: the step of :func:`make_step` over
     ``params`` (and ``opt_state``, else zeros) under a ``TrainSupervisor``
-    checkpointing to ``ckpt_dir``, on :func:`make_train_mesh`'s mesh with the
-    batches of :func:`data_parallel`. ``total`` is the schedule's length and
+    checkpointing to ``ckpt_dir``, on ``mesh`` (by default
+    :func:`make_train_mesh`'s) with the batches of :func:`data_parallel`. ``total`` is the schedule's length and
     :meth:`run`'s ``n_steps`` where the run stops (a job cut short runs to
     fewer steps than its schedule). ``losses`` collects ``(step index,
     loss)`` of every step run, replays included; ``sup`` is the supervisor
@@ -404,10 +418,11 @@ class Supervised:
                  oc: AdamWConfig, *, warmup: int, total: int, ckpt_dir: str,
                  ckpt_every: int = 50, inject_failures: Sequence[int] = (),
                  opt_state: Optional[Dict[str, Any]] = None, log_every: int = 10,
-                 log=print, device="cuda"):
+                 log=print, device="cuda", mesh: Optional[shd.Mesh] = None):
         self.params = params
-        self.mesh = make_train_mesh(device)
+        self.mesh = mesh or make_train_mesh(device)
         batches, group, self.on_mesh = data_parallel(family, batch_for_step, self.mesh)
+        self.batch_split = group is not None
         dev = resolve_device(self.mesh.device)
         if any(t.to(dev) is not t for t in named_leaves(params).values()):  # itself if there
             raise ValueError(f"the state is not on the mesh's device {dev}")
@@ -415,7 +430,9 @@ class Supervised:
         # (the moments made on them when none are given)
         self.layout = state_layout(family, params, self.mesh)
         self.shards = shard_state_(params, opt_state, self.layout,
-                                   () if group is None else batch_axes(family, self.mesh))
+                                   () if group is None else batch_axes(family, self.mesh),
+                                   local_experts=group is not None
+                                   and self.mesh.shape.get("model", 1) > 1)
         self.opt = opt_state or adamw_init(params, oc)
         multi = self.mesh.device_mesh is not None
         flat_layout = dict(_flatten(self.layout))
@@ -484,7 +501,7 @@ class Supervised:
         live tensors then hold the final state. Returns ``(step,
         metrics)``; ``metrics`` is ``None`` when no step ran."""
         if self.on_mesh:
-            shd.activate(self.mesh)
+            shd.activate(self.mesh, batch_split=self.batch_split)
         try:
             state, step, metrics = self.sup.run(self.init_state, n_steps)
         finally:
@@ -530,7 +547,7 @@ def train(arch: str, reduced: bool = False, steps: int = 100, batch: int = 8,
     losses: List[float] = []
     last = time.perf_counter()
     if on_mesh:
-        shd.activate(mesh)
+        shd.activate(mesh, batch_split=group is not None)
     try:
         for i in range(steps):
             state, metrics = step_fn(state, batches(i))

@@ -6,7 +6,11 @@ counterpart: it is the identity, there to stop XLA's loop-invariant code
 motion from hoisting an f32 upcast of the remat carry out of the backward
 scan, and PyTorch runs each layer eagerly, with no such pass.
 The models call ``dist.sharding.constrain`` where the JAX models do;
-this module, as JAX's, calls none.
+this module, as JAX's, calls none. Two blocks serve the dense LM's tensor
+parallelism: :func:`partial_matmul`, a rank's share of a product in
+float32 (its partials summed across ranks in float32 and rounded once),
+and the vocabulary-split :func:`softmax_cross_entropy`, whose max,
+sum-exp and gold logit are reduced over the ranks in float32.
 Random initialisers draw from an explicit ``torch.Generator``, whose device
 is where the parameters are made. :func:`abstract_like` runs one under
 ``FakeTensorMode`` (the dry-run's parameters: shapes and dtypes, nothing
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch._guards import detect_fake_mode
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
 
 def dense_init(
@@ -91,12 +95,65 @@ def swiglu(x, w1, w3, w2):
     return (F.silu(x @ w1) * (x @ w3)) @ w2
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+class _PartialMatmul(torch.autograd.Function):
+    """``a @ w`` of bf16 (or f16) operands accumulated and returned in
+    float32, unrounded; the backward takes the cotangent in the operands'
+    dtype, as the one-rank product's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a.is_cuda or isinstance(a, FakeTensor):  # a dry-run traces the card's product
+            out = torch.mm(a2, w, out_dtype=torch.float32)
+        else:
+            out = a2.float() @ w.float()
+        return out.reshape(a.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = (a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return ga, gw
+
+
+def partial_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [..., K] @ w [K, N]`` in float32: a rank's partial product of a
+    row-parallel layer, which the ranks sum in float32 before it is rounded
+    once. float32 operands take the plain product."""
+    if a.dtype == torch.float32:
+        return a @ w
+    return _PartialMatmul.apply(a, w)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: Optional[tuple] = None) -> torch.Tensor:
     """Token-mean cross-entropy; logits ``[..., V]`` taken in float32 (the
-    gradient ``softmax − onehot`` over the token count, in float32)."""
+    gradient ``softmax − onehot`` over the token count, in float32).
+
+    ``vocab = (first, group)``: ``logits`` are this rank's block of the
+    vocabulary, ids ``first…`` (tensor parallelism); the max (a shift, no
+    gradient), the sum of exponentials and the gold logit are reduced over
+    ``group`` in float32, so no rank holds the ``[..., V]`` logits whole,
+    and each rank's block gets ``softmax − onehot`` of its own ids."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - gold).mean()
+    from repro_torch.dist import collectives as coll
+
+    first, group = vocab
+    n = logits.shape[-1]
+    shift = coll.pmax(logits.detach().amax(dim=-1), group)
+    lse = coll.psum(torch.exp(logits - shift[..., None]).sum(dim=-1), group).log() + shift
+    ids = labels.long() - first
+    inside = (ids >= 0) & (ids < n)
+    gold = logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    gold = coll.psum(torch.where(inside, gold, 0.0), group)
     return (lse - gold).mean()
 
 

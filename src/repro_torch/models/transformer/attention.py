@@ -6,6 +6,11 @@ The forward half of ``repro.models.transformer.attention``, layout
 * :func:`attention_dense` — scores over every key, with explicit positions
   and a key mask: the decode step's ring-buffer attention, plain tensor
   code as in the JAX package;
+* :func:`attention_partial` — the decode step's attention under tensor
+  parallelism: each rank attends over its own block of the cache's slots,
+  the softmax normalised by the log-sum-exp over every block (reduced over
+  the ``model`` ranks in float32) and the blocks' ``P·V`` summed over the
+  ranks in float32;
 * :func:`attention_chunked` — the prefill/forward attention. Where the JAX
   package runs an online softmax over KV chunks in ``lax.scan``, the port
   calls ``kernels.flash_attention``, which computes that online softmax in
@@ -86,6 +91,51 @@ def attention_dense(
         logits = torch.where(kv_mask[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_partial(q, k, v, q_pos, k_pos, group, causal: bool = True,
+                      window: Optional[int] = None, kv_mask: Optional[torch.Tensor] = None):
+    """:func:`attention_dense` with the keys split over ``group``'s ranks,
+    ``k``/``v`` this rank's block: the softmax normalised over every block
+    (its max and its sum of exponentials reduced over the ranks in
+    float32), the probabilities rounded to ``q``'s dtype as there, and this
+    block's ``P·V`` accumulated in float32 and summed over the ranks.
+    Returns ``[B, Sq, H, Dh]`` float32, for the caller to round once."""
+    from repro_torch.dist import collectives as coll
+
+    dh = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * dh**-0.5
+    if q_pos.ndim == 1:
+        q_pos = q_pos[None]
+    if k_pos.ndim == 1:
+        k_pos = k_pos[None]
+    logits = logits + _mask_bias(q_pos[:, None, :], k_pos[:, None, :], causal, window)
+    if kv_mask is not None:
+        logits = torch.where(kv_mask[:, None, None, :], logits, NEG_INF)
+    e = torch.exp(logits - coll.pmax(logits.amax(dim=-1), group)[..., None])
+    probs = (e / coll.psum(e.sum(dim=-1), group)[..., None]).to(q.dtype)
+    return coll.psum(_pv_float32(probs, v), group)
+
+
+def _pv_float32(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``P [B, H, Sq, Sk] · V [B, Sk, H, Dh]`` → ``[B, Sq, H, Dh]``,
+    accumulated and returned in float32 (bf16 operands unrounded: the
+    card's ``bmm`` with a float32 output, upcast operands on the CPU)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    b, h, sq, sk = probs.shape
+    p = probs.reshape(b * h, sq, sk)
+    vt = v.permute(0, 2, 1, 3).reshape(b * h, sk, v.shape[-1])
+    if probs.dtype == torch.float32:
+        out = torch.bmm(p, vt)
+    elif probs.is_cuda or isinstance(probs, FakeTensor):
+        out = torch.bmm(p, vt, out_dtype=torch.float32)
+    else:
+        out = torch.bmm(p.float(), vt.float())
+    return out.reshape(b, h, sq, -1).transpose(1, 2)
 
 
 def attention_chunked(

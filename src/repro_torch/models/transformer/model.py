@@ -33,12 +33,46 @@ dispatch and combine on the ``gather_rows`` and ``segment_reduce``
 kernels; ``forward`` returns the balance loss summed over the layers, as
 the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
 
-On a multi-rank mesh (``dist.sharding.activate``) every rank holds the
-tokens and the activations whole — the JAX module's ``constrain`` calls
-sit where its do, and change nothing on a plain tensor — and the MoE FFN
-runs expert-parallel (``moe.moe_ffn_ep``): each rank routes its data
-shard's tokens to its model shard's experts, and the combine's
-collectives hand every rank the whole ``[T, D]``.
+On a multi-rank mesh (``dist.sharding.activate``) a dense config runs
+tensor- and sequence-parallel over the ``model`` axis, as JAX's specs and
+``constrain`` calls lay it out (``dist.sharding.model_axis``; the ranks of
+one data shard hold the same rows):
+
+* each rank uses its own ``model`` block of every weight: the
+  column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3`` for its query heads
+  and ``d_ff/m`` columns, the row-parallel ``wo``/``w2`` for the matching
+  rows, the vocabulary's ``V/m`` rows of ``embed``/``unembed``. Where
+  JAX's ``_maybe`` drops ``model`` from the query heads (``H % m``) every
+  rank attends with all of them, as GSPMD's replicated heads; where it
+  drops it from the kv heads (``Hkv % m``, the kv heads then gathered
+  whole) each rank computes the kv heads its query heads read
+  (:func:`head_plan`);
+* the residual between sub-blocks is split over the sequence (Megatron
+  SP, JAX's ``(BATCH, "model", None)`` boundary): a sub-block all-gathers
+  its normed input (``dist.collectives.all_gather_sum``) and
+  reduce-scatters its float32 partial product back
+  (``reduce_scatter_dim``), summed in float32 and rounded once; a sequence
+  the axis does not divide (the decode step's one token) stays whole, the
+  partials all-reduced;
+* the embedding is a masked lookup of the rank's vocabulary rows summed
+  over the ranks; the logits stay ``[B, S, V/m]`` (JAX's vocab-sharded
+  ``constrain``) and the loss is the vocabulary-split cross-entropy
+  (``common.softmax_cross_entropy``);
+* the prefill's cache is ``lm_cache_spec``'s layout: the rank's ``C/m``
+  slots, every kv head (a heads-to-slots all-to-all of the kept K/V);
+  :func:`decode_step_` attends with all query heads over the rank's own
+  slots, its softmax normalised by the log-sum-exp over every rank's and
+  the ranks' float32 ``P·V`` summed (``attention.attention_partial``).
+
+A replicated leaf used for a rank's share (the norms under sequence
+parallelism, ``q_norm``/``k_norm`` on its heads, the rank's slices of
+``bq``/``bk``/``bv``) enters through ``dist.collectives.copy_in``, which
+sums its gradient over the ranks. A one-rank mesh, or none, takes the
+same code on :data:`ONE_RANK`: no collective, the whole of every weight,
+plain products in the compute dtype. MoE configs keep whole heads on every model
+rank and run their FFN expert-parallel (``moe.moe_ffn_ep``): each rank
+routes its data shard's tokens to its model shard's experts, and the
+combine's collectives hand every rank the whole ``[T, D]``.
 
 The parameters may be held as FSDP shards (:meth:`TransformerParams.
 shard_`, the trainer's live state): each sharded leaf is then gathered
@@ -52,15 +86,17 @@ code with no collective.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import BATCH, constrain
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import ModelAxis, active_mesh, model_axis
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import common
 from repro_torch.models.transformer import attention as attn_mod
@@ -90,6 +126,11 @@ class TransformerParams(nn.Module):
         self.layers = nn.ParameterDict(
             {name: param(t) for name, t in tensors["layers"].items()}
         )
+
+    @property
+    def dense(self) -> bool:
+        """No MoE layers (every layer's FFN is ``ffn_*``)."""
+        return not any(name.startswith("moe_") for name in self.layers)
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s parameters, as views of the stacked tensors."""
@@ -256,45 +297,171 @@ def params_tree(params: TransformerParams) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# the model axis: tensor and sequence parallelism of a dense config
+
+
+#: no tensor parallelism: one rank holds every head, column, vocabulary row
+#: and cache slot, and the hooks below call no collective
+ONE_RANK = ModelAxis(None, 1, 0)
+
+
+def tensor_parallel(dense: bool, mesh) -> bool:
+    """Whether an LM runs tensor-parallel on ``mesh``: a dense one on a
+    model axis of several ranks. MoE configs keep whole heads on every
+    model rank (their experts split over it, ``moe.moe_ffn_ep``)."""
+    return dense and mesh is not None and mesh.shape.get("model", 1) > 1
+
+
+def _axis(cfg: TransformerConfig) -> ModelAxis:
+    """The active mesh's model axis where ``cfg`` runs tensor-parallel on
+    it (:func:`tensor_parallel`, a process group behind it), else
+    :data:`ONE_RANK`."""
+    if tensor_parallel(cfg.moe is None, active_mesh()):
+        return model_axis() or ONE_RANK
+    return ONE_RANK
+
+
+def head_plan(cfg: TransformerConfig, tp: ModelAxis) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``((q0, q1), (k0, k1))``: the query heads this rank attends with and
+    the kv heads they read. ``H % m`` (JAX's ``_maybe`` drops ``model``
+    from the heads): all of them on every rank. Otherwise the rank's block
+    of ``H/m`` query heads, with the rank's block of kv heads where ``m``
+    divides them, else the kv heads that block reads (the GQA groups must
+    map evenly onto it)."""
+    h, hkv, m, r = cfg.n_heads, cfg.n_kv_heads, tp.size, tp.rank
+    if h % m:
+        return (0, h), (0, hkv)
+    q0, q1 = r * h // m, (r + 1) * h // m
+    if hkv % m == 0:
+        return (q0, q1), (r * hkv // m, (r + 1) * hkv // m)
+    g = h // hkv
+    k0, k1 = q0 // g, (q1 - 1) // g + 1
+    nq, nk = q1 - q0, k1 - k0
+    if nq % nk or any((q0 + i) // g - k0 != i // (nq // nk) for i in range(nq)):
+        raise NotImplementedError(f"{h} query heads over {hkv} kv heads on a model axis of "
+                                  f"{m}: rank {r}'s heads read their kv heads unevenly")
+    return (q0, q1), (k0, k1)
+
+
+def _copy_in(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """A replicated leaf used for this rank's share: its gradient summed
+    over the ranks."""
+    return x if tp.size == 1 else coll.copy_in(x, tp.group)
+
+
+def _take(w: torch.Tensor, n: int, cols: slice, tp: ModelAxis, dim: int = -1) -> torch.Tensor:
+    """The block ``cols`` of a leaf whose size along ``dim`` is ``n``
+    whole: held whole (sliced; ``copy_in`` sums its gradient over the
+    ranks), held as this rank's ``model`` block (used as it is when that is
+    the block asked for), or gathered whole over ``model`` and sliced (its
+    gradient reduce-scattered, summed)."""
+    if w.shape[dim] == n:
+        w = _copy_in(w, tp)
+        if (cols.start, cols.stop) == (0, n):
+            return w
+        return w.narrow(dim, cols.start, cols.stop - cols.start)
+    own = tp.block(n)
+    if w.shape[dim] != own.stop - own.start:
+        raise ValueError(f"a leaf of {w.shape[dim]} along {dim}: neither {n} whole nor a "
+                         f"block of {tp.size}")
+    if (cols.start, cols.stop) == (own.start, own.stop):
+        return w
+    return coll.all_gather_sum(w, dim, tp.group).narrow(dim, cols.start,
+                                                        cols.stop - cols.start)
+
+
+def _heads(a: int, b: int, hd: int) -> slice:
+    return slice(a * hd, b * hd)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """``a @ w`` of a row-parallel block: on several ranks the rank's float32
+    partial (``common.partial_matmul``), summed over them and rounded once
+    by :func:`_leave`."""
+    return a @ w if tp.size == 1 else common.partial_matmul(a, w)
+
+
+def _enter(h: torch.Tensor, tp: ModelAxis, sp: bool) -> torch.Tensor:
+    """A sub-block's input: the sequence-split ``h`` gathered whole (its
+    partial cotangents reduce-scattered), or the replicated ``h`` (its
+    partial cotangents all-reduced)."""
+    if tp.size == 1:
+        return h
+    return coll.all_gather_sum(h, 1, tp.group) if sp else coll.copy_in(h, tp.group)
+
+
+def _leave(partial: torch.Tensor, x: torch.Tensor, tp: ModelAxis, sp: bool) -> torch.Tensor:
+    """``x`` plus the sub-block's output; on several ranks their float32
+    partial products summed over them and rounded once: reduce-scattered
+    onto this rank's block of the sequence, or all-reduced."""
+    if tp.size == 1:
+        return x + partial
+    y = coll.reduce_scatter_dim(partial, 1, tp.group) if sp else coll.psum(partial, tp.group)
+    return x + y.to(x.dtype)
+
+
+def _norm(gamma: torch.Tensor, tp: ModelAxis, sp: bool) -> torch.Tensor:
+    """A norm's gain: on a rank's block of the sequence its gradient is the
+    block's, summed over the ranks; on the replicated residual every rank's
+    is the whole one."""
+    return _copy_in(gamma, tp) if sp else gamma
+
+
+def _slot_block(c: int, tp: ModelAxis) -> slice:
+    """This rank's block of a cache's ``c`` slots."""
+    if c % tp.size:
+        raise NotImplementedError(f"a cache of {c} slots on a model axis of {tp.size}: the "
+                                  f"port holds it split over the axis only")
+    return tp.block(c)
+
+
+# ---------------------------------------------------------------------------
 # forward
 
 
-def project_qkv(p, x, pos, cfg: TransformerConfig):
-    """q ``[B, S, H, Dh]`` and k, v ``[B, S, Hkv, Dh]`` of one layer: the
-    projections, biases, qk-norm, and RoPE at ``pos`` (k too is rotated
-    with the query positions, as in the JAX package)."""
+def project_qkv(p, x, pos, cfg: TransformerConfig, tp: ModelAxis = ONE_RANK,
+                q_heads=None, kv_heads=None):
+    """q ``[B, S, Hq, Dh]`` and k, v ``[B, S, Hk, Dh]`` of one layer for the
+    query heads ``q_heads`` and kv heads ``kv_heads`` (``(first, end)``,
+    all by default): the projections, biases, qk-norm, and RoPE at ``pos``
+    (k too is rotated with the query positions, as in the JAX package)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q_heads, kv_heads = q_heads or (0, h), kv_heads or (0, hkv)
+    qc, kc = _heads(*q_heads, hd), _heads(*kv_heads, hd)
+    q = x @ _take(p["wq"], h * hd, qc, tp)
+    k = x @ _take(p["wk"], hkv * hd, kc, tp)
+    v = x @ _take(p["wv"], hkv * hd, kc, tp)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = constrain(q.reshape(b, s, h, hd), (BATCH, None, "model", None))
-    k = constrain(k.reshape(b, s, hkv, hd), (BATCH, None, "model", None))
-    v = constrain(v.reshape(b, s, hkv, hd), (BATCH, None, "model", None))
+        q = q + _take(p["bq"], h * hd, qc, tp)
+        k = k + _take(p["bk"], hkv * hd, kc, tp)
+        v = v + _take(p["bv"], hkv * hd, kc, tp)
+    q = q.reshape(b, s, q_heads[1] - q_heads[0], hd)
+    k = k.reshape(b, s, kv_heads[1] - kv_heads[0], hd)
+    v = v.reshape(b, s, kv_heads[1] - kv_heads[0], hd)
     if cfg.qk_norm:
-        q = common.rms_norm(q, p["q_norm"])
-        k = common.rms_norm(k, p["k_norm"])
+        q = common.rms_norm(q, _copy_in(p["q_norm"], tp))
+        k = common.rms_norm(k, _copy_in(p["k_norm"], tp))
     q = attn_mod.apply_rope(q, pos, cfg.rope_theta)
     k = attn_mod.apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(p, x, q_pos, k_pos, cfg, k_cache=None, v_cache=None, kv_mask=None):
-    """Attention sub-block. With ``k_cache``/``v_cache`` (decode) it attends
-    to the cache followed by this call's K/V; returns (out, new_k, new_v)
-    where new_k/new_v are this call's K/V."""
-    b, s, _ = x.shape
-    q, k, v = project_qkv(p, x, q_pos, cfg)
-    new_k, new_v = k, v
-    if k_cache is not None:
-        k = torch.cat([k_cache, k], dim=1)
-        v = torch.cat([v_cache, v], dim=1)
-    out = attn_mod.attention(q, k, v, q_pos, k_pos, cfg, causal=True, kv_mask=kv_mask)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"], new_k, new_v
+def _attn_block(p, h, pos, cfg: TransformerConfig, tp: ModelAxis, kv_heads=None):
+    """The attention sub-block on the whole sequence ``h [B, S, D]``: (this
+    rank's partial of its output, k, v of ``kv_heads``, by default those
+    the rank's query heads read). The flash kernel runs on the rank's query
+    heads (:func:`head_plan`); the row-parallel ``wo`` takes its block."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    (q0, q1), (k0, k1) = head_plan(cfg, tp)
+    kv_heads = kv_heads or (k0, k1)
+    q, k, v = project_qkv(p, h, pos, cfg, tp, (q0, q1), kv_heads)
+    read = slice(k0 - kv_heads[0], k1 - kv_heads[0])
+    out = attn_mod.attention(q, k[:, :, read], v[:, :, read], pos, pos, cfg, causal=True)
+    own = tp.block(cfg.n_heads * hd)
+    out = out.reshape(b, s, (q1 - q0) * hd)[..., own.start - q0 * hd:own.stop - q0 * hd]
+    return _mm(out, _take(p["wo"], cfg.n_heads * hd, own, tp, dim=-2), tp), k, v
 
 
 def moe_params(p) -> Dict[str, Any]:
@@ -309,47 +476,71 @@ def moe_params(p) -> Dict[str, Any]:
     return out
 
 
-def _ffn_block(p, x, cfg):
-    """The FFN sub-block: (y, aux), aux the MoE balance loss (0.0 dense)."""
+def _ffn_block(p, h, cfg: TransformerConfig, tp: ModelAxis = ONE_RANK):
+    """The FFN sub-block: (this rank's partial of y, aux), aux the MoE
+    balance loss (0.0 dense). A dense rank takes its ``d_ff/m`` columns of
+    ``w1``/``w3`` and rows of ``w2``."""
     if cfg.moe is None:
-        return common.swiglu(x, p["ffn_w1"], p["ffn_w3"], p["ffn_w2"]), 0.0
-    b, s, d = x.shape
-    y, aux = moe_mod.moe_ffn(x.reshape(b * s, d), moe_params(p), cfg.moe)
+        own = tp.block(cfg.d_ff)
+        a = F.silu(h @ _take(p["ffn_w1"], cfg.d_ff, own, tp)) * (
+            h @ _take(p["ffn_w3"], cfg.d_ff, own, tp))
+        return _mm(a, _take(p["ffn_w2"], cfg.d_ff, own, tp, dim=-2), tp), 0.0
+    b, s, d = h.shape
+    y, aux = moe_mod.moe_ffn(h.reshape(b * s, d), moe_params(p), cfg.moe)
     return y.reshape(b, s, d), aux
 
 
-def _embed(params: TransformerParams, tokens, cfg):
-    return params.whole("embed")[tokens.long()].to(cfg.cdtype)
+def _embed(params: TransformerParams, tokens, cfg, tp: ModelAxis = ONE_RANK, sp: bool = False):
+    """The embedding; on several ranks from this rank's vocabulary rows (a
+    masked lookup), summed over the ranks: reduce-scattered onto this
+    rank's block of the sequence (``sp``), or all-reduced. One rank's term
+    is the row, the others' zero: the sum is exact in the compute dtype."""
+    if tp.size == 1:
+        return params.whole("embed")[tokens.long()].to(cfg.cdtype)
+    own = tp.block(cfg.vocab_size)
+    n = own.stop - own.start
+    table = _take(params.whole("embed"), cfg.vocab_size, own, tp, dim=0)
+    ids = tokens.long() - own.start
+    inside = (ids >= 0) & (ids < n)
+    e = torch.where(inside[..., None], table[ids.clamp(0, n - 1)], 0).to(cfg.cdtype)
+    return coll.reduce_scatter_dim(e, 1, tp.group) if sp else coll.psum(e, tp.group)
 
 
-def _layer_fn(lp, x, pos, cfg, whole=None):
-    """One layer of the forward: (x after the layer, its MoE aux). ``whole``
-    gathers the layer's sharded weights (``TransformerParams.whole_layer``)."""
+def _layer_fn(lp, x, pos, cfg, whole, tp: ModelAxis, sp: bool):
+    """One layer of the forward: (x after the layer, its MoE aux); ``x``
+    this rank's block of the sequence (``sp``) or whole. ``whole`` gathers
+    the layer's sharded weights (``TransformerParams.whole_layer``)."""
     if whole is not None:
         lp = whole(lp)
-    a, _, _ = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
-    x = constrain(x + a, (BATCH, None, None))
-    f, aux = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)
-    # sequence-parallel layer boundary (Megatron SP), as in JAX
-    return constrain(x + f, (BATCH, "model", None)), aux
+    a, _, _ = _attn_block(lp, _enter(common.rms_norm(x, _norm(lp["ln1"], tp, sp)), tp, sp),
+                          pos, cfg, tp)
+    x = _leave(a, x, tp, sp)
+    f, aux = _ffn_block(lp, _enter(common.rms_norm(x, _norm(lp["ln2"], tp, sp)), tp, sp),
+                        cfg, tp)
+    return _leave(f, x, tp, sp), aux
 
 
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig):
     """Full forward over ``tokens [B, S]``. Returns (hidden [B, S, D], aux);
     ``aux`` is the MoE balance loss summed over the layers (0.0 dense).
-    With gradients enabled and ``cfg.remat`` each layer is checkpointed."""
-    x = constrain(_embed(params, tokens, cfg), (BATCH, None, None))
-    pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+    With gradients enabled and ``cfg.remat`` each layer is checkpointed.
+    Tensor-parallel, the hidden states come back whole on every rank (the
+    last gather's backward sums the ranks' cotangents)."""
+    tp = _axis(cfg)
+    s = tokens.shape[1]
+    sp = s % tp.size == 0
+    x = _embed(params, tokens, cfg, tp, sp)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     whole = params.whole_layer if params.gathers else None
     for lp in params.layer_list():
         if remat:
-            x, aux_l = checkpoint(_layer_fn, lp, x, pos, cfg, whole, use_reentrant=False)
+            x, aux_l = checkpoint(_layer_fn, lp, x, pos, cfg, whole, tp, sp, use_reentrant=False)
         else:
-            x, aux_l = _layer_fn(lp, x, pos, cfg, whole)
+            x, aux_l = _layer_fn(lp, x, pos, cfg, whole, tp, sp)
         aux = aux + aux_l
-    return common.rms_norm(x, params.ln_f), aux
+    return _enter(common.rms_norm(x, _norm(params.ln_f, tp, sp)), tp, sp), aux
 
 
 def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.Tensor:
@@ -357,13 +548,18 @@ def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.T
     {tokens [B, S], labels [B, S]}."""
     hidden, aux = forward(params, batch["tokens"], cfg)
     logits = logits_from_hidden(params, hidden, cfg)
-    ce = common.softmax_cross_entropy(logits, batch["labels"])
+    tp = _axis(cfg)
+    vocab = None if tp.size == 1 else (tp.block(cfg.vocab_size).start, tp.group)
+    ce = common.softmax_cross_entropy(logits, batch["labels"], vocab)
     return ce + 0.01 * aux
 
 
 def logits_from_hidden(params: TransformerParams, hidden, cfg):
+    """``hidden @ tableᵀ``; tensor-parallel, this rank's ``V/m`` vocabulary
+    columns (``hidden`` whole on every rank), as JAX keeps them sharded."""
     table = params.whole("embed" if cfg.tie_embeddings else "unembed")
-    return constrain(hidden @ table.T, (BATCH, None, "model"))  # keep vocab sharded
+    tp = _axis(cfg)
+    return hidden @ _take(table, cfg.vocab_size, tp.block(cfg.vocab_size), tp, dim=0).T
 
 
 # ---------------------------------------------------------------------------
@@ -378,15 +574,42 @@ def cache_len(cfg: TransformerConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, dtype=None, device="cuda"):
+    """An empty cache ``[L, B, C, Hkv, Dh]``; tensor-parallel, this rank's
+    ``C/m`` slots of it (``lm_cache_spec``'s layout)."""
     dtype = dtype or cfg.cdtype
     dev = resolve_device(device)
-    c = cache_len(cfg, seq_len)
-    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.head_dim)
+    mine = _slot_block(cache_len(cfg, seq_len), _axis(cfg))
+    shape = (cfg.n_layers, batch, mine.stop - mine.start, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
         "length": torch.zeros(batch, dtype=torch.int32, device=dev),
     }
+
+
+def _qkv_whole(p, h, pos, cfg: TransformerConfig, tp: ModelAxis):
+    """q, k, v of every head of the replicated ``h [B, 1, D]``; on several
+    ranks each its ``model`` block of the projections' columns, gathered
+    over the ranks (a token's q, k, v move; the weights stay)."""
+    b, s, _ = h.shape
+    h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def cols(w, bias, n):
+        own = tp.block(n)
+        y = h @ _take(w, n, own, tp)
+        if bias is not None:
+            y = y + _take(bias, n, own, tp)
+        return y if tp.size == 1 else coll.all_gather_sum(y, -1, tp.group)
+
+    bias = (lambda name: p[name]) if cfg.qkv_bias else (lambda name: None)
+    q = cols(p["wq"], bias("bq"), h_ * hd).reshape(b, s, h_, hd)
+    k = cols(p["wk"], bias("bk"), hkv * hd).reshape(b, s, hkv, hd)
+    v = cols(p["wv"], bias("bv"), hkv * hd).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p["q_norm"])
+        k = common.rms_norm(k, p["k_norm"])
+    return (attn_mod.apply_rope(q, pos, cfg.rope_theta),
+            attn_mod.apply_rope(k, pos, cfg.rope_theta), v)
 
 
 @torch.no_grad()
@@ -398,38 +621,51 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
     models, C == window). The current token's K/V is attended to from this
     call, not from the cache, and is written to its slot after the layer's
     attention; ``length`` advances by one at the end. Every cache tensor is
-    updated in place.
+    updated in place. Tensor-parallel, the cache is this rank's block of
+    ``C/m`` slots and the logits its ``V/m`` columns: every query head
+    attends over the rank's slots, the current token by the first rank,
+    with the softmax and ``P·V`` reduced over the ranks in float32; the
+    rank that owns the token's slot writes it (see module).
     """
+    tp = _axis(cfg)
     b = tokens.shape[0]
-    c = cache["k"].shape[2]
+    c_loc = cache["k"].shape[2]
+    c, lo = c_loc * tp.size, tp.rank * c_loc
     length = cache["length"]  # [B] int32
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp)
+    dev = x.device
     q_pos = length[:, None]  # true position ids [B, 1]
     slot = (length % c).long()  # ring-buffer slot [B]
     # absolute position held by each cache slot: slot i holds position p with
     # p ≡ i (mod c) and length - c ≤ p < length (ring-buffer reconstruction)
-    slots = torch.arange(c, dtype=torch.int32, device=x.device)[None]  # [1, C]
+    slots = lo + torch.arange(c_loc, dtype=torch.int32, device=dev)[None]  # [1, C/m]
     base = length[:, None] - 1 - ((length[:, None] - 1 - slots) % c)
     k_pos = torch.where(length[:, None] > 0, base, 0)
     kv_mask = (slots < length[:, None]) | (length[:, None] >= c)
-
-    # the concatenated KV is [cache slots..., current token]
-    k_pos_full = torch.cat([k_pos, q_pos], dim=1)
-    kv_mask_full = torch.cat(
-        [kv_mask, torch.ones((b, 1), dtype=torch.bool, device=x.device)], dim=1
-    )
-    bidx = torch.arange(b, device=x.device)
+    first = tp.rank == 0
+    if first:  # the concatenated KV is [cache slots..., current token]
+        k_pos = torch.cat([k_pos, q_pos], dim=1)
+        kv_mask = torch.cat([kv_mask, torch.ones((b, 1), dtype=torch.bool, device=dev)], dim=1)
+    owned = ((slot >= lo) & (slot < lo + c_loc))[:, None, None]
+    local = (slot - lo).clamp(0, c_loc - 1)
+    bidx = torch.arange(b, device=dev)
+    width = cfg.n_heads * cfg.head_dim
+    own = tp.block(width)
     for i in range(cfg.n_layers):
         lp = params.whole_layer(params.layer(i))
+        q, nk, nv = _qkv_whole(lp, common.rms_norm(x, lp["ln1"]), q_pos, cfg, tp)
         kc, vc = cache["k"][i], cache["v"][i]
-        a, nk, nv = _attn_block(
-            lp, common.rms_norm(x, lp["ln1"]), q_pos, k_pos_full, cfg,
-            k_cache=kc, v_cache=vc, kv_mask=kv_mask_full,
-        )
-        x = x + a
-        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]
-        kc[bidx, slot] = nk[:, 0]
-        vc[bidx, slot] = nv[:, 0]
+        k, v = (torch.cat([kc, nk], dim=1), torch.cat([vc, nv], dim=1)) if first else (kc, vc)
+        if tp.size == 1:
+            out = attn_mod.attention(q, k, v, q_pos, k_pos, cfg, causal=True, kv_mask=kv_mask)
+        else:
+            out = attn_mod.attention_partial(q, k, v, q_pos, k_pos, tp.group,
+                                             window=cfg.swa_window, kv_mask=kv_mask).to(x.dtype)
+        out = out.reshape(b, 1, width)[..., own]
+        x = _leave(_mm(out, _take(lp["wo"], width, own, tp, dim=-2), tp), x, tp, False)
+        x = _leave(_ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg, tp)[0], x, tp, False)
+        kc[bidx, local] = torch.where(owned, nk[:, 0], kc[bidx, local])
+        vc[bidx, local] = torch.where(owned, nv[:, 0], vc[bidx, local])
     x = common.rms_norm(x, params.ln_f)
     logits = logits_from_hidden(params, x, cfg)[:, 0]
     length += 1
@@ -445,37 +681,47 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     The cache keeps the last ``min(s, capacity)`` positions, position ``p``
     in slot ``p % capacity``, so decode_step_ can reconstruct absolute
     positions. ``full_logits=False`` (serving) unembeds only the final
-    position.
+    position. Tensor-parallel, the cache is this rank's block of ``C/m``
+    slots (every kv head: a heads-to-slots exchange of the kept K/V where
+    the ranks split the kv heads) and the logits its ``V/m`` columns.
     """
+    tp = _axis(cfg)
     b, s = tokens.shape
     c = capacity or cache_len(cfg, s)
     keep = min(s, c)
-    x = _embed(params, tokens, cfg)
+    mine = _slot_block(c, tp)
+    sp = s % tp.size == 0
+    x = _embed(params, tokens, cfg, tp, sp)
     dev = x.device
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     kept_slots = torch.arange(s - keep, s, device=dev) % c
-    shape = (cfg.n_layers, b, c, cfg.n_kv_heads, cfg.head_dim)
+    hkv = cfg.n_kv_heads
+    # the kv heads this rank computes: its own block (exchanged for its
+    # slots of every head), or all of them (the kv heads held whole)
+    kv = head_plan(cfg, tp)[1]
+    split = kv[1] - kv[0] < hkv and hkv % tp.size == 0
+    kv = kv if split else (0, hkv)
+    shape = (cfg.n_layers, b, mine.stop - mine.start, hkv, cfg.head_dim)
     ks = torch.zeros(shape, dtype=x.dtype, device=dev)
     vs = torch.zeros(shape, dtype=x.dtype, device=dev)
     for i in range(cfg.n_layers):
         lp = params.whole_layer(params.layer(i))
-        a, nk, nv = _attn_block(lp, common.rms_norm(x, lp["ln1"]), pos, pos, cfg)
-        x = constrain(x + a, (BATCH, None, None))
-        x = x + _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg)[0]
-        x = constrain(x, (BATCH, "model", None))
-        ks[i][:, kept_slots] = nk[:, s - keep:]
-        vs[i][:, kept_slots] = nv[:, s - keep:]
+        a, nk, nv = _attn_block(lp, _enter(common.rms_norm(x, lp["ln1"]), tp, sp), pos, cfg, tp,
+                                kv)
+        x = _leave(a, x, tp, sp)
+        x = _leave(_ffn_block(lp, _enter(common.rms_norm(x, lp["ln2"]), tp, sp), cfg, tp)[0], x,
+                   tp, sp)
+        for new, held in ((nk, ks[i]), (nv, vs[i])):
+            ring = held if tp.size == 1 else new.new_zeros((b, c) + new.shape[2:])
+            ring[:, kept_slots] = new[:, s - keep:]
+            if tp.size > 1:
+                held.copy_(coll.all_to_all_dim(ring, 1, 2, tp.group) if split else ring[:, mine])
     x = common.rms_norm(x, params.ln_f)
     if full_logits:
-        logits = logits_from_hidden(params, x, cfg)
+        logits = logits_from_hidden(params, _enter(x, tp, sp), cfg)
     else:
-        last = constrain(x[:, -1:, :], (BATCH, None, None))
-        logits = logits_from_hidden(params, last, cfg)[:, 0]
-    cache = {
-        "k": ks,
-        "v": vs,
-        "length": torch.full((b,), s, dtype=torch.int32, device=dev),
-    }
+        logits = logits_from_hidden(params, _enter(x[:, -1:], tp, sp)[:, -1:], cfg)[:, 0]
+    cache = {"k": ks, "v": vs, "length": torch.full((b,), s, dtype=torch.int32, device=dev)}
     return logits, cache
 
 

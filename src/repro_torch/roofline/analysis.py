@@ -58,7 +58,7 @@ COLLECTIVE_OPS = (
 
 #: ``dist.collectives.COUNTS`` names → the kinds above
 COUNTED = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-           "reduce_scatter": "reduce-scatter"}
+           "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
 
 
 def ring_bytes(kind: str, out_bytes: float, n: int) -> float:

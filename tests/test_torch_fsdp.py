@@ -239,7 +239,9 @@ DRY_CELLS = [("h2o-danube-1.8b", "train_4k"), ("h2o-danube-1.8b", "decode_32k"),
 def _arg_bytes(arch, shape_id, mesh_kind):
     """The bytes rank 0 holds for a reduced cell on the mesh, from the
     rules and ``shard_shape``: its parameters (``PARAM_MODE``), moments
-    (``fsdp``) and step, and its rows of the batch (or all of them)."""
+    (``fsdp``) and step, and its rows of the batch (or all of them); a
+    dense LM's decode cache its ``C / model`` slots, as JAX's
+    ``lm_cache_spec`` splits the cache's sequence."""
     spec = configs.get_spec(arch)
     shape = spec.shapes[shape_id]
     mshape, axes = dryrun.MESHES[mesh_kind]
@@ -267,6 +269,14 @@ def _arg_bytes(arch, shape_id, mesh_kind):
         total += 2 * held("fsdp", 4) + 4  # float32 moments, the int32 step
     if spec.family == "lm":
         specs = tm.input_specs(cfg, kind, shape["seq_len"], rows, "cpu")
+        if kind == "decode" and cfg.moe is None:
+            kv = specs["cache"]["k"]
+            cache = shd.lm_cache_spec(mesh, cfg, kv.shape[1], kv.shape[2])
+            assert cache[2] == "model"
+            for part in ("k", "v"):
+                specs["cache"][part] = torch.empty(
+                    kv.shape[:2] + (kv.shape[2] // mesh.shape["model"],) + kv.shape[3:],
+                    dtype=kv.dtype, device="meta")
     elif spec.family == "recsys":
         specs = autoint.input_specs(cfg, kind, rows, device="cpu")
     else:
