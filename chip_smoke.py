@@ -209,12 +209,19 @@ What it does, in order, and fails on the first thing that is wrong:
    (``GNN_TOL`` · max|out|; graphcast element by element), PNA on its
    fused branch (three reduce-scatters a layer),
    every rank's launches per route equal to the one-rank forward's;
-   deepseek-moe-16b at full width and depth expert-parallel on (1, 4)
-   (16 experts a rank, the 33.8 GB of weights built once here): phase
-   4b's traffic teacher-forced with the one-rank serve's tokens, each
-   step's logits within ``MESH_LOGIT_TOL`` · max|logit| of the one-rank
-   serve's, the greedy tokens equal past that margin, the dropped share
-   and every rank's launches exactly the one-rank serve's; gat-cora's
+   deepseek-moe-16b at full width cut to ``MESH_MOE_LAYERS`` layers
+   (views of phase 4b's weights), tensor- and expert-parallel on (1, 4)
+   (``mesh_moe``: 4 of 16 heads, 16 of 64 experts and 6,176 / 4 cache
+   slots a rank): phase 4b's prompts, then the one-rank serve's tokens at
+   that depth fed step by step, each step's logits within
+   ``MESH_LOGIT_TOL`` · max|logit| of the one-rank serve's (the prefill's
+   error reported apart), the greedy tokens equal past that margin, every
+   rank's launches the one-rank serve's (each flash launch on ``H/4``
+   heads); (a) ``moe_ffn_ep`` on layer 0's gathered input bit-equal to
+   ``moe_ffn_local`` with the whole experts, slots and drops included; (b)
+   every layer routed alike on every model rank; the dropped share beside
+   one rank's; rank 0's prefill and decode step dry-run against the card
+   (``dryrun_vs_card``); gat-cora's
    ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh) against
    one rank: ``TRAIN_STEPS`` losses and the final parameters within
    ``TRAIN_TOL``, each rank's launches, backwards included, equal;
@@ -239,9 +246,10 @@ What it does, in order, and fails on the first thing that is wrong:
    slots a rank
    (``--mesh-only`` runs the build and this phase alone, its one-rank
    references included, and prints no result line; ``--mesh-tp`` h2o's
-   part alone; ``--mesh-tp-probe`` h2o's tensor-parallel serve against one
-   rank in float32 and bfloat16, at one layer and six, and prints no
-   result line; ``--mesh-probe``
+   part alone; ``--mesh-moe`` the MoE part alone; ``--mesh-tp-probe``
+   h2o's tensor-parallel serve against one rank in float32 and bfloat16,
+   at one layer and six, and ``--mesh-moe-probe`` the MoE serve's alike,
+   and print no result line; ``--mesh-probe``
    compares graphcast on the mesh with one rank layer by layer, in bf16
    and in f32, and prints no result line).
 10. runs the four ``examples/torch_*.py`` on the card through the
@@ -2550,8 +2558,7 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
     fed tokens, the prefill's routing pinned to the serve's (see
     :func:`moe_teacher_forced`), on the served flash path. Returns the kernel
     rows at this path's shapes on the card, else ``[]``; into ``one_rank``
-    (a dict) go the weights, the prompts, the first serve and its
-    counters, for the mesh phase."""
+    (a dict) go the weights and the prompts, for the mesh phase."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
@@ -2723,7 +2730,7 @@ def moe_path(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
         raise AssertionError(f"moe decode against the teacher-forced prefill: {served}")
     lm_dry_vs_card(params, cfg, prompts, res, prompt_len, steps, batch, device, card)
     if one_rank is not None:
-        one_rank.update(params=params, prompts=prompts, serve=res, counts=serve_counts)
+        one_rank.update(params=params, prompts=prompts)
     del params
     say("moe_phase", card, seconds=time.perf_counter() - t_phase)
     return rows
@@ -4483,94 +4490,316 @@ def mesh_probe(seed, device, card):
             ranks_s=ranks_s, **rep)
 
 
+@contextlib.contextmanager
+def first_ep_input(out: list):
+    """``moe.moe_ffn_ep`` wrapped while inside: the input of its first call
+    (a layer's whole gathered sequence) copied to host memory into
+    ``out``."""
+    from repro_torch.models.transformer import moe
+
+    ep = moe.moe_ffn_ep
+
+    def wrapped(x, *args, **kwargs):
+        if not out:
+            out.append(x.detach().to("cpu"))
+        return ep(x, *args, **kwargs)
+
+    moe.moe_ffn_ep = wrapped
+    try:
+        yield out
+    finally:
+        moe.moe_ffn_ep = ep
+
+
 def _mesh_moe_rank(rank, job, device):
-    """deepseek-moe-16b's serve expert-parallel on (1, 4): a prefill of the
-    prompts, then the one-rank serve's tokens fed step by step (teacher
-    forcing), each step's logits held to the one-rank's."""
+    """The MoE serve of :func:`mesh_moe` on this rank of the job's mesh,
+    tensor- and expert-parallel: the parent's weights (CUDA IPC) cut to
+    this rank's blocks (``launch.train.shard_state_``: its heads, its
+    shared experts' columns and rows, its experts, its vocabulary rows), a
+    prefill of the prompts, then the one-rank serve's tokens fed step by
+    step (teacher forcing), every layer routed to the one-rank serve's
+    expert ids (``job["pins"]``, :func:`moe_routes`; the gates the rank's
+    own probabilities at them). Reports each step's max|Δlogit| /
+    max|logit| (this rank's vocabulary block gathered over ``model``) and
+    the greedy tokens that differ within and past ``MESH_LOGIT_TOL`` ·
+    max|logit|; the launches, the heads of each flash launch, the cache's
+    shape; the prefill's and the first decode step's launches and peak
+    (less what was allocated before, plus their arguments:
+    :func:`dry_vs_card`'s measure); the rank's own routing of every layer
+    (the expert ids it computed, and the slots they keep): where it
+    differs from the one-rank serve's, the tokens and their log-probability
+    gaps between the k-th and (k+1)-th expert, and its dropped slots; (a)
+    layer 0's ``moe_ffn_ep`` on its gathered prefill input (its own
+    routing) against ``moe_ffn_local`` with the whole experts on the same
+    input, bit for bit, slots and drops included; (b) whether every model
+    rank's own routing of every layer was alike (expert ids and kept
+    slots)."""
     import torch.distributed as dist
 
     from repro_torch.dist import collectives as coll
     from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tr
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
 
     cfg, prompts, tokens = job["cfg"], job["prompts"], job["tokens"]
-    params = tm.TransformerParams(job["tensors"])  # views of the parent's weights
-    shd.activate(make_mesh(job["shape"], ("data", "model"), device=device))
+    mesh = make_mesh(job["shape"], ("data", "model"), device=device)
+    tensors = job.pop("tensors")
+    routed0 = {k[len("moe_"):]: v[0] for k, v in tensors["layers"].items()
+               if k.startswith("moe_") and not k.startswith("moe_shared_")}
+    params = tm.TransformerParams(tensors)  # views of the parent's weights
+    tr.shard_state_(params, None, tr.state_layout("lm", params, mesh), ())
+    del tensors
+    state = sum(t.numel() * t.element_size() for t in params.parameters())
+    model = shd.axis_group(mesh, ("model",))
+    cuda = device.type == "cuda"
+
+    def measured(fn, args_bytes):  # fn's result, its launches and its peak (GB)
+        gc.collect()
+        sync(device)
+        before = torch.cuda.memory_allocated() if cuda else 0
+        reset_peak(device)
+        counts = dryrun.launch_counts()
+        out = fn()
+        sync(device)
+        peak = (torch.cuda.max_memory_allocated() - before + args_bytes) / 1e9 if cuda else None
+        return out, dryrun.launches_between(counts, dryrun.launch_counts()), peak
+
+    shd.activate(mesh)
     moe_counters(zero=True)
     coll.reset_counts()
     sync(device)
     dist.barrier()
-    t0 = time.perf_counter()
-    logits, cache = tm.prefill(params, prompts, cfg, capacity=job["capacity"],
-                               full_logits=False)
-    sync(device)
-    prefill_s = time.perf_counter() - t0
-    got = [logits]
-    t0 = time.perf_counter()
-    for i in range(tokens.shape[1] - 1):
-        got.append(tm.decode_step_(params, cache, tokens[:, i:i + 1], cfg))
-    sync(device)
-    decode_s = time.perf_counter() - t0
+    own, flipped = [], []
+    with flash_heads([]) as heads, first_ep_input([]) as first, moe_routes(own), \
+            moe_routes(flipped, pins=job["pins"]):
+        t0 = time.perf_counter()
+        (logits, cache), prefill_launches, prefill_peak = measured(
+            lambda: tm.prefill(params, prompts, cfg, capacity=job["capacity"],
+                               full_logits=False),
+            state + prompts.numel() * prompts.element_size())
+        prefill_s = time.perf_counter() - t0
+        got = [logits]
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        t0 = time.perf_counter()
+        step, step_launches, step_peak = measured(
+            lambda: tm.decode_step_(params, cache, tokens[:, :1], cfg),
+            state + cache_bytes + tokens[:, :1].numel() * tokens.element_size())
+        got.append(step)
+        for i in range(1, tokens.shape[1] - 1):
+            got.append(tm.decode_step_(params, cache, tokens[:, i:i + 1], cfg))
+        sync(device)
+        decode_s = time.perf_counter() - t0
     counts, collectives = moe_counters(), coll.reset_counts()
+    # (b) every model rank's own routing of every layer, prefill and steps
+    routes, own_slots, own_dropped = [], 0, 0
+    for idx in own:
+        keep = moe.dispatch_indices(idx, cfg.moe.n_experts, moe.capacity(idx.shape[0],
+                                                                        cfg.moe))[1]
+        routes.append(torch.cat([idx.reshape(-1), keep.to(torch.int32)]))
+        own_slots, own_dropped = own_slots + keep.numel(), own_dropped + int((~keep).sum())
+    mine = torch.cat(routes)
+    every = coll.all_gather_rows(mine[None], model)
+    routes_alike = bool((every == every[0]).all())
+    own_differs = torch.cat([d for d, _ in flipped])
+    own_gaps = torch.cat([g[d] for d, g in flipped])
+    del mine, every, routes, own, flipped
+    # (a) layer 0's expert-parallel FFN against the local one, whole experts
+    x = first[0].to(device)
+    own = {k[len("moe_"):]: v for k, v in params.whole_layer(params.layer(0)).items()
+           if k.startswith("moe_") and not k.startswith("moe_shared_")}
+    ffn = {}
+    for name, fn in (("ep", lambda: moe.moe_ffn_ep(x, own, cfg.moe, *moe.ep_plan(
+            x.shape[0], cfg.moe), x_summed=True)),
+                     ("local", lambda: moe.moe_ffn_local(x, routed0, cfg.moe))):
+        slots, dropped = moe.moe_ffn.slots, int(moe.moe_ffn.dropped)
+        y, _ = fn()
+        ffn[name] = (y, moe.moe_ffn.slots - slots, int(moe.moe_ffn.dropped) - dropped)
+    ffn_equal = bool(torch.equal(ffn["ep"][0], ffn["local"][0]))
+    ffn_counts = {name: list(v[1:]) for name, v in ffn.items()}
     shd.deactivate()
-    del cache
-    errs, flips = [], 0
+    del x, ffn, first
+    errs, flips, wrong = [], 0, 0
     for i, (g, want) in enumerate(zip(got, job["logits"])):
-        scale = float(want.float().abs().max())
-        err = float((g.float() - want.float()).abs().max())
-        if err > MESH_LOGIT_TOL * scale:
-            raise AssertionError(f"mesh moe step {i}: max|Δlogit| {err} > "
-                                 f"{MESH_LOGIT_TOL}·{scale}")
-        errs.append(err / scale)
-        top2 = want.float().topk(2, dim=-1).values
+        g = coll.all_gather_dim(g, 1, model).float()  # the whole vocabulary
+        scale = float(want.abs().max())
+        errs.append(float((g - want).abs().max()) / scale)
+        top2 = want.topk(2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > MESH_LOGIT_TOL * scale
-        wrong = (g.argmax(-1).to(torch.int32) != tokens[:, i]) & sure
-        if bool(wrong.any()):
-            raise AssertionError(f"mesh moe step {i}: greedy tokens differ past the margin")
-        flips += int(((g.argmax(-1).to(torch.int32) != tokens[:, i]) & ~sure).sum())
-    return {"prefill_s": prefill_s, "decode_s": decode_s, "launches": counts,
-            "collectives": collectives, "max_rel_err": max(errs), "rel_err_per_step": errs,
-            "token_flips_within_margin": flips, "transport": coll.transport()}
+        differ = g.argmax(-1).to(torch.int32) != tokens[:, i]
+        wrong += int((differ & sure).sum())
+        flips += int((differ & ~sure).sum())
+    rep = {"prefill_s": prefill_s, "decode_s": decode_s, "launches": counts,
+           "flash_heads": heads, "collectives": collectives, "rel_err_per_step": errs,
+           "token_flips_within_margin": flips, "tokens_wrong_past_margin": wrong,
+           "logits_shape": list(got[0].shape), "cache_shape": list(cache["k"].shape),
+           "state_gb": state / 1e9, "routes_alike": routes_alike,
+           "route_calls": len(got) * cfg.n_layers,
+           "own_routing_differs": int(own_differs.sum()),
+           "own_routing_tokens": own_differs.numel(),
+           "own_routing_largest_gap": float(own_gaps.max()) if own_gaps.numel() else None,
+           "own_dropped_share": own_dropped / own_slots, "ffn_equal": ffn_equal,
+           "ffn_slots_dropped": ffn_counts, "prefill_launches": prefill_launches,
+           "prefill_peak_gb": prefill_peak, "prefill_argument_gb": (
+               state + prompts.numel() * prompts.element_size()) / 1e9,
+           "step_launches": step_launches, "step_peak_gb": step_peak,
+           "transport": coll.transport()}
+    del params, cache, got
+    return rep
+
+
+#: the MoE serve on the mesh: deepseek-moe-16b at full width cut to this
+#: many layers (the views of phase 4b's first layers), tensor- and
+#: expert-parallel on ``MESH_MOE_SHAPE``: each of its prefill's 6 layers
+#: moves ~0.8 GB a rank through gloo's host copies, which 28 would not fit
+#: in the smoke's time
+MESH_MOE_LAYERS = CKPT_LAYERS
+#: the probe's decode steps (``--mesh-moe-probe``)
+MESH_MOE_PROBE_STEPS = 8
+
+
+def _moe_mesh_job(params, cfg, prompts, steps):
+    """The one-rank serve of ``params`` (``steps`` greedy steps after
+    ``prompts``), its counters and the head count of each flash launch,
+    and the :func:`_mesh_moe_rank` job that feeds its tokens on
+    ``MESH_MOE_SHAPE`` over views of the same weights, routed to its
+    expert ids (``pins``)."""
+    from repro_torch.launch import serve as srv
+
+    moe_counters(zero=True)
+    pins = []
+    with flash_heads([]) as heads, moe_routes(pins):
+        ref = srv.serve(params, cfg, prompts, steps)
+    ref_counts = moe_counters()
+    tensors = {"embed": params.embed.data, "ln_f": params.ln_f.data,
+               "layers": {k: v.data for k, v in params.layers.items()}}
+    if params.unembed is not None:
+        tensors["unembed"] = params.unembed.data
+    job = {"kind": "moe", "world": MESH_RANKS, "shape": MESH_MOE_SHAPE, "cfg": cfg,
+           "tensors": tensors, "prompts": prompts, "tokens": ref.tokens,
+           "logits": [x.float() for x in ref.logits], "capacity": ref.capacity,
+           "pins": pins}
+    return job, ref, ref_counts, heads
+
+
+def _moe_rank_dryrun(cfg, batch, prompt_len, capacity, real, device, card):
+    """Rank 0's prefill and first decode step of :func:`mesh_moe` dry-run
+    in a fake group on ``MESH_MOE_SHAPE`` (``launch.dryrun``: its shards,
+    tensor-parallel, the decode's cache its ``C/m`` slots; fake tensors on
+    ``device``) against the real rank's (``real``: :func:`_mesh_moe_rank`'s
+    report): a ``dryrun_vs_card`` line each; fails unless the launches are
+    equal and the peak within ``DRY_PEAK_TOL``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.roofline.analysis import HW
+
+    hw = HW.from_card() if device.type == "cuda" else HW()
+    m = MESH_MOE_SHAPE[1]
+    recs = {}
+    with dryrun.fake_ranks(MESH_MOE_SHAPE, ("data", "model"), device.type) as mesh, \
+            common.fake_mode():
+        params = tm.abstract_params(cfg, device.type)
+        rank = dryrun.Rank.of("lm", batch, mesh)
+        rank.place("lm", params)
+        prompts = tm.input_specs(cfg, "prefill", prompt_len, rank.rows, device.type)["tokens"]
+        recs["prefill"] = dryrun.trace(
+            rank.run(lambda p, t: tm.prefill(p, t, cfg, capacity=capacity, full_logits=False)),
+            (params, prompts), hw, math.prod(MESH_MOE_SHAPE),
+            dryrun.lm_model_flops(cfg, lm_shape("prefill", prompt_len, batch)))
+        kv = (cfg.n_layers, rank.rows, capacity // m, cfg.n_kv_heads, cfg.head_dim)
+        cache = {"k": common.fake_tensor(kv, cfg.cdtype, device.type),
+                 "v": common.fake_tensor(kv, cfg.cdtype, device.type),
+                 "length": common.fake_tensor((rank.rows,), torch.int32, device.type)}
+        token = common.fake_tensor((rank.rows, 1), torch.int32, device.type)
+        recs["decode step"] = dryrun.trace(
+            rank.run(lambda p, c, t: (tm.decode_step_(p, c, t, cfg), c)),
+            (params, cache, token), hw, math.prod(MESH_MOE_SHAPE),
+            dryrun.lm_model_flops(cfg, lm_shape("decode", capacity, batch)))
+    real_of = {"prefill": ("prefill_launches", "prefill_peak_gb"),
+               "decode step": ("step_launches", "step_peak_gb")}
+    lines = []
+    for what, rec in recs.items():
+        mem = rec["memory"]
+        line = {"cell": f"{cfg.name} {what}, rank 0 of (data, model) = {MESH_MOE_SHAPE}",
+                "launches_dry": rec["launches"],
+                "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
+                "argument_gb": mem["argument_bytes"] / 1e9,
+                "collective_gb_pred": rec["collectives"]["total"] / 1e9,
+                "step_lower_bound_s": rec["roofline"]["step_lower_bound_s"],
+                "trace_s": rec["trace_s"]}
+        lines.append(line)
+        if device.type != "cuda":
+            say("dryrun_vs_card", card, **line, rehearsal=True)
+            continue
+        launches_key, peak_key = real_of[what]
+        hold_rank_dryrun(line, rec, real[launches_key], real[peak_key], card)
+    return lines
 
 
 def mesh_moe(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
-    """deepseek-moe-16b at full width and depth expert-parallel on (1, 4):
-    the weights built once (``init(seed)``) and shared with the ranks by
-    CUDA IPC (each rank computes with its 16 experts' view), against the
-    one-rank serve of phase 4b's traffic (tokens, logits, the dropped
-    share): ``one_rank`` holds phase 4b's weights, prompts, serve and
-    counters (filled by :func:`moe_path`), else they are made here. Returns
-    the launches over the ranks."""
+    """deepseek-moe-16b at full width, ``MESH_MOE_LAYERS`` of its layers,
+    tensor- and expert-parallel on ``MESH_MOE_SHAPE`` (1, 4): each rank its
+    4 of 16 heads, its shared experts' columns and rows, its 16 of 64
+    experts, its ``C/4`` cache slots and vocabulary rows. The weights are
+    views of phase 4b's (``one_rank``, filled by :func:`moe_path`, else
+    made here from ``seed``) shared with the ranks by CUDA IPC; the
+    reference is the one-rank serve of phase 4b's prompts over the same
+    views. A rank's attention and shared experts round otherwise than one
+    rank's (column blocks, float32 partials), so its router sees other
+    activations and flips experts at near ties, which moves a bf16 logit
+    row by up to 20 % of max|logit| at 6 layers (``--mesh-moe-probe``
+    unpinned, PR 24): the ranks route every layer to the one-rank serve's
+    expert ids, as phase 4b's check (c) pins its prefill (the gates their
+    own probabilities there). Checks, every rank: each step's logits
+    within ``MESH_LOGIT_TOL`` · max|logit| (the prefill's error reported
+    apart from the decode steps'), the greedy tokens equal past that
+    margin; the launches per route the one-rank serve's, every flash
+    launch on ``H/4`` heads, the cache ``C/4`` slots, the routed and
+    dropped slots the one-rank serve's; (a) layer 0's ``moe_ffn_ep`` on
+    its gathered input bit-equal to ``moe_ffn_local`` on it, slots and
+    drops included; (b) every layer's own routing (the expert ids the rank
+    computed, and their kept slots) alike on every model rank. The own
+    routing's difference from one rank's (tokens, their largest
+    log-probability gap) and its dropped share are reported beside one
+    rank's. Then rank 0's prefill and decode step are dry-run against the
+    card (:func:`_moe_rank_dryrun`). Returns the launches over the
+    ranks."""
     from repro_torch.launch import serve as srv
     from repro_torch.models.transformer import model as tm
 
     t0 = time.perf_counter()
     if one_rank:
         params, prompts = one_rank["params"], one_rank["prompts"]
-        ref, ref_counts = one_rank["serve"], one_rank["counts"]
     else:
         params = tm.init(cfg, seed=seed, device=device)
         prompts = srv.random_prompts(cfg, batch, prompt_len, seed + 1, device)
-        moe_counters(zero=True)
-        ref = srv.serve(params, cfg, prompts, steps)
-        ref_counts = moe_counters()
-    tensors = {"embed": params.embed.data, "ln_f": params.ln_f.data,
-               "layers": {k: v.data for k, v in params.layers.items()}}
+    n_layers = min(cfg.n_layers, MESH_MOE_LAYERS)
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    views = {"embed": params.embed.data, "ln_f": params.ln_f.data,
+             "layers": {k: v.data[:n_layers] for k, v in params.layers.items()}}
     if params.unembed is not None:
-        tensors["unembed"] = params.unembed.data
-    n_params = sum(t.numel() * t.element_size() for t in params.parameters())
+        views["unembed"] = params.unembed.data
+    layers = tm.TransformerParams(views)
+    weights_gb = sum(t.numel() * t.element_size() for t in layers.parameters()) / 1e9
+    job, ref, ref_counts, heads = _moe_mesh_job(layers, cut, prompts, steps)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    job = {"kind": "moe", "world": MESH_RANKS, "shape": MESH_MOE_SHAPE, "cfg": cfg,
-           "tensors": tensors, "prompts": prompts, "tokens": ref.tokens,
-           "logits": [x.float() for x in ref.logits], "capacity": ref.capacity}
     reports, ranks_s = run_ranks([job], device, target=mesh_rank, world=MESH_RANKS,
                                  what="mesh moe")
-    n_layers = cfg.n_layers
+    m = MESH_MOE_SHAPE[1]
+    kernels = {k: v for k, v in ref_counts.items() if not k.startswith("moe_")}
     total = {}
     for r, rep in sorted(reports.items()):
         c = rep["launches"]
+        errs = rep["rel_err_per_step"]
+        if max(errs) > MESH_LOGIT_TOL:
+            raise AssertionError(f"mesh moe rank {r}: max|Δlogit| / max|logit| {errs} past "
+                                 f"{MESH_LOGIT_TOL}")
+        if rep["tokens_wrong_past_margin"]:
+            raise AssertionError(f"mesh moe rank {r}: greedy tokens differ past the margin")
         if (c["moe_slots"], c["moe_dropped"]) != (ref_counts["moe_slots"],
                                                   ref_counts["moe_dropped"]):
             raise AssertionError(f"mesh moe rank {r}: slots/dropped {c['moe_slots']}/"
@@ -4578,33 +4807,113 @@ def mesh_moe(cfg, batch, prompt_len, steps, seed, device, card, one_rank=None):
                                  f"{ref_counts['moe_dropped']}")
         if device.type == "cuda":
             require_moe_launches(c, f"mesh rank {r}", n_layers, 1, steps)
+            if {k: v for k, v in c.items() if not k.startswith("moe_")} != kernels:
+                raise AssertionError(f"mesh moe rank {r}: launches {c}, one rank's {kernels}")
+        if rep["flash_heads"] != [h // m for h in heads]:
+            raise AssertionError(f"mesh moe rank {r}: flash heads {rep['flash_heads']}, one "
+                                 f"rank's {heads} over {m}")
+        if rep["cache_shape"][2] * m != ref.capacity:
+            raise AssertionError(f"mesh moe rank {r}: cache {rep['cache_shape']}, not "
+                                 f"{ref.capacity} / {m} slots")
+        ffn_counts = {tuple(v) for v in rep["ffn_slots_dropped"].values()}
+        if not rep["ffn_equal"] or len(ffn_counts) != 1:
+            raise AssertionError(f"mesh moe rank {r}: (a) moe_ffn_ep against moe_ffn_local: "
+                                 f"equal {rep['ffn_equal']}, {rep['ffn_slots_dropped']}")
+        if not rep["routes_alike"]:
+            raise AssertionError(f"mesh moe rank {r}: (b) the model ranks routed differently")
         add_launches(total, {k: v for k, v in c.items() if not k.startswith("moe_")})
+    dry = _moe_rank_dryrun(cut, batch, prompt_len, ref.capacity, reports[0], device, card)
     n_prompt = batch * prompt_len
     say("mesh_moe", card, arch=cfg.name, mesh=dict(zip(("data", "model"), MESH_MOE_SHAPE)),
-        experts_per_rank=cfg.moe.n_experts // MESH_MOE_SHAPE[1], batch=batch,
-        prompt_len=prompt_len, decode_steps=steps, weights_gb=n_params / 1e9,
+        layers=n_layers, heads_per_rank=f"{cfg.n_heads // m} of {cfg.n_heads}",
+        experts_per_rank=f"{cfg.moe.n_experts // m} of {cfg.moe.n_experts}",
+        cache_slots_per_rank=f"{ref.capacity} / {m}", batch=batch, prompt_len=prompt_len,
+        decode_steps=steps, weights_gb=weights_gb,
+        state_gb_per_rank=[rep["state_gb"] for rep in reports.values()],
         one_rank_prefill_s=ref.prefill_s, one_rank_decode_s=ref.decode_s,
         prefill_s=[rep["prefill_s"] for rep in reports.values()],
         decode_s=[rep["decode_s"] for rep in reports.values()],
         prefill_tok_s=n_prompt / max(rep["prefill_s"] for rep in reports.values()),
-        max_rel_logit_err=max(rep["max_rel_err"] for rep in reports.values()),
+        rel_logit_err_prefill=max(rep["rel_err_per_step"][0] for rep in reports.values()),
+        rel_logit_err_decode=max(max(rep["rel_err_per_step"][1:]) for rep in reports.values()),
         rel_logit_err_rank0=reports[0]["rel_err_per_step"], tol=MESH_LOGIT_TOL,
         token_flips_within_margin=[rep["token_flips_within_margin"]
                                    for rep in reports.values()],
-        dropped_share=ref_counts["moe_dropped"] / ref_counts["moe_slots"],
-        dropped_share_ranks=[rep["launches"]["moe_dropped"] / rep["launches"]["moe_slots"]
-                             for rep in reports.values()],
+        logits_shape_rank=reports[0]["logits_shape"],
+        cache_shape_rank=reports[0]["cache_shape"],
+        flash_heads_per_launch=sorted(set(reports[0]["flash_heads"])),
+        flash_heads_one_rank=sorted(set(heads)),
+        check_a_ffn_ep_equals_local=[rep["ffn_equal"] for rep in reports.values()],
+        check_a_slots_dropped=reports[0]["ffn_slots_dropped"],
+        check_b_routes_alike=[rep["routes_alike"] for rep in reports.values()],
+        route_calls_per_rank=reports[0]["route_calls"],
+        own_routing_differs=[rep["own_routing_differs"] for rep in reports.values()],
+        own_routing_tokens=reports[0]["own_routing_tokens"],
+        own_routing_largest_gap=[rep["own_routing_largest_gap"] for rep in reports.values()],
+        dropped_share_one_rank=ref_counts["moe_dropped"] / ref_counts["moe_slots"],
+        dropped_share_own_routing=[rep["own_dropped_share"] for rep in reports.values()],
         launches_per_rank=reports[0]["launches"], collectives_per_rank=reports[0][
             "collectives"],
+        prefill_peak_gb_rank0=reports[0]["prefill_peak_gb"],
+        step_peak_gb_rank0=reports[0]["step_peak_gb"],
         peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
         parent_allocated_gb=torch.cuda.memory_allocated() / 1e9
         if device.type == "cuda" else None,
+        dry_peak_gb=[line["peak_gb_pred"] for line in dry],
         transport=MESH_TRANSPORT, collective_transport=reports[0]["transport"])
-    del params, tensors, job, ref, one_rank
+    del params, layers, views, job, ref, one_rank
+    gc.collect()
     if device.type == "cuda":
         torch.cuda.ipc_collect()
     say("mesh_phase", card, part="moe", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
     return total
+
+
+def mesh_moe_probe(seed, device, card, reduced=False):
+    """Where the MoE serve's logit error on the mesh comes from: the serve
+    of :func:`mesh_moe` (``MESH_MOE_PROBE_STEPS`` decode steps, routed to
+    the one-rank serve's expert ids) on ``MESH_MOE_SHAPE`` against one
+    rank, in float32 and in bfloat16, at one layer and at
+    ``MESH_MOE_LAYERS``; a ``mesh_moe_probe`` line each with every step's
+    max|Δlogit| / max|logit| (the prefill's first), the tokens where the
+    ranks' own routing differs from one rank's and their largest
+    log-probability gap, and the dropped shares. No check holds the logits
+    here: the probe reports them (``reduced``: the reduced config on 2 × 16
+    prompt tokens, a CPU rehearsal). No result line."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as srv
+    from repro_torch.models.transformer import model as tm
+
+    spec = configs.get_spec("deepseek-moe-16b")
+    for dtype in ("float32", "bfloat16"):
+        for layers in (1, MESH_MOE_LAYERS):
+            cfg = dataclasses.replace(spec.reduced if reduced else spec.config,
+                                      n_layers=layers, param_dtype=dtype, compute_dtype=dtype)
+            params = tm.init(cfg, seed=seed, device=device)
+            prompts = srv.random_prompts(cfg, *((2, 16) if reduced else (4, 6144)), seed + 1,
+                                         device)
+            job, ref, ref_counts, _ = _moe_mesh_job(params, cfg, prompts, MESH_MOE_PROBE_STEPS)
+            reports, _ = run_ranks([job], device, target=mesh_rank, world=MESH_RANKS,
+                                   what=f"mesh moe probe {dtype} {layers}")
+            say("mesh_moe_probe", card, dtype=dtype, layers=layers,
+                rel_logit_err_rank0=reports[0]["rel_err_per_step"],
+                max_rel_logit_err=max(max(rep["rel_err_per_step"]) for rep in reports.values()),
+                tokens_wrong_past_margin=[rep["tokens_wrong_past_margin"]
+                                          for rep in reports.values()],
+                own_routing_differs=[rep["own_routing_differs"] for rep in reports.values()],
+                own_routing_tokens=reports[0]["own_routing_tokens"],
+                own_routing_largest_gap=[rep["own_routing_largest_gap"]
+                                         for rep in reports.values()],
+                dropped_share_one_rank=ref_counts["moe_dropped"] / ref_counts["moe_slots"],
+                dropped_share_own_routing=[rep["own_dropped_share"]
+                                           for rep in reports.values()],
+                check_a_ffn_ep_equals_local=[rep["ffn_equal"] for rep in reports.values()],
+                check_b_routes_alike=[rep["routes_alike"] for rep in reports.values()])
+            del params, job, ref
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
 
 
 def _gat_train_setup(seed, device, reduced):
@@ -4871,20 +5180,28 @@ def _mesh_rank_dryrun(arch, seed, device, card, reduced, real, shape=(MESH_TRAIN
     if device.type != "cuda":
         say("dryrun_vs_card", card, **line, rehearsal=True)
         return line
-    rel, abs_gb = DRY_PEAK_TOL
-    peak = real["step_peak_gb"]
-    within = abs(line["peak_gb_pred"] - peak) <= rel * peak + abs_gb
     wire = sum(v for k, v in real["step_collectives"].items() if k.endswith("_wire_bytes"))
-    line.update(launches_card=real["step_launches"],
-                launches_equal=real["step_launches"] == rec["launches"],
-                peak_gb_card=peak, argument_gb_card=real["step_argument_gb"],
-                collective_gb_card=wire / 1e9, collectives_card=real["step_collectives"],
-                peak_tol=list(DRY_PEAK_TOL), peak_within_tol=within)
+    return hold_rank_dryrun(line, rec, real["step_launches"], real["step_peak_gb"], card,
+                            argument_gb_card=real["step_argument_gb"],
+                            collective_gb_card=wire / 1e9,
+                            collectives_card=real["step_collectives"])
+
+
+def hold_rank_dryrun(line, rec, launches, peak, card, **fields):
+    """A rank's dry-run (``rec``, its ``dryrun_vs_card`` ``line``) against
+    the real rank's ``launches`` and ``peak`` (GB), ``fields`` added to the
+    line: prints it; fails unless the launches are equal and the peak
+    within ``DRY_PEAK_TOL``."""
+    rel, abs_gb = DRY_PEAK_TOL
+    within = abs(line["peak_gb_pred"] - peak) <= rel * peak + abs_gb
+    line.update(launches_card=launches, launches_equal=launches == rec["launches"],
+                peak_gb_card=peak, **fields, peak_tol=list(DRY_PEAK_TOL),
+                peak_within_tol=within)
     say("dryrun_vs_card", card, **line)
     DRY_CELLS.append(line)
-    if real["step_launches"] != rec["launches"]:
+    if launches != rec["launches"]:
         raise AssertionError(f"dry-run {line['cell']}: launches {rec['launches']}, card "
-                             f"{real['step_launches']}")
+                             f"{launches}")
     if not within:
         raise AssertionError(f"dry-run {line['cell']}: peak {line['peak_gb_pred']} GB "
                              f"predicted, {peak} GB on the card")
@@ -5557,6 +5874,13 @@ def main() -> int:
         return 0
     if "--mesh-tp-probe" in sys.argv[1:]:  # the TP serve's error by dtype, depth: no result
         mesh_tp_probe(seed, device, card)
+        return 0
+    if "--mesh-moe" in sys.argv[1:]:  # the MoE LM on the mesh alone: no result line
+        mesh_moe(configs.get_spec("deepseek-moe-16b").config, lm_batch, prompt_len,
+                 decode_steps, seed, device, card)
+        return 0
+    if "--mesh-moe-probe" in sys.argv[1:]:  # the MoE serve's mesh error by dtype, depth
+        mesh_moe_probe(seed, device, card)
         return 0
     if "--ckpt-drill" in sys.argv[1:]:  # the checkpoint drill alone: no result line
         ckpt_drill(seed, device, card)

@@ -39,6 +39,15 @@ its cotangent divided by their size, ``psum``'s transpose is ``psum``):
 * :func:`reduce_scatter_dim` — its transpose (``ḡ``): each rank's float32
   partial product reduce-scattered along one dimension (the sequence) and
   rounded once by the caller; backward an all-gather of the cotangents;
+* :func:`own_block` — this rank's block of one dimension of a value every
+  rank holds whole (the MoE's routed output on the sequence-split
+  residual): no communication forward; backward the ranks' cotangents of
+  their blocks all-gathered into the whole one, the cotangent of a
+  replicated value;
+* :func:`counted_once` — a value every rank computes whole from the same
+  inputs, where the gradients its inputs receive are summed over the
+  ranks: identity forward; backward the cotangent on the group's first
+  rank and zeros on the others (no communication);
 * :func:`pmax` — a cross-rank max with no gradient (the vocabulary-split
   cross-entropy's shift);
 * :func:`all_to_all_dim` — blocks of one dimension sent rank to rank and
@@ -237,6 +246,28 @@ class _ReduceScatterDim(torch.autograd.Function):
         return _all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
+class _OwnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _rows(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _CountedOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.first = dist.get_rank(group) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
 def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -323,6 +354,25 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if _grad(x):
         return _ReduceScatterDim.apply(x, dim, group)
     return _reduce_scatter_dim(x, dim, group)
+
+
+def own_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of dimension ``dim`` of ``x``, which every rank of
+    the group holds whole: with a gradient, its backward all-gathers the
+    ranks' cotangents of their blocks (see module)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension size {x.shape[dim]} must be divisible by the group's "
+                         f"{n} ranks")
+    if _grad(x):
+        return _OwnBlock.apply(x, dim, group)
+    return _rows(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def counted_once(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` computed alike on every rank of the group, its gradient kept on
+    the first rank only (see module)."""
+    return _CountedOnce.apply(x, group) if _grad(x) else x
 
 
 def pmax(x: torch.Tensor, group) -> torch.Tensor:

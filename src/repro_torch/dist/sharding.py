@@ -50,9 +50,9 @@ JAX's ``NamedSharding.shard_shape`` gives (:func:`shard_shape`) — and a
 model gathers it whole where it uses it (``dist.collectives.
 all_gather_dim`` over each sharded dimension's axes), the gather's
 backward handing the shard its gradient. A dimension split over ``model``
-may stay split (``Gather.of``'s ``keep``): the dense LM's tensor
-parallelism (:func:`model_axis`) uses each rank's ``model`` block where it
-is, as JAX's specs lay it out.
+may stay split (``Gather.of``'s ``keep``): an LM's tensor parallelism,
+dense or MoE (:func:`model_axis`), uses each rank's ``model`` block where
+it is, as JAX's specs lay it out.
 
 The vertex-partition half (:func:`shard_mesh`, :class:`ShardMesh`) places
 one shard of a partitioned graph per rank of a process group; the caller

@@ -44,19 +44,19 @@ for the three dense ``train_4k`` cells (parameters over the model axis
 only, moments in ``fsdp``, each rank updating its slice) — and its share
 of the batch (``launch.train.batch_axes``: an LM's rows over the data
 axes, AutoInt's over every axis; a batch they do not divide, and a GNN's
-graph, whole, with the model on the mesh). A dense LM runs tensor- and
-sequence-parallel over the model axis, as JAX's specs lay it out
-(``models.transformer.model``): the rank uses its ``model`` block of every
-weight (gathered over the data axes only), computes its query heads, its
-``d_ff/m`` columns, its ``V/m`` logits and its block of the sequence, and
-holds its ``C/m`` slots of a cache (``lm_cache_spec``; a decode cell's
-cache argument is that block). So ``flops_per_device`` is the rank's own
-share — JAX's divided by the model axis, but for the heads that JAX's
-``_maybe`` holds whole (qwen2.5-32b's 40 query heads on 16 ranks, which
-every rank then attends with; the record's ``tp`` says which). An MoE's
-experts stay split over the model axis, each rank computing its own for
-its data shard's tokens (``moe_ffn_ep``), as JAX's expert parallelism
-does; its attention keeps whole heads on every model rank.
+graph, whole, with the model on the mesh). An LM, dense or MoE, runs
+tensor- and sequence-parallel over the model axis, as JAX's specs lay it
+out (``models.transformer.model``): the rank uses its ``model`` block of
+every weight (gathered over the data axes only), computes its query heads,
+its ``d_ff/m`` (an MoE's ``shared_ff/m``) columns, its ``V/m`` logits and
+its block of the sequence, and holds its ``C/m`` slots of a cache
+(``lm_cache_spec``; a decode cell's cache argument is that block). An
+MoE's routed experts are split over the model axis, each rank computing
+its own over its data shard's tokens (``moe_ffn_ep``), as JAX's expert
+parallelism does. So ``flops_per_device`` is the rank's own share — JAX's
+divided by the model axis, but for the heads that JAX's ``_maybe`` holds
+whole (qwen2.5-32b's 40 query heads on 16 ranks, which every rank then
+attends with; the record's ``tp`` says which).
 
 A Python layer loop is traced whole, every layer and every microbatch, so
 JAX's corrections for XLA have no counterpart here: the scan probe (XLA's
@@ -395,32 +395,20 @@ class Rank:
             return cls(mesh, batch)
         return cls(mesh, batch // n, shd.axis_group(mesh, axes), axes)
 
-    @property
-    def model_parallel(self) -> bool:
-        """A model axis of several ranks: a dense LM runs tensor-parallel
-        over it, an MoE splits its experts there (``moe_ffn_ep``)."""
-        return self.mesh is not None and self.mesh.shape.get("model", 1) > 1
-
-    @property
-    def expert_parallel(self) -> bool:
-        """The batch split over the data axes, a model axis of several
-        ranks: each splits the MoE's experts (``moe_ffn_ep``)."""
-        return self.group is not None and self.model_parallel
-
     def place(self, family: str, params, opt=None, mode: str = "fsdp"):
         """Holds ``params`` and ``opt`` (fake, whole) as the rank's shards
-        (the experts split over the model axis where :attr:`expert_parallel`);
+        (an LM's ``model`` blocks kept where it runs tensor-parallel);
         returns the ``launch.train.Shards``."""
         if self.mesh is None:
             return None
         return shard_state_(params, opt, state_layout(family, params, self.mesh, mode),
-                            self.axes, local_experts=self.expert_parallel)
+                            self.axes)
 
     def run(self, fn: Callable) -> Callable:
         """``fn`` under the mesh when the model runs on it: the batch whole,
-        or split over the data axes with a model axis to split the heads or
-        the experts."""
-        if self.mesh is None or not (self.group is None or self.model_parallel):
+        or split over the data axes with a model axis to split the heads and
+        the experts (``models.transformer.model.tensor_parallel``)."""
+        if self.mesh is None or not (self.group is None or tm.tensor_parallel(self.mesh)):
             return fn
 
         def on_mesh(*args):
@@ -463,7 +451,7 @@ def lm_cell(spec, shape_id: str, shape: Dict, device="cuda", cfg=None, mesh=None
         params = tm.abstract_params(cfg, device)
         rank.place("lm", params)
         specs = tm.input_specs(cfg, "decode", seq, rank.rows, device)
-        if tm.tensor_parallel(cfg.moe is None, mesh):  # the rank's C/m slots of the cache
+        if tm.tensor_parallel(mesh):  # the rank's C/m slots of the cache
             kv = specs["cache"]["k"]
             block = shd.shard_shape(kv.shape, shd.NamedSharding(mesh, shd.lm_cache_spec(
                 mesh, cfg, kv.shape[1], kv.shape[2])))
@@ -659,7 +647,7 @@ def dryrun_cell(arch_id: str, shape_id: str, mesh_kind: str = "card", device="cu
     rec["microbatch"] = MICROBATCH.get((arch_id, shape_id), 1) if spec.family == "lm" else 1
     try:
         with fake_ranks(mesh_shape, axes, device) as mesh, common.fake_mode():
-            if spec.family == "lm" and tm.tensor_parallel(spec.config.moe is None, mesh):
+            if spec.family == "lm" and tm.tensor_parallel(mesh):
                 cfg, m = spec.config, mesh.shape["model"]
                 (q0, q1), (k0, k1) = tm.head_plan(cfg, shd.ModelAxis(None, m, 0))
                 rec["tp"] = {"model": m, "query_heads_per_rank": q1 - q0,

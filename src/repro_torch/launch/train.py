@@ -50,10 +50,12 @@ updates each shard in place; the clipping norm is the whole gradient's.
 The checkpoints hold whole arrays with the leaves' specs: the snapshot
 gathers the shards into rank 0's host buffers, rank 0 writes, and a
 restore hands each rank its slice. On a mesh with several ranks on its
-model axis (``Supervised(..., mesh=)``) a dense LM runs tensor-parallel
-over them (``models.transformer.model``): each rank keeps its ``model``
-block of every leaf where it is, gathered over the data axes only, and
-the ranks of one data shard hold its rows.
+model axis (``Supervised(..., mesh=)``) an LM, dense or MoE, runs
+tensor-parallel over them (``models.transformer.model``; an MoE's routed
+experts expert-parallel): each rank keeps its ``model`` block of every
+leaf where it is — attention, FFN or shared experts, embeddings, expert
+stacks — gathered over the data axes only, and the ranks of one data
+shard hold its rows.
 """
 
 from __future__ import annotations
@@ -254,13 +256,14 @@ def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
     rows the ranks of :func:`batch_axes` divide is split over them: each
     rank's step sees its rows and averages over ``group``
     (:func:`make_step`); the model runs off the mesh unless the mesh has a
-    model axis of several ranks (``on_mesh``: the dense LM's tensor
-    parallelism, the MoE's expert parallelism, over the rows the rank's
-    data shard holds). Any other batch is whole on every rank and the model
-    runs on the mesh (``on_mesh``; ``group`` None): a GNN's regions split
-    the edges, an MoE layer its tokens, a dense LM its heads (a data axis of
-    one rank leaves the batch whole). On one rank each batch is placed on
-    the mesh's device, on its 1×1 mesh."""
+    model axis of several ranks (``on_mesh``: an LM's tensor parallelism,
+    dense or MoE, the MoE's routed experts expert-parallel, over the rows
+    the rank's data shard holds). Any other batch is whole on every rank
+    and the model runs on the mesh (``on_mesh``; ``group`` None): a GNN's
+    regions split the edges, an LM its heads over ``model`` and an MoE
+    layer its tokens over the data axes (a data axis of one rank leaves the
+    batch whole). On one rank each batch is placed on the mesh's device, on
+    its 1×1 mesh."""
     if mesh.device_mesh is None:
         bshard = shd.batch_shardings(family, batch_for_step(0), mesh)
         return (lambda i: place(batch_for_step(i), bshard)), None, True
@@ -326,22 +329,17 @@ class Shards:
                 for k, sh in self.opt.items()}
 
 
-#: the MoE's expert stacks (``named_leaves``' names)
-EXPERT_STACKS = ("layers.moe_w1", "layers.moe_w2", "layers.moe_w3")
-
-
 @torch.no_grad()
-def shard_state_(params, opt: Optional[Dict[str, Any]], layout, axes: Sequence[str] = (),
-                 local_experts: bool = False) -> Shards:
+def shard_state_(params, opt: Optional[Dict[str, Any]], layout,
+                 axes: Sequence[str] = ()) -> Shards:
     """Hold every leaf that ``layout`` (:func:`state_layout`) splits over
     more than one rank as this rank's slice of it — the parameter (gathered
     where the model uses it, the batch split over ``axes``) and its two
-    moments in ``opt``, if given — releasing the whole. A dense LM that
-    runs tensor-parallel (``models.transformer.model.tensor_parallel``)
-    gathers each leaf over the data axes only: the rank uses its ``model``
-    block where it is.
-    With ``local_experts`` the expert stacks likewise: the model axis
-    splits the experts, each rank computing its own (``moe_ffn_ep``).
+    moments in ``opt``, if given — releasing the whole. An LM that runs
+    tensor-parallel (``models.transformer.model.tensor_parallel``: dense or
+    MoE) gathers each leaf over the data axes only: the rank uses its
+    ``model`` block where it is (an MoE's expert stacks its ``E/m``
+    experts, which ``moe_ffn_ep`` computes).
     Returns the :class:`Shards` (empty on one rank, or where the rules give
     ``P()``)."""
     if layout["opt"]["step"].mesh.device_mesh is None:
@@ -357,10 +355,8 @@ def shard_state_(params, opt: Optional[Dict[str, Any]], layout, axes: Sequence[s
         return Shards()
     if not isinstance(params, tm.TransformerParams):
         raise NotImplementedError("FSDP shards of a family other than the LM's")
-    tp = tm.tensor_parallel(params.dense, layout["opt"]["step"].mesh)
-    gathers = {k: shd.Gather.of(sh, axes, ("model",) if tp or (local_experts and
-                                                            k in EXPERT_STACKS) else ())
-               for k, sh in psplit.items()}
+    keep = ("model",) if tm.tensor_parallel(layout["opt"]["step"].mesh) else ()
+    gathers = {k: shd.Gather.of(sh, axes, keep) for k, sh in psplit.items()}
     averaged = set()
     for k, gather in gathers.items():
         means = {a for d, _, mean in gather.dims if mean
@@ -430,9 +426,7 @@ class Supervised:
         # (the moments made on them when none are given)
         self.layout = state_layout(family, params, self.mesh)
         self.shards = shard_state_(params, opt_state, self.layout,
-                                   () if group is None else batch_axes(family, self.mesh),
-                                   local_experts=group is not None
-                                   and self.mesh.shape.get("model", 1) > 1)
+                                   () if group is None else batch_axes(family, self.mesh))
         self.opt = opt_state or adamw_init(params, oc)
         multi = self.mesh.device_mesh is not None
         flat_layout = dict(_flatten(self.layout))

@@ -33,10 +33,11 @@ dispatch and combine on the ``gather_rows`` and ``segment_reduce``
 kernels; ``forward`` returns the balance loss summed over the layers, as
 the JAX ``layer_fn`` carries it, and ``prefill``/``decode_step_`` drop it.
 
-On a multi-rank mesh (``dist.sharding.activate``) a dense config runs
+On a multi-rank mesh (``dist.sharding.activate``) every config runs
 tensor- and sequence-parallel over the ``model`` axis, as JAX's specs and
-``constrain`` calls lay it out (``dist.sharding.model_axis``; the ranks of
-one data shard hold the same rows):
+``constrain`` calls lay it out (:func:`tensor_parallel`,
+``dist.sharding.model_axis``; the ranks of one data shard hold the same
+rows):
 
 * each rank uses its own ``model`` block of every weight: the
   column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3`` for its query heads
@@ -54,6 +55,19 @@ one data shard hold the same rows):
   (``reduce_scatter_dim``), summed in float32 and rounded once; a sequence
   the axis does not divide (the decode step's one token) stays whole, the
   partials all-reduced;
+* an MoE layer's FFN runs its routed experts expert-parallel
+  (``moe.moe_ffn_ep``) on the whole gathered input, as JAX's
+  ``shard_map`` does, each rank its ``E/m`` experts, the combine handing
+  every rank the whole routed output; the rank adds its block of it to
+  the reduce-scattered partial of the shared experts, which take the
+  dense FFN's split (the rank's ``shared_ff/m`` columns of ``w1``/``w3``
+  and rows of ``w2``: JAX's column- and row-parallel specs of
+  ``moe/shared``). ``moe_ffn_ep`` leaves the input's gradient this rank's
+  partial, summed over the ranks by the gather's backward with the shared
+  experts' (:func:`_ffn_block`, :func:`_leave`). Where the axis does not
+  divide the experts (JAX's ``_moe_ffn_local``, the expert stacks whole)
+  every rank computes the routed FFN whole, its gradient counted on the
+  first rank (``dist.collectives.counted_once``);
 * the embedding is a masked lookup of the rank's vocabulary rows summed
   over the ranks; the logits stay ``[B, S, V/m]`` (JAX's vocab-sharded
   ``constrain``) and the loss is the vocabulary-split cross-entropy
@@ -69,10 +83,9 @@ parallelism, ``q_norm``/``k_norm`` on its heads, the rank's slices of
 ``bq``/``bk``/``bv``) enters through ``dist.collectives.copy_in``, which
 sums its gradient over the ranks. A one-rank mesh, or none, takes the
 same code on :data:`ONE_RANK`: no collective, the whole of every weight,
-plain products in the compute dtype. MoE configs keep whole heads on every model
-rank and run their FFN expert-parallel (``moe.moe_ffn_ep``): each rank
-routes its data shard's tokens to its model shard's experts, and the
-combine's collectives hand every rank the whole ``[T, D]``.
+plain products in the compute dtype; an MoE layer's FFN is then
+``moe.moe_ffn`` with its shared experts, expert-parallel on a mesh whose
+model axis has one rank (the trainer's ``(world, 1)``).
 
 The parameters may be held as FSDP shards (:meth:`TransformerParams.
 shard_`, the trainer's live state): each sharded leaf is then gathered
@@ -126,11 +139,6 @@ class TransformerParams(nn.Module):
         self.layers = nn.ParameterDict(
             {name: param(t) for name, t in tensors["layers"].items()}
         )
-
-    @property
-    def dense(self) -> bool:
-        """No MoE layers (every layer's FFN is ``ffn_*``)."""
-        return not any(name.startswith("moe_") for name in self.layers)
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s parameters, as views of the stacked tensors."""
@@ -297,7 +305,7 @@ def params_tree(params: TransformerParams) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# the model axis: tensor and sequence parallelism of a dense config
+# the model axis: tensor and sequence parallelism
 
 
 #: no tensor parallelism: one rank holds every head, column, vocabulary row
@@ -305,18 +313,18 @@ def params_tree(params: TransformerParams) -> Dict[str, Any]:
 ONE_RANK = ModelAxis(None, 1, 0)
 
 
-def tensor_parallel(dense: bool, mesh) -> bool:
-    """Whether an LM runs tensor-parallel on ``mesh``: a dense one on a
-    model axis of several ranks. MoE configs keep whole heads on every
-    model rank (their experts split over it, ``moe.moe_ffn_ep``)."""
-    return dense and mesh is not None and mesh.shape.get("model", 1) > 1
+def tensor_parallel(mesh) -> bool:
+    """Whether an LM runs tensor-parallel on ``mesh``: on a model axis of
+    several ranks, dense and MoE configs alike (an MoE's routed experts
+    split over it, ``moe.moe_ffn_ep``). The one place that decides it."""
+    return mesh is not None and mesh.shape.get("model", 1) > 1
 
 
-def _axis(cfg: TransformerConfig) -> ModelAxis:
-    """The active mesh's model axis where ``cfg`` runs tensor-parallel on
+def _axis() -> ModelAxis:
+    """The active mesh's model axis where the LM runs tensor-parallel on
     it (:func:`tensor_parallel`, a process group behind it), else
     :data:`ONE_RANK`."""
-    if tensor_parallel(cfg.moe is None, active_mesh()):
+    if tensor_parallel(active_mesh()):
         return model_axis() or ONE_RANK
     return ONE_RANK
 
@@ -390,13 +398,22 @@ def _enter(h: torch.Tensor, tp: ModelAxis, sp: bool) -> torch.Tensor:
     return coll.all_gather_sum(h, 1, tp.group) if sp else coll.copy_in(h, tp.group)
 
 
-def _leave(partial: torch.Tensor, x: torch.Tensor, tp: ModelAxis, sp: bool) -> torch.Tensor:
+def _leave(partial, x: torch.Tensor, tp: ModelAxis, sp: bool, routed=None) -> torch.Tensor:
     """``x`` plus the sub-block's output; on several ranks their float32
     partial products summed over them and rounded once: reduce-scattered
-    onto this rank's block of the sequence, or all-reduced."""
+    onto this rank's block of the sequence, or all-reduced. ``routed`` (an
+    MoE's routed output, several ranks only) is a part of the output every
+    rank holds whole: added as this rank's block of the sequence (its
+    backward gathers the whole cotangent), or whole, never summed over the
+    ranks; ``partial`` is then ``None`` where there is no shared expert."""
     if tp.size == 1:
         return x + partial
-    y = coll.reduce_scatter_dim(partial, 1, tp.group) if sp else coll.psum(partial, tp.group)
+    y = None
+    if partial is not None:
+        y = coll.reduce_scatter_dim(partial, 1, tp.group) if sp else coll.psum(partial, tp.group)
+    if routed is not None:
+        r = coll.own_block(routed, 1, tp.group) if sp else routed
+        y = r if y is None else y + r
     return x + y.to(x.dtype)
 
 
@@ -476,18 +493,43 @@ def moe_params(p) -> Dict[str, Any]:
     return out
 
 
+def _swiglu(h, w1, w3, w2, n: int, tp: ModelAxis):
+    """This rank's partial of a SwiGLU of width ``n``: its ``n/m`` columns
+    of ``w1``/``w3`` and rows of ``w2``."""
+    own = tp.block(n)
+    a = F.silu(h @ _take(w1, n, own, tp)) * (h @ _take(w3, n, own, tp))
+    return _mm(a, _take(w2, n, own, tp, dim=-2), tp)
+
+
 def _ffn_block(p, h, cfg: TransformerConfig, tp: ModelAxis = ONE_RANK):
-    """The FFN sub-block: (this rank's partial of y, aux), aux the MoE
-    balance loss (0.0 dense). A dense rank takes its ``d_ff/m`` columns of
-    ``w1``/``w3`` and rows of ``w2``."""
+    """The FFN sub-block on the whole sequence ``h [B, S, D]``: (this rank's
+    partial of y, the routed part of y every rank holds whole or ``None``,
+    aux), aux the MoE balance loss (0.0 dense); :func:`_leave` adds them.
+    A dense rank takes its ``d_ff/m`` columns of ``w1``/``w3`` and rows of
+    ``w2``. An MoE layer on one rank is ``moe.moe_ffn`` whole; on several
+    its routed experts run expert-parallel on all of ``h`` (or whole on
+    every rank where the axis does not divide them) and its shared experts
+    take the dense split (see module)."""
     if cfg.moe is None:
-        own = tp.block(cfg.d_ff)
-        a = F.silu(h @ _take(p["ffn_w1"], cfg.d_ff, own, tp)) * (
-            h @ _take(p["ffn_w3"], cfg.d_ff, own, tp))
-        return _mm(a, _take(p["ffn_w2"], cfg.d_ff, own, tp, dim=-2), tp), 0.0
+        return _swiglu(h, p["ffn_w1"], p["ffn_w3"], p["ffn_w2"], cfg.d_ff, tp), None, 0.0
     b, s, d = h.shape
-    y, aux = moe_mod.moe_ffn(h.reshape(b * s, d), moe_params(p), cfg.moe)
-    return y.reshape(b, s, d), aux
+    mp = moe_params(p)
+    if tp.size == 1:
+        y, aux = moe_mod.moe_ffn(h.reshape(b * s, d), mp, cfg.moe)
+        return y.reshape(b, s, d), None, aux
+    shared = mp.pop("shared", None)
+    flat = h.reshape(b * s, d)
+    plan = moe_mod.ep_plan(b * s, cfg.moe)
+    if plan is None:  # JAX's local FFN, whole on every rank, its gradient counted once
+        e = cfg.moe.n_experts
+        mp = {k: _take(w, e, slice(0, e), tp, dim=-1 if k == "router" else 0)
+              for k, w in mp.items()}
+        y, aux = (coll.counted_once(t, tp.group) for t in moe_mod.moe_ffn_local(flat, mp, cfg.moe))
+    else:
+        y, aux = moe_mod.moe_ffn_ep(flat, mp, cfg.moe, *plan, x_summed=True)
+    partial = None if shared is None else _swiglu(h, shared["w1"], shared["w3"], shared["w2"],
+                                                  cfg.moe.shared_ff, tp)
+    return partial, y.reshape(b, s, d), aux
 
 
 def _embed(params: TransformerParams, tokens, cfg, tp: ModelAxis = ONE_RANK, sp: bool = False):
@@ -515,9 +557,9 @@ def _layer_fn(lp, x, pos, cfg, whole, tp: ModelAxis, sp: bool):
     a, _, _ = _attn_block(lp, _enter(common.rms_norm(x, _norm(lp["ln1"], tp, sp)), tp, sp),
                           pos, cfg, tp)
     x = _leave(a, x, tp, sp)
-    f, aux = _ffn_block(lp, _enter(common.rms_norm(x, _norm(lp["ln2"], tp, sp)), tp, sp),
-                        cfg, tp)
-    return _leave(f, x, tp, sp), aux
+    f, routed, aux = _ffn_block(lp, _enter(common.rms_norm(x, _norm(lp["ln2"], tp, sp)), tp, sp),
+                                cfg, tp)
+    return _leave(f, x, tp, sp, routed), aux
 
 
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig):
@@ -526,7 +568,7 @@ def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     With gradients enabled and ``cfg.remat`` each layer is checkpointed.
     Tensor-parallel, the hidden states come back whole on every rank (the
     last gather's backward sums the ranks' cotangents)."""
-    tp = _axis(cfg)
+    tp = _axis()
     s = tokens.shape[1]
     sp = s % tp.size == 0
     x = _embed(params, tokens, cfg, tp, sp)
@@ -548,7 +590,7 @@ def loss_fn(params: TransformerParams, batch, cfg: TransformerConfig) -> torch.T
     {tokens [B, S], labels [B, S]}."""
     hidden, aux = forward(params, batch["tokens"], cfg)
     logits = logits_from_hidden(params, hidden, cfg)
-    tp = _axis(cfg)
+    tp = _axis()
     vocab = None if tp.size == 1 else (tp.block(cfg.vocab_size).start, tp.group)
     ce = common.softmax_cross_entropy(logits, batch["labels"], vocab)
     return ce + 0.01 * aux
@@ -558,7 +600,7 @@ def logits_from_hidden(params: TransformerParams, hidden, cfg):
     """``hidden @ tableᵀ``; tensor-parallel, this rank's ``V/m`` vocabulary
     columns (``hidden`` whole on every rank), as JAX keeps them sharded."""
     table = params.whole("embed" if cfg.tie_embeddings else "unembed")
-    tp = _axis(cfg)
+    tp = _axis()
     return hidden @ _take(table, cfg.vocab_size, tp.block(cfg.vocab_size), tp, dim=0).T
 
 
@@ -578,7 +620,7 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, dtype=None, dev
     ``C/m`` slots of it (``lm_cache_spec``'s layout)."""
     dtype = dtype or cfg.cdtype
     dev = resolve_device(device)
-    mine = _slot_block(cache_len(cfg, seq_len), _axis(cfg))
+    mine = _slot_block(cache_len(cfg, seq_len), _axis())
     shape = (cfg.n_layers, batch, mine.stop - mine.start, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -627,7 +669,7 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
     with the softmax and ``P·V`` reduced over the ranks in float32; the
     rank that owns the token's slot writes it (see module).
     """
-    tp = _axis(cfg)
+    tp = _axis()
     b = tokens.shape[0]
     c_loc = cache["k"].shape[2]
     c, lo = c_loc * tp.size, tp.rank * c_loc
@@ -663,7 +705,9 @@ def decode_step_(params: TransformerParams, cache, tokens: torch.Tensor, cfg: Tr
                                              window=cfg.swa_window, kv_mask=kv_mask).to(x.dtype)
         out = out.reshape(b, 1, width)[..., own]
         x = _leave(_mm(out, _take(lp["wo"], width, own, tp, dim=-2), tp), x, tp, False)
-        x = _leave(_ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg, tp)[0], x, tp, False)
+        f, routed, _ = _ffn_block(lp, common.rms_norm(x, lp["ln2"]), cfg, tp)
+        x = _leave(f, x, tp, False, routed)
+        del f, routed
         kc[bidx, local] = torch.where(owned, nk[:, 0], kc[bidx, local])
         vc[bidx, local] = torch.where(owned, nv[:, 0], vc[bidx, local])
     x = common.rms_norm(x, params.ln_f)
@@ -685,7 +729,7 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
     slots (every kv head: a heads-to-slots exchange of the kept K/V where
     the ranks split the kv heads) and the logits its ``V/m`` columns.
     """
-    tp = _axis(cfg)
+    tp = _axis()
     b, s = tokens.shape
     c = capacity or cache_len(cfg, s)
     keep = min(s, c)
@@ -709,8 +753,9 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
         a, nk, nv = _attn_block(lp, _enter(common.rms_norm(x, lp["ln1"]), tp, sp), pos, cfg, tp,
                                 kv)
         x = _leave(a, x, tp, sp)
-        x = _leave(_ffn_block(lp, _enter(common.rms_norm(x, lp["ln2"]), tp, sp), cfg, tp)[0], x,
-                   tp, sp)
+        f, routed, _ = _ffn_block(lp, _enter(common.rms_norm(x, lp["ln2"]), tp, sp), cfg, tp)
+        x = _leave(f, x, tp, sp, routed)
+        del f, routed  # not alive through the next layer
         for new, held in ((nk, ks[i]), (nv, vs[i])):
             ring = held if tp.size == 1 else new.new_zeros((b, c) + new.shape[2:])
             ring[:, kept_slots] = new[:, s - keep:]

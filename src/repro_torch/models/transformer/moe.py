@@ -132,6 +132,23 @@ def dispatch(x: torch.Tensor, slot: torch.Tensor, token_id: torch.Tensor,
     return graph_ops.gather(x, src[:-1], fill=0)
 
 
+def ep_plan(n_tokens: int, mcfg: MoEConfig):
+    """``(mesh, daxes, n_data, n_model)`` of :func:`moe_ffn_ep` for ``n_tokens``
+    tokens under the active mesh, or ``None`` where :func:`moe_ffn_local`
+    runs (see :func:`moe_ffn`)."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = shd.active_mesh()
+    if mesh is None or mesh.device_mesh is None or "model" not in mesh.shape:
+        return None
+    n_model = mesh.shape["model"]
+    daxes = () if shd.batch_split() else shd.data_axes(mesh)
+    n_data = math.prod(mesh.shape[a] for a in daxes)
+    if mcfg.n_experts % n_model or n_tokens % n_data:
+        return None
+    return mesh, daxes, n_data, n_model
+
+
 def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     """``x [T, D]`` → (y [T, D], aux). Under an active multi-rank mesh with a
     ``model`` axis that divides the experts, and data axes (pod × data) that
@@ -141,15 +158,9 @@ def moe_ffn(x: torch.Tensor, params, mcfg: MoEConfig):
     data axes split the batch already (``dist.sharding.batch_split``: a
     data-parallel step) the tokens are the rank's own and only the
     ``model`` axis splits the experts."""
-    from repro_torch.dist import sharding as shd
-
-    mesh = shd.active_mesh()
-    if mesh is not None and mesh.device_mesh is not None and "model" in mesh.shape:
-        n_model = mesh.shape["model"]
-        daxes = () if shd.batch_split() else shd.data_axes(mesh)
-        n_data = math.prod(mesh.shape[a] for a in daxes)
-        if mcfg.n_experts % n_model == 0 and x.shape[0] % n_data == 0:
-            return moe_ffn_ep(x, params, mcfg, mesh, daxes, n_data, n_model)
+    plan = ep_plan(x.shape[0], mcfg)
+    if plan is not None:
+        return moe_ffn_ep(x, params, mcfg, *plan)
     return moe_ffn_local(x, params, mcfg)
 
 
@@ -230,7 +241,8 @@ def _own_rows(vals, owner, rank: int, group, most_bound: int):
     return out[:n]
 
 
-def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: int):
+def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: int,
+               x_summed: bool = False):
     """The JAX package's expert-parallel flow (GShard-style) on the rank at
     data index ``i`` (flattened over ``daxes``) and model index ``j``:
 
@@ -255,8 +267,13 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
 
     ``aux`` is the balance loss of each data shard, pmean'd over the data
     axes. ``x`` and the parameters are replicated inputs (each rank holds
-    them whole): their gradients sum over the ranks; the shared experts run
-    on every rank over all tokens, as JAX runs them outside the region.
+    them whole): their gradients sum over the ranks — ``x``'s over the data
+    axes only with ``x_summed``, where the caller sums it over ``model``
+    (a tensor-parallel layer: ``x`` is the sequence gathered by its
+    ``_enter``, whose backward reduce-scatters the model ranks' partial
+    cotangents). Shared experts in ``params`` run whole on every rank over
+    all tokens, as JAX runs them outside the region; a tensor-parallel
+    layer leaves them out and runs them column- and row-split itself.
     Expert stacks of ``E/n_model`` experts (an FSDP state gathered over the
     data axes only) are this rank's own: taken as they are, their gradients
     summed over the data axes alone. Returns the replicated ``(y [T, D],
@@ -274,7 +291,10 @@ def moe_ffn_ep(x, params, mcfg: MoEConfig, mesh, daxes, n_data: int, n_model: in
     g_model = shd.axis_group(mesh, ("model",))
     i = torch.distributed.get_rank(g_data) if n_data > 1 else 0
     j = torch.distributed.get_rank(g_model) if n_model > 1 else 0
-    x_loc = coll.copy_in(x, world)[i * t_loc:(i + 1) * t_loc]
+    if x_summed:
+        x_loc = (coll.copy_in(x, g_data) if n_data > 1 else x)[i * t_loc:(i + 1) * t_loc]
+    else:
+        x_loc = coll.copy_in(x, world)[i * t_loc:(i + 1) * t_loc]
 
     expert_idx, gate, aux = route(x_loc, coll.copy_in(params["router"], world), mcfg)
     pos, keep = dispatch_indices(expert_idx, e, cap_loc)

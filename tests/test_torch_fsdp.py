@@ -232,15 +232,15 @@ def test_expert_parallel_on_the_data_parallel_step(rank_results):
 
 
 DRY_CELLS = [("h2o-danube-1.8b", "train_4k"), ("h2o-danube-1.8b", "decode_32k"),
-             ("deepseek-moe-16b", "train_4k"), ("gat-cora", "full_graph_sm"),
-             ("autoint", "train_batch")]
+             ("deepseek-moe-16b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+             ("gat-cora", "full_graph_sm"), ("autoint", "train_batch")]
 
 
 def _arg_bytes(arch, shape_id, mesh_kind):
     """The bytes rank 0 holds for a reduced cell on the mesh, from the
     rules and ``shard_shape``: its parameters (``PARAM_MODE``), moments
     (``fsdp``) and step, and its rows of the batch (or all of them); a
-    dense LM's decode cache its ``C / model`` slots, as JAX's
+    LM's decode cache (dense or MoE) its ``C / model`` slots, as JAX's
     ``lm_cache_spec`` splits the cache's sequence."""
     spec = configs.get_spec(arch)
     shape = spec.shapes[shape_id]
@@ -269,7 +269,7 @@ def _arg_bytes(arch, shape_id, mesh_kind):
         total += 2 * held("fsdp", 4) + 4  # float32 moments, the int32 step
     if spec.family == "lm":
         specs = tm.input_specs(cfg, kind, shape["seq_len"], rows, "cpu")
-        if kind == "decode" and cfg.moe is None:
+        if kind == "decode":
             kv = specs["cache"]["k"]
             cache = shd.lm_cache_spec(mesh, cfg, kv.shape[1], kv.shape[2])
             assert cache[2] == "model"

@@ -224,8 +224,9 @@ def test_gnn_forward_on_mesh(results, arch):
 
 
 def test_moe_prefill_on_mesh(results):
-    """The reduced deepseek-moe prefill (EP in every layer) within ``TOL``
-    of JAX's logits under the mesh."""
+    """The reduced deepseek-moe prefill (tensor-parallel over ``model``, EP
+    in every layer) within ``TOL`` of JAX's logits under the mesh: each
+    rank's vocabulary block gathered whole, alike on every rank."""
     _close(results[1]["lm/logits"], results[0]["lm/logits"], "lm/logits")
     assert bool(results[1]["same/lm/logits"])
 

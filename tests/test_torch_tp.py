@@ -21,8 +21,10 @@ reduced h2o-danube-1.8b and qwen3-32b (f32, 2 kv heads: held whole on
 * three decode steps on that cache: the logits within ``TOL``.
 
 In process: on a one-rank mesh the LM's outputs and gradients are bit-equal
-to those without a mesh (the tensor-parallel path is not taken), and
-:func:`head_plan` on the pod meshes' model axis of 16.
+to those without a mesh (the tensor-parallel path is not taken), for the
+MoE configs too, and :func:`head_plan` on the pod meshes' model axis of 16.
+The MoE configs on the mesh are ``tests/test_torch_tp_moe.py``'s, which
+runs the same checks through :func:`run_pair`.
 """
 
 import ast
@@ -46,14 +48,13 @@ GRAD_F32 = 1e-4
 CASES = [(arch, tag) for arch in ref.ARCHS for tag in ref.MESHES]
 
 
-@pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    """``(jax, port)`` result dicts of the two subprocesses."""
-    out = tmp_path_factory.mktemp("tp")
-    ref.make_inputs(out / "inputs.npz")
+def run_pair(out, archs, timeout=240):
+    """``(jax, port)`` result dicts of the two subprocesses, run at once on
+    the inputs of ``archs`` in the directory ``out``."""
+    ref.make_inputs(out / "inputs.npz", archs)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs = {
-        name: subprocess.Popen([sys.executable, str(ROOT / "tests" / script), str(out)],
+        name: subprocess.Popen([sys.executable, str(ROOT / "tests" / script), str(out), *archs],
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                cwd=str(ROOT), env=env)
         for name, script in (("jax", "torch_tp_reference.py"), ("port", "torch_tp_ranks.py"))
@@ -61,7 +62,7 @@ def results(tmp_path_factory):
     logs = {}
     try:
         for name, proc in procs.items():
-            logs[name] = proc.communicate(timeout=240)[0]
+            logs[name] = proc.communicate(timeout=timeout)[0]
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -69,6 +70,12 @@ def results(tmp_path_factory):
     for name, proc in procs.items():
         assert proc.returncode == 0, f"{name}:\n{logs.get(name, '')[-6000:]}"
     return dict(np.load(out / "jax.npz")), dict(np.load(out / "torch.npz"))
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """``(jax, port)`` result dicts of the two subprocesses."""
+    return run_pair(tmp_path_factory.mktemp("tp"), ref.ARCHS)
 
 
 def _close(got, want, what, tol=TOL):
@@ -211,7 +218,7 @@ def test_decode_steps(results, arch, tag):
         _close(port[k], jax_res[k], k)
 
 
-@pytest.mark.parametrize("arch", ref.ARCHS)
+@pytest.mark.parametrize("arch", ref.ARCHS + ref.MOE_ARCHS)
 def test_one_rank_mesh_is_the_plain_path(arch):
     """On a one-rank mesh the loss, every gradient, the prefill's logits and
     cache and two decode steps are bit-equal to those without a mesh: no

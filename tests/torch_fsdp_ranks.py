@@ -165,8 +165,7 @@ def ep_cases(res):
     rows = {k: v[i * BATCH // 2:(i + 1) * BATCH // 2] for k, v in batches(0).items()}
     want_loss, want = tr.value_and_grad(loss_fn, params, rows)
     want = {k: coll.psum(g, data) / 2 for k, g in want.items()}
-    shards = tr.shard_state_(params, None, tr.state_layout("lm", params, mesh), ("data",),
-                             local_experts=True)
+    shards = tr.shard_state_(params, None, tr.state_layout("lm", params, mesh), ("data",))
     slots = moe.moe_ffn.slots
     shd.activate(mesh, batch_split=True)
     try:

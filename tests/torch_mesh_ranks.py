@@ -222,6 +222,8 @@ def moe_cases(a, res):
 
 def model_cases(a, res):
     from repro_torch import configs
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
     from repro_torch.models.gnn import models as gm
     from repro_torch.models.transformer import model as tm
 
@@ -236,6 +238,8 @@ def model_cases(a, res):
     lm = configs.get_spec("deepseek-moe-16b").reduced
     params = tm.params_from_arrays(lm, ref.unflat(a, "lm/params"), "cpu")
     logits, _ = tm.prefill(params, _t(a["lm/tokens"]), lm)
+    # tensor-parallel over model: the rank's vocabulary block, gathered whole
+    logits = coll.all_gather_dim(logits, 2, shd.model_axis().group)
     res["lm/logits"] = _full(logits)
     _replicated("lm/logits", logits, res)
 

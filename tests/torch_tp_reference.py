@@ -1,24 +1,29 @@
-"""The JAX package's dense LM on a mesh of 4 fake CPU devices, laid out by
-its own shardings: the reference of ``tests/test_torch_tp.py``.
+"""The JAX package's LMs on a mesh of 4 fake CPU devices, laid out by its
+own shardings: the reference of ``tests/test_torch_tp.py`` (the dense
+configs, :data:`ARCHS`) and ``tests/test_torch_tp_moe.py`` (the MoE ones,
+:data:`MOE_ARCHS`).
 
-    python tests/torch_tp_reference.py OUT_DIR
+    python tests/torch_tp_reference.py OUT_DIR [ARCH ...]
 
 :func:`make_inputs` (called by the test, in its own process) draws every
 input from numpy seeds and the parameters from the JAX initialiser, and
 writes them to ``OUT_DIR/inputs.npz``; this script, run with 4 fake
 devices, reads them and writes to ``OUT_DIR/jax.npz`` what JAX computes on
-``("data", "model") = (1, 4)`` and ``(2, 2)`` for each config of
-:data:`ARCHS`, each function jitted under ``param_shardings`` /
+``("data", "model") = (1, 4)`` and ``(2, 2)`` for each config named (by
+default :data:`ARCHS`), each function jitted under ``param_shardings`` /
 ``batch_shardings`` / ``lm_cache_spec`` as the JAX dry-run's ``lm_cell``
 places it: the loss and its gradients, two trainer steps with the
 parameters in ``fsdp`` and in ``zero1`` (the moments in ``fsdp``), and
 the shard shape of every live leaf after them, a prefill's logits and KV
-cache, and three decode steps on that cache. ``tests/torch_tp_ranks.py``
-runs the port on the same inputs over 4 gloo ranks.
+cache, and three decode steps on that cache; for an MoE config also the
+slots each layer of a forward drops, by data shard (:func:`drop_log`).
+``tests/torch_tp_ranks.py`` runs the port on the same inputs over 4 gloo
+ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -34,6 +39,9 @@ from torch_mesh_reference import flat, unflat  # noqa: E402  (numpy only at impo
 #: the reduced dense configs (2 kv heads each: on 4 model ranks the kv
 #: heads are held whole, on 2 they are split)
 ARCHS = ("h2o-danube-1.8b", "qwen3-32b")
+#: the reduced MoE configs (8 experts top-2): deepseek-moe's 4 heads over 4
+#: kv heads and a shared expert, qwen3-moe's 8 heads over 2 kv heads
+MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 MODES = ("fsdp", "zero1")
 BATCH, SEQ = 4, 16
@@ -44,8 +52,10 @@ DECODE_STEPS = 3
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 2, 3e-3, 1
 
 
-def make_inputs(path):
-    """Every input of the reference and of the port's ranks."""
+def make_inputs(path, archs=ARCHS):
+    """Every input of the reference and of the port's ranks for ``archs``
+    (the parameters and batches of each seeded by its place in
+    :data:`ARCHS` + :data:`MOE_ARCHS`)."""
     import jax
 
     from repro import configs
@@ -54,7 +64,8 @@ def make_inputs(path):
 
     rng = np.random.default_rng(23)
     out = {}
-    for i, arch in enumerate(ARCHS):
+    for arch in archs:
+        i = (ARCHS + MOE_ARCHS).index(arch)
         cfg = configs.get_spec(arch).reduced
         out.update(flat(tm.init(jax.random.PRNGKey(30 + i), cfg), f"{arch}/params"))
         data = token_batches(BATCH, SEQ, cfg.vocab_size, seed=40 + i)
@@ -74,6 +85,34 @@ def _mesh(shape):
     from repro.dist import compat  # noqa: F401  (mesh-API shims)
 
     return jax.make_mesh(shape, ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+@contextlib.contextmanager
+def drop_log(log):
+    """``repro``'s ``moe.dispatch_indices`` wrapped while inside: each call
+    of it in a (data, model) shard of ``moe_ffn_ep``'s ``shard_map`` appends
+    the slots it drops to ``log[(data index, model index)]``, in call order
+    (a host callback, run as each shard's program reaches it)."""
+    import jax
+
+    from repro.models.transformer import moe as jmoe
+
+    dispatch = jmoe.dispatch_indices
+
+    def record(d, m, n):
+        log.setdefault((int(d), int(m)), []).append(int(n))
+
+    def wrapped(expert_idx, n_experts, cap):
+        pos, keep = dispatch(expert_idx, n_experts, cap)
+        jax.debug.callback(record, jax.lax.axis_index("data"), jax.lax.axis_index("model"),
+                           keep.size - keep.sum())
+        return pos, keep
+
+    jmoe.dispatch_indices = wrapped
+    try:
+        yield log
+    finally:
+        jmoe.dispatch_indices = dispatch
 
 
 def run_case(a, res, arch, tag, mesh):
@@ -108,6 +147,17 @@ def run_case(a, res, arch, tag, mesh):
                                   in_shardings=(pshard, bshard))(params, batches[0])
             res[f"{key}/loss"] = np.asarray(loss)
             res.update(flat(jax.device_get(grads), f"{key}/grads"))
+            if cfg.moe is not None:  # each layer's dropped slots, by data shard
+                with drop_log({}) as log:
+                    jax.block_until_ready(jax.jit(lambda p, t: tm.forward(p, t, cfg)[0],
+                                                  in_shardings=(pshard, bshard["tokens"]))(
+                        params, batches[0]["tokens"]))
+                n_data, n_model = mesh.devices.shape
+                for d in range(n_data):
+                    counts = [log[(d, m)] for m in range(n_model)]
+                    assert all(c == counts[0] for c in counts), counts
+                    assert len(counts[0]) == cfg.n_layers, counts
+                res[f"{key}/drops"] = np.asarray([log[(d, 0)] for d in range(n_data)])
 
             for mode in MODES:
                 mshard = shd.param_shardings("lm", params, mesh, mode)
@@ -162,10 +212,10 @@ def run_case(a, res, arch, tag, mesh):
         shd.deactivate()
 
 
-def main(out_dir):
+def main(out_dir, archs=ARCHS):
     a = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     res = {}
-    for arch in ARCHS:
+    for arch in archs:
         for tag, shape in MESHES.items():
             run_case(a, res, arch, tag, _mesh(shape))
     np.savez(os.path.join(out_dir, "jax.npz"), **{k: np.asarray(v) for k, v in res.items()})
@@ -173,4 +223,4 @@ def main(out_dir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], tuple(sys.argv[2:]) or ARCHS)
