@@ -205,10 +205,14 @@ What it does, in order, and fails on the first thing that is wrong:
    a device), their inputs the parent's by CUDA IPC — correctness runs,
    not multi-card times. pna, gat-cora and graphcast (the GNN phase's
    graphs, weights and one-rank outputs) on ``("data", "model") = (2,
-   2)``: each output held to the one-rank forward by ``gnn_serve``'s rule
-   (``GNN_TOL`` · max|out|; graphcast element by element), PNA on its
-   fused branch (three reduce-scatters a layer),
-   every rank's launches per route equal to the one-rank forward's;
+   2)``, each rank holding only its block of the graph's nodes and edges
+   (views of the parent's tensors) and of every activation between
+   layers: each rank's rows of the output held to the same rows of the
+   one-rank forward by ``gnn_serve``'s rule (``GNN_TOL`` · max|out|;
+   graphcast element by element), PNA on its fused branch (three
+   reduce-scatters a layer), every rank's launches per route equal to the
+   one-rank forward's, its batch and activation bytes beside the whole
+   ones and its peak beside the one-rank forward's;
    deepseek-moe-16b at full width cut to ``MESH_MOE_LAYERS`` layers
    (views of phase 4b's weights), tensor- and expert-parallel on (1, 4)
    (``mesh_moe``: 4 of 16 heads, 16 of 64 experts and 6,176 / 4 cache
@@ -222,9 +226,11 @@ What it does, in order, and fails on the first thing that is wrong:
    every layer routed alike on every model rank; the dropped share beside
    one rank's; rank 0's prefill and decode step dry-run against the card
    (``dryrun_vs_card``); gat-cora's
-   ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh) against
-   one rank: ``TRAIN_STEPS`` losses and the final parameters within
-   ``TRAIN_TOL``, each rank's launches, backwards included, equal;
+   ``launch.train.Supervised`` on 2 ranks (its ``(2, 1)`` mesh, each rank
+   on its half of the graph) against one rank: ``TRAIN_STEPS`` losses and
+   the final parameters within ``TRAIN_TOL``, each rank's launches,
+   backwards included, equal, its last step dry-run against the card
+   (``dryrun_vs_card``);
    and the sharded trainer (``Supervised.run``: ``MESH_TRAIN_STEPS`` steps
    and the checkpoint at the end, the shards gathered into rank 0's host
    buffers) on gloo ranks against one rank: AutoInt at full width on 2
@@ -259,9 +265,10 @@ What it does, in order, and fails on the first thing that is wrong:
    every D of 1..128 in f32 and bf16, and every cell of
    ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors
    (``dryrun_cell`` lines: fits against the card's memory, peak GB,
-   bottleneck), and those of ``DRY_POD_ARCHS`` as rank 0 of the JAX
-   package's 256- and 512-rank meshes (a fake process group: the rank's
-   shards and rows; its peak and collective GB). Throughout the run, each step that a phase also runs for
+   bottleneck), and those of ``DRY_POD_ARCHS`` and the cells of
+   ``DRY_POD_CELLS`` (GraphCast on ogb_products, which must fit) as rank 0
+   of the JAX package's 256- and 512-rank meshes (a fake process group:
+   the rank's shards and rows; its peak and collective GB). Throughout the run, each step that a phase also runs for
    real — the h2o-danube and deepseek-moe prefill and decode step, the
    four GNN forwards and the minibatch, AutoInt's three serve shapes, the
    four training steps — is dry-run at that phase's shapes and run twice
@@ -281,6 +288,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -1153,10 +1161,9 @@ def require_graph_routes(counts: dict, path: str):
                                  f"launches on the {other} route")
 
 
-def main_path(scale, edgefactor, seed, device, card):
-    """Build the graphs, then run the programs with the launch counters
-    zeroed just before and read just after."""
-    from repro_torch.core import algorithms as alg
+def main_graphs(scale, edgefactor, seed, device, card):
+    """The main path's graphs: the symmetric and the directed weighted
+    R-MAT of ``scale`` (a ``graphs`` line)."""
     from repro_torch.graph import generators as G
 
     t0 = time.perf_counter()
@@ -1169,6 +1176,16 @@ def main_path(scale, edgefactor, seed, device, card):
         symmetric_edges=sym.n_edges, directed_edges=dirw.n_edges,
         symmetric_shape=graph_shape(sym),
     )
+    return sym, dirw
+
+
+def main_path(scale, edgefactor, seed, device, card, graphs=None):
+    """Build the graphs (unless given: :func:`main_graphs`'), then run the
+    programs with the launch counters zeroed just before and read just
+    after."""
+    from repro_torch.core import algorithms as alg
+
+    sym, dirw = graphs or main_graphs(scale, edgefactor, seed, device, card)
 
     graph_counters(zero=True)
     runs = [
@@ -1548,16 +1565,18 @@ def edges_near(shape_id, e, target, share=0.05):
         raise AssertionError(f"{shape_id}: {e} edges, not within {share:.0%} of {target:.0f}")
 
 
-def gnn_check(arch, got, want, tol):
+def gnn_check(arch, got, want, tol, whole=None):
     """``got`` against ``want`` by ``arch``'s rule (``GNN_ELEMENTWISE``: each
     element within ``tol``·|want| + ``tol``·median|want|; else max|Δ| within
     ``tol``·max|want|): (max|Δ|, max|want|, the rule, the share of elements
-    past it)."""
+    past it). ``want`` may be a block of rows of ``whole``, the output the
+    rule's max and median are taken over."""
     diff, mag = (got.float() - want.float()).abs(), want.float().abs()
-    err, scale = float(diff.max()), float(mag.max())
+    ref = mag if whole is None else whole.float().abs()
+    err, scale = float(diff.max()), float(ref.max())
     if arch in GNN_ELEMENTWISE:
         check = f"|Δ| ≤ {tol}·|ref| + {tol}·median|ref| per element"
-        limit = tol * mag + tol * float(mag.median())
+        limit = tol * mag + tol * float(ref.median())
     else:
         check = f"max|Δ| ≤ {tol}·max|out|"
         limit = tol * scale
@@ -1623,7 +1642,8 @@ def gnn_serve(arch, cfg, batch, seed, device, card, keep=None):
     dry_vs_card(f"{arch} forward", lambda p, b: gm.forward(p, b, cfg), (params, batch), device,
                 card, dryrun.gnn_model_flops(cfg, n, e) / 3)
     if keep is not None:  # the output in host memory: kept on the card it splits the cache
-        keep.update(params=params, want=out.cpu(), one_rank_ms=warm_s * 1e3)
+        keep.update(params=params, want=out.cpu(), one_rank_ms=warm_s * 1e3,
+                    one_rank_peak_gb=peak)
     del params, out
     return launches
 
@@ -1837,13 +1857,18 @@ def gnn_path(device, card, shapes=None, degrees=None, n_batches=MINIBATCHES, see
     if device.type == "cuda" and not only_mesh:
         routes.update(gnn_route_rows(batch, per_model, graphcast=True))
     del batch, kept
-    mesh_launches = mesh_gnn(mesh_models, device, card) if mesh else {}
-    del mesh_models
-    if only_mesh:
-        return total, routes, None, mesh_launches
+    # the sampled phase's graph, a host build, is made while the mesh ranks
+    # run (they wait on gloo's host copies)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = None if only_mesh else pool.submit(minibatch_graph, device, card, seed,
+                                                     shapes, degrees)
+        mesh_launches = mesh_gnn(mesh_models, device, card) if mesh else {}
+        del mesh_models
+        if only_mesh:
+            return total, routes, None, mesh_launches
+        minibatch = pending.result()
 
     # sampled GraphSAGE on a Reddit-sized graph
-    minibatch = minibatch_graph(device, card, seed, shapes, degrees)
     cfg, graph, feats, labels, batch_nodes = minibatch
     per_model["graphsage-reddit minibatch"], hop1_read = minibatch_serve(
         cfg, graph, feats, labels, batch_nodes, n_batches, seed, device, card)
@@ -3669,8 +3694,11 @@ CKPT_STEPS, CKPT_STOP, CKPT_FAIL = 6, 3, 4
 #: (bit-equal replay) does not depend on depth
 DRILL_LAYERS = 3
 #: the depth of h2o-danube-1.8b's mesh cases (its sharded and
-#: tensor-parallel trainers and serve): full width, 6 of its 24 layers
-CKPT_LAYERS = 6
+#: tensor-parallel trainers and serve): full width, 4 of its 24 layers (6
+#: until the GNN mesh phase's sharded graphs came), to keep the run inside
+#: its time; what they check (each mesh against one rank at the same depth,
+#: every layer the same code) does not depend on depth
+CKPT_LAYERS = 4
 #: h2o-danube-1.8b's parameter paths in the JAX package's tree (``init`` of
 #: its config: no biases, no qk-norm, an untied unembedding), the keys of
 #: its checkpoints; tests/test_torch_ckpt.py holds them to JAX's
@@ -4301,46 +4329,96 @@ def mesh_rank(rank, port, device, shared, queue):
         raise
 
 
-def _mesh_check(arch, got, want, tol):
-    """``got`` held to ``want`` by ``gnn_serve``'s rule for ``arch``
-    (:func:`gnn_check`): (max|Δ|, max|want|, the rule)."""
-    err, scale, check, past = gnn_check(arch, got, want, tol)
+def _mesh_check(arch, got, want, tol, whole=None):
+    """``got`` held to ``want`` (rows of ``whole``) by ``gnn_serve``'s rule
+    for ``arch`` (:func:`gnn_check`): (max|Δ|, max|want|, the rule)."""
+    err, scale, check, past = gnn_check(arch, got, want, tol, whole)
     if past:
         raise AssertionError(f"mesh {arch}: past {check} against the one-rank forward at a "
                              f"share {past} of the elements: max|Δ| {err}, max|out| {scale}")
     return err, scale, check
 
 
+#: the GNN layer functions whose first output is a rank's activation
+#: between layers (``mesh_gnn``'s ``activation_gb``)
+GNN_LAYERS = ("sage_layer", "gat_layer", "pna_layer_fused", "mpnn_layer_fused")
+
+
+@contextlib.contextmanager
+def first_layer_output(out: list):
+    """The GNN layer functions wrapped while inside: the first layer's
+    output (a tuple: ``h``, and GraphCast's ``e``) appended to ``out``."""
+    from repro_torch.models.gnn import layers as L
+
+    saved = {name: getattr(L, name) for name in GNN_LAYERS}
+
+    def record(fn):
+        def wrapped(*args, **kwargs):
+            y = fn(*args, **kwargs)
+            if not out:
+                out.append(y if isinstance(y, tuple) else (y,))
+            return y
+
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(L, name, record(fn))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+
+
+def _rank_bytes(tensors):
+    """(this rank's bytes, the whole tensors' bytes) of node and edge
+    tensors, flat DTensors at their local rows."""
+    from repro_torch.dist import sharding as shd
+
+    mine = sum(shd.local_rows(t).numel() * t.element_size() for t in tensors)
+    return mine, sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _mesh_gnn_rank(rank, job, device):
-    """Each model's ``forward`` on the (2, 2) mesh: held to the parent's
-    one-rank output, its launches per route equal to the one-rank forward's,
-    the fused PNA layer's three reduce-scatters a layer counted."""
+    """Each model's ``forward`` on the (2, 2) mesh, the rank holding only
+    its block of the graph (``launch.train.shard_graph``: views of the
+    parent's tensors): its block of the output held to the same rows of the
+    parent's one-rank output, its launches per route equal to the one-rank
+    forward's, the fused PNA layer's three reduce-scatters a layer counted;
+    the rank's batch and first-layer activation bytes beside the whole
+    ones, and its peak."""
     import torch.distributed as dist
 
     from repro_torch.dist import collectives as coll
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import shard_graph
     from repro_torch.models.gnn import models as gm
 
     mesh = make_mesh(job["shape"], ("data", "model"), device=device)
     shd.activate(mesh)
     out = {}
     for m in job["models"]:
-        cfg, batch = m["cfg"], m["batch"]
+        cfg = m["cfg"]
+        batch = shard_graph(m["batch"], mesh)
+        batch_bytes = _rank_bytes(batch.values())
+        reset_peak(device)
         graph_counters(zero=True)
         coll.reset_counts()
         sync(device)
         dist.barrier()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), first_layer_output([]) as first:
             y = gm.forward(m["params"], batch, cfg)
         sync(device)
         wall = time.perf_counter() - t0
         launches, collectives = graph_counters(), coll.reset_counts()
-        err, scale, check = _mesh_check(m["arch"], y, m["want"].to(y.device),
-                                        GNN_TOL[cfg.compute_dtype])
         if tuple(y.shape) != tuple(m["want"].shape):
             raise AssertionError(f"mesh {m['arch']}: output {tuple(y.shape)}")
+        local, start = shd.local_rows(y), shd.row_start(y)
+        rows = slice(start, start + local.shape[0])
+        err, scale, check = _mesh_check(m["arch"], local, m["want"][rows].to(y.device),
+                                        GNN_TOL[cfg.compute_dtype], whole=m["want"])
         if device.type == "cuda" and launches != m["launches"]:
             raise AssertionError(f"mesh {m['arch']} rank {rank}: launches {launches}, the "
                                  f"one-rank forward's {m['launches']}")
@@ -4351,11 +4429,12 @@ def _mesh_gnn_rank(rank, job, device):
             raise AssertionError(f"mesh {m['arch']}: {collectives} for the fused branch")
         out[m["arch"]] = {
             "wall_s": wall, "max_abs_diff": err, "max_abs_out": scale,
-            "check": check,
+            "check": check, "rows": [rows.start, rows.stop], "output_split": shd.is_flat(y),
             "branch": "fused" if fused else "composable" if per_layer else "mp_* ops",
-            "n_edges": e, "edges_per_rank": -(-e // mesh.size), "launches": launches,
-            "collectives": collectives}
-        del y
+            "n_edges": e, "edges_per_rank": shd.local_rows(batch["src"]).shape[0],
+            "batch_bytes": batch_bytes, "activation_bytes": _rank_bytes(first[0]),
+            "peak_gb": peak_gb(device), "launches": launches, "collectives": collectives}
+        del y, local, first, batch
     shd.deactivate()
     return {"models": out, "transport": coll.transport()}
 
@@ -4363,8 +4442,8 @@ def _mesh_gnn_rank(rank, job, device):
 def mesh_gnn(models, device, card):
     """The GNNs on the (2, 2) mesh: ``MESH_RANKS`` gloo ranks on the one
     card, each model's graph, weights and one-rank output shared by CUDA
-    IPC. Prints a ``mesh_gnn`` line per model; returns the launches over
-    the ranks."""
+    IPC, each rank taking its block of the graph. Prints a ``mesh_gnn``
+    line per model; returns the launches over the ranks."""
     t0 = time.perf_counter()
     if device.type == "cuda":  # the ranks allocate beside this process's cache
         torch.cuda.empty_cache()
@@ -4381,16 +4460,32 @@ def mesh_gnn(models, device, card):
         whole = per_rank[0]["n_edges"] % MESH_RANKS == 0
         if arch == "pna" and whole and per_rank[0]["branch"] != "fused":
             raise AssertionError(f"mesh pna took the {per_rank[0]['branch']} branch")
+        n = m["want"].shape[0]
+        covered = sorted(tuple(rep["rows"]) for rep in per_rank)
+        split = n % MESH_RANKS == 0
+        if covered != ([(r * n // MESH_RANKS, (r + 1) * n // MESH_RANKS)
+                        for r in range(MESH_RANKS)] if split else [(0, n)] * MESH_RANKS):
+            raise AssertionError(f"mesh {arch}: the ranks' output rows {covered}")
+        if any(rep["output_split"] != split for rep in per_rank):
+            raise AssertionError(f"mesh {arch}: output split {per_rank[0]['output_split']}")
         for rep in per_rank:
             add_launches(total, rep["launches"])
         say("mesh_gnn", card, arch=arch, mesh=dict(zip(("data", "model"), MESH_GNN_SHAPE)),
             compute_dtype=m["cfg"].compute_dtype, branch=per_rank[0]["branch"],
-            n_edges=per_rank[0]["n_edges"], edges_per_rank=per_rank[0]["edges_per_rank"],
+            n_nodes=n, n_edges=per_rank[0]["n_edges"],
+            edges_per_rank=per_rank[0]["edges_per_rank"],
+            output_rows_per_rank=[rep["rows"] for rep in per_rank],
             wall_s=[rep["wall_s"] for rep in per_rank],
             one_rank_warm_ms=m.get("one_rank_ms"),
             max_abs_diff=max(rep["max_abs_diff"] for rep in per_rank),
             max_abs_out=per_rank[0]["max_abs_out"], tol=GNN_TOL[m["cfg"].compute_dtype],
             check=per_rank[0]["check"],
+            batch_gb_per_rank=[rep["batch_bytes"][0] / 1e9 for rep in per_rank],
+            batch_gb_whole=per_rank[0]["batch_bytes"][1] / 1e9,
+            activation_gb_per_rank=[rep["activation_bytes"][0] / 1e9 for rep in per_rank],
+            activation_gb_whole=per_rank[0]["activation_bytes"][1] / 1e9,
+            peak_gb_per_rank=[rep["peak_gb"] for rep in per_rank],
+            one_rank_peak_gb=m.get("one_rank_peak_gb"),
             launches_per_rank=per_rank[0]["launches"],
             collectives_per_rank=per_rank[0]["collectives"],
             peak_allocated_gb=[reports[r]["peak_allocated_gb"] for r in range(MESH_RANKS)],
@@ -4399,10 +4494,42 @@ def mesh_gnn(models, device, card):
     return total
 
 
+#: the GNN products whose row blocks ``--row-gemm`` holds to the whole:
+#: (name, rows, contraction, outputs) — GraphCast's node encoder on cora's
+#: features, its head, a layer's node and edge products, PNA's head
+ROW_GEMMS = (("graphcast encode_node", 4096, 1433, 512), ("graphcast head", 4096, 512, 227),
+             ("graphcast node_w1", 4096, 1024, 512), ("graphcast edge_w1", 10552, 1536, 512),
+             ("pna head", 4096, 75, 47))
+
+
+def row_gemm_probe(device, card):
+    """Each bf16 product of ``ROW_GEMMS`` on random operands, whole and in
+    2 and 4 blocks of rows (a rank's share), plain (``x @ w``) and padded
+    to multiples of 8 (``models.gnn.models._rows_mm``): a ``row_gemm``
+    line each with the share of elements where the blocks differ from the
+    whole and the largest difference."""
+    from repro_torch.models.gnn import models as gm
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, m, k, n in ROW_GEMMS:
+        x = torch.randn(m, k, generator=gen, device=device).bfloat16()
+        w = (torch.randn(k, n, generator=gen, device=device) / k ** 0.5).bfloat16()
+        for how, mm in (("plain", torch.matmul), ("padded", gm._rows_mm)):
+            whole = mm(x, w)
+            for parts in (2, 4):
+                b = -(-m // parts)
+                blocks = torch.cat([mm(x[i * b:(i + 1) * b], w) for i in range(parts)])
+                diff = (blocks.float() - whole.float()).abs()
+                say("row_gemm", card, product=name, shape=[m, k, n], how=how, parts=parts,
+                    unequal_share=float((blocks != whole).float().mean()),
+                    max_abs_diff=float(diff.max()), max_abs=float(whole.float().abs().max()))
+
+
 @contextlib.contextmanager
 def recorded_gc_layers():
     """Every GraphCast layer run inside the block recorded: a list of
-    ``(params, h, e, h_out)`` (``h_out`` whole on every rank)."""
+    ``(params, h, e, h_out)`` (``h_out`` as the layer returns it: on a mesh
+    this rank's rows)."""
     from repro_torch.models.gnn import layers as L
 
     fused, seen = L.mpnn_layer_fused, []
@@ -4437,6 +4564,7 @@ def _mesh_probe_rank(rank, job, device):
     off = gm.dst_offsets(batch["dst"], n)
 
     def stats(got, want, tol):
+        got = shd.whole(got)  # each rank's rows gathered whole
         err, scale, _, past = gnn_check("graphcast", got, want, tol)
         return {"rel": err / scale, "past": past,
                 "unequal": float((got != want).float().mean())}
@@ -4467,7 +4595,7 @@ def _mesh_probe_rank(rank, job, device):
 def mesh_probe(seed, device, card):
     """GraphCast (16 × 512) on full_graph_sm, on the (2, 2) mesh against one
     rank layer by layer (:func:`_mesh_probe_rank`): a ``mesh_probe`` line
-    per compute dtype (rank 0's; every rank holds the gathered outputs)."""
+    per compute dtype (rank 0's, of the ranks' rows gathered whole)."""
     from repro_torch import configs
     from repro_torch.configs.common import GNN_SHAPE_CLASSES, GNN_SHAPES
     from repro_torch.data import gnn_full_batch
@@ -4652,10 +4780,12 @@ def _mesh_moe_rank(rank, job, device):
 
 #: the MoE serve on the mesh: deepseek-moe-16b at full width cut to this
 #: many layers (the views of phase 4b's first layers), tensor- and
-#: expert-parallel on ``MESH_MOE_SHAPE``: each of its prefill's 6 layers
+#: expert-parallel on ``MESH_MOE_SHAPE``: each of its prefill's layers
 #: moves ~0.8 GB a rank through gloo's host copies, which 28 would not fit
-#: in the smoke's time
-MESH_MOE_LAYERS = CKPT_LAYERS
+#: in the smoke's time (6 until the GNN mesh phase's sharded graphs came;
+#: each layer is the same code, held to the one-rank serve at the same
+#: depth)
+MESH_MOE_LAYERS = 4
 #: the probe's decode steps (``--mesh-moe-probe``)
 MESH_MOE_PROBE_STEPS = 8
 
@@ -4932,9 +5062,10 @@ def _gat_train_setup(seed, device, reduced):
     return cfg, params, fb
 
 
-def _supervised_gat(cfg, params, fb, ckpt_dir, device):
+def _supervised_gat(cfg, params, fb, ckpt_dir, device, step=None):
     """``TRAIN_STEPS`` steps of ``launch.train.Supervised`` over gat-cora:
-    (losses, final parameters, launches, seconds)."""
+    (losses, final parameters, launches, seconds); with ``step`` (a dict)
+    the last step measured into it (:func:`_measure_last_step`)."""
     from repro_torch.launch.train import Supervised
     from repro_torch.models import common
     from repro_torch.models.gnn import models as gm
@@ -4945,6 +5076,8 @@ def _supervised_gat(cfg, params, fb, ckpt_dir, device):
                      AdamWConfig(lr=TRAIN_LR), warmup=TRAIN_WARMUP, total=TRAIN_STEPS,
                      ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS, device=device,
                      log=lambda line: None)
+    if step is not None:
+        _measure_last_step(run, device, step, TRAIN_STEPS)
     sync(device)
     train_counters(zero=True)
     t0 = time.perf_counter()
@@ -4986,12 +5119,14 @@ def _mesh_train_rank(rank, job, device):
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         return {"cases": out}
+    step = {}
     losses, final, launches, seconds = _supervised_gat(job["cfg"], job["params"],
-                                                        job["batch"], job["ckpt_dir"], device)
+                                                        job["batch"], job["ckpt_dir"], device,
+                                                        step)
     # numpy, not tensors: the queue would share a tensor's memory with the
     # parent, which this process outlives no further than its return
     return {"losses": losses, "final": {k: v.float().cpu().numpy() for k, v in final.items()},
-            "launches": launches, "seconds": seconds}
+            "launches": launches, "seconds": seconds, **step}
 
 
 #: the sharded trainer's cases on the ``(MESH_TRAIN_RANKS, 1)`` mesh, and
@@ -5048,19 +5183,20 @@ def _param_distance(got, want, chunk=1 << 24):
             "max_param_diff_over_max": worst / max(scale, 1e-30), "params_differing": differ}
 
 
-def _measure_last_step(run, device, out):
+def _measure_last_step(run, device, out, steps=MESH_TRAIN_STEPS):
     """Wraps the supervisor's step of ``run`` (``launch.train.Supervised``)
-    so that its last step is measured as :func:`dry_vs_card` measures one,
-    into ``out``: the step's launches and collectives, its peak less what
-    was allocated before it plus the step's arguments, and the run's peak
-    up to it (``run_peak_before_gb``)."""
+    so that the last of its ``steps`` steps is measured as
+    :func:`dry_vs_card` measures one, into ``out``: the step's launches and
+    collectives, its peak less what was allocated before it plus the step's
+    arguments (a batch leaf split over the ranks at this rank's rows), and
+    the run's peak up to it (``run_peak_before_gb``)."""
     from repro_torch.dist import collectives as coll
     from repro_torch.launch import dryrun
 
     step_fn = run.sup.step_fn
 
     def measured(state, batch):
-        if len(run.losses) < MESH_TRAIN_STEPS - 1:
+        if len(run.losses) < steps - 1:
             return step_fn(state, batch)
         gc.collect()
         sync(device)
@@ -5070,7 +5206,7 @@ def _measure_last_step(run, device, out):
         counts, sent = dryrun.launch_counts(), dict(coll.COUNTS)
         result = step_fn(state, batch)
         sync(device)
-        args = run.state_bytes() + sum(t.numel() * t.element_size() for t in batch.values())
+        args = run.state_bytes() + _rank_bytes(batch.values())[0]
         out["step_collectives"] = {k: v - sent.get(k, 0) for k, v in coll.COUNTS.items()}
         out["step_launches"] = dryrun.launches_between(counts, dryrun.launch_counts())
         out["step_peak_gb"] = (None if device.type != "cuda" else
@@ -5170,6 +5306,51 @@ def _mesh_rank_dryrun(arch, seed, device, card, reduced, real, shape=(MESH_TRAIN
         args = (params, opt, tm.input_specs(cfg, "train", s, rank.rows, device.type))
         rec = dryrun.trace(fn, args, hw, math.prod(shape),
                            dryrun.lm_model_flops(cfg, lm_shape("train", s, b)))
+    mem = rec["memory"]
+    line = {"cell": f"{cfg.name} train step, rank 0 of (data, model) = {tuple(shape)}",
+            "launches_dry": rec["launches"], "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "collective_gb_pred": rec["collectives"]["total"] / 1e9,
+            "step_lower_bound_s": rec["roofline"]["step_lower_bound_s"],
+            "trace_s": rec["trace_s"]}
+    if device.type != "cuda":
+        say("dryrun_vs_card", card, **line, rehearsal=True)
+        return line
+    wire = sum(v for k, v in real["step_collectives"].items() if k.endswith("_wire_bytes"))
+    return hold_rank_dryrun(line, rec, real["step_launches"], real["step_peak_gb"], card,
+                            argument_gb_card=real["step_argument_gb"],
+                            collective_gb_card=wire / 1e9,
+                            collectives_card=real["step_collectives"])
+
+
+def _gnn_rank_dryrun(cfg, batch, device, card, real, shape=(MESH_TRAIN_RANKS, 1)):
+    """Rank 0's step of gat-cora's trainer dry-run in a fake group on the
+    ``(data, model)`` mesh ``shape`` (``launch.dryrun``: the model on the
+    mesh, the rank's block of every leaf of ``batch`` the mesh divides,
+    fake tensors on ``device``) against the real rank's measured step
+    (``real``: the job's report, :func:`_measure_last_step`'s ``step_*``):
+    a ``dryrun_vs_card`` line; fails unless the launches are equal and the
+    peak within ``DRY_PEAK_TOL``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common
+    from repro_torch.models.gnn import models as gm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.roofline.analysis import HW
+
+    hw = HW.from_card() if device.type == "cuda" else HW()
+    oc = AdamWConfig(lr=TRAIN_LR)
+    n, e = batch["x"].shape[0], batch["src"].shape[0]
+    with dryrun.fake_ranks(shape, ("data", "model"), device.type) as mesh, \
+            common.fake_mode():
+        params = common.trainable(gm.abstract_params(cfg, device.type))
+        opt = adamw_init(params, oc)
+        specs = {k: common.fake_tensor(tuple(v.shape), v.dtype, device.type)
+                 for k, v in batch.items()}
+        fn = dryrun.train_step(lambda p, b: gm.loss_fn(p, b, cfg), oc, warmup=TRAIN_WARMUP,
+                               total=TRAIN_STEPS)
+        specs, fn = dryrun.gnn_rank_batch(specs, fn, mesh, device.type)
+        rec = dryrun.trace(dryrun.Rank.of("gnn", n, mesh).run(fn), (params, opt, specs), hw,
+                           math.prod(shape), dryrun.gnn_model_flops(cfg, n, e))
     mem = rec["memory"]
     line = {"cell": f"{cfg.name} train step, rank 0 of (data, model) = {tuple(shape)}",
             "launches_dry": rec["launches"], "peak_gb_pred": mem["peak_per_device_bytes"] / 1e9,
@@ -5297,13 +5478,25 @@ def mesh_train_sharded(arch, seed, device, card, reduced=False,
 
 def mesh_train(seed, device, card, reduced=False):
     """gat-cora's trainer on 2 gloo ranks (``launch.train.Supervised`` on
-    its ``(2, 1)`` mesh) against the same ``TRAIN_STEPS`` steps on one rank
-    in this process: the losses and the final parameters within
-    ``TRAIN_TOL``, each rank's launches per route, backwards included,
-    equal to the one rank's; then the sharded cases of
+    its ``(2, 1)`` mesh, each rank on its half of the graph's nodes and
+    edges) against the same ``TRAIN_STEPS`` steps on one rank in this
+    process: the losses and the final parameters within ``TRAIN_TOL``,
+    each rank's launches per route, backwards included, equal to the one
+    rank's, and its last step dry-run against the card
+    (:func:`_gnn_rank_dryrun`); then the sharded cases of
     :data:`MESH_TRAIN_ARCHS` (:func:`mesh_train_sharded`). Returns the
     launches over the ranks."""
     t0 = time.perf_counter()
+    total, ranks_s = mesh_train_gat(seed, device, card, reduced)
+    for arch in MESH_TRAIN_ARCHS:
+        add_launches(total, mesh_train_sharded(arch, seed, device, card, reduced)[0])
+    say("mesh_phase", card, part="train", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+    return total
+
+
+def mesh_train_gat(seed, device, card, reduced=False):
+    """gat-cora's part of :func:`mesh_train`: ``(launches over the ranks,
+    the ranks' seconds)``."""
     cfg, params, fb = _gat_train_setup(seed, device, reduced)
     with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
         losses, final, launches, one_s = _supervised_gat(cfg, params, fb,
@@ -5340,10 +5533,8 @@ def mesh_train(seed, device, card, reduced=False):
         launches_per_rank=reports[0]["launches"],
         peak_allocated_gb=[rep["peak_allocated_gb"] for rep in reports.values()],
         transport=MESH_TRANSPORT)
-    for arch in MESH_TRAIN_ARCHS:
-        add_launches(total, mesh_train_sharded(arch, seed, device, card, reduced)[0])
-    say("mesh_phase", card, part="train", seconds=time.perf_counter() - t0, ranks_s=ranks_s)
-    return total
+    _gnn_rank_dryrun(cfg, fb, device, card, reports[0])
+    return total, ranks_s
 
 
 # -- 9c. the dense LM tensor-parallel on the mesh -----------------------------
@@ -5557,6 +5748,10 @@ DRY_FULL_ARCHS = ("h2o-danube-1.8b", "pna", "graphsage-reddit", "graphcast", "ga
 #: the JAX package's pod meshes (``single``, ``multi``; the CLI's
 #: ``--mesh both`` traces all 40 cells on each)
 DRY_POD_ARCHS = ("h2o-danube-1.8b", "gat-cora", "autoint")
+#: single cells the dry-run phase also traces on both pod meshes, each
+#: required to fit the card: GraphCast's largest, its graph split over
+#: every rank
+DRY_POD_CELLS = (("graphcast", "ogb_products"),)
 
 
 def dry_vs_card(cell, fn, args, device, card, model_flops=None):
@@ -5747,6 +5942,31 @@ def dryrun_rehearsal(seed, device, card, lm_batch, prompt_len, decode_steps):
     dryrun_phase(device, card)
 
 
+def dry_cell(arch, shape_id, mesh, device, hw, card) -> bool:
+    """One cell dry-run at full width on ``mesh`` (``launch.dryrun.
+    dryrun_cell``) with a ``dryrun_cell`` line; fails if it fails, or if a
+    cell of ``DRY_POD_CELLS`` does not fit a rank of a pod mesh. Whether it
+    ran (a skipped cell did not)."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.dryrun_cell(arch, shape_id, mesh, device.type, hw)
+    if rec["status"] == "failed":
+        raise AssertionError(f"dry-run {arch} {shape_id} {mesh}: {rec['error']}")
+    if rec["status"] != "ok":
+        return False
+    say("dryrun_cell", card, arch=arch, shape=shape_id, mesh=mesh,
+        n_devices=rec["n_devices"], fits=rec["memory"]["fits"],
+        peak_gb=rec["memory"]["peak_per_device_bytes"] / 1e9,
+        collective_gb=rec["collectives"]["total"] / 1e9,
+        bottleneck=rec["roofline"]["bottleneck"],
+        step_lower_bound_s=rec["roofline"]["step_lower_bound_s"],
+        launches=rec["launches"], trace_s=rec["trace_s"])
+    if mesh != "card" and (arch, shape_id) in DRY_POD_CELLS and not rec["memory"]["fits"]:
+        raise AssertionError(f"dry-run {arch} {shape_id} {mesh}: a rank's peak "
+                             f"{rec['memory']['peak_per_device_bytes'] / 1e9} GB")
+    return True
+
+
 def dryrun_phase(device, card):
     """The flash route rule against the library, then every cell of
     ``DRY_FULL_ARCHS`` dry-run at full width on fake CUDA tensors (fits,
@@ -5761,22 +5981,14 @@ def dryrun_phase(device, card):
         versus="flash_attention_uses_tc, flash_attention_bwd_uses_tc")
     hw = dryrun.default_hw(device.type)
     n_ok = 0
-    cells = [(arch, "card") for arch in DRY_FULL_ARCHS] + [
-        (arch, mesh) for mesh in ("single", "multi") for arch in DRY_POD_ARCHS]
-    for arch, mesh in cells:
-        for shape_id in configs.get_spec(arch).shapes:
-            rec = dryrun.dryrun_cell(arch, shape_id, mesh, device.type, hw)
-            if rec["status"] == "failed":
-                raise AssertionError(f"dry-run {arch} {shape_id} {mesh}: {rec['error']}")
-            n_ok += rec["status"] == "ok"
-            if rec["status"] == "ok":
-                say("dryrun_cell", card, arch=arch, shape=shape_id, mesh=mesh,
-                    n_devices=rec["n_devices"], fits=rec["memory"]["fits"],
-                    peak_gb=rec["memory"]["peak_per_device_bytes"] / 1e9,
-                    collective_gb=rec["collectives"]["total"] / 1e9,
-                    bottleneck=rec["roofline"]["bottleneck"],
-                    step_lower_bound_s=rec["roofline"]["step_lower_bound_s"],
-                    launches=rec["launches"], trace_s=rec["trace_s"])
+    cells = [(arch, shape_id, "card") for arch in DRY_FULL_ARCHS
+             for shape_id in configs.get_spec(arch).shapes] + [
+        (arch, shape_id, mesh) for mesh in ("single", "multi") for arch in DRY_POD_ARCHS
+        for shape_id in configs.get_spec(arch).shapes] + [
+        (arch, shape_id, mesh) for mesh in ("single", "multi")
+        for arch, shape_id in DRY_POD_CELLS]
+    for arch, shape_id, mesh in cells:
+        n_ok += dry_cell(arch, shape_id, mesh, device, hw, card)
     say("dryrun_phase", card, seconds=time.perf_counter() - t_phase, full_width_ok=n_ok,
         hbm_gb=hw.hbm_bytes / 1e9, vs_card_cells=len(DRY_CELLS),
         vs_card_launches_equal=all(c["launches_equal"] for c in DRY_CELLS),
@@ -5811,9 +6023,17 @@ def main() -> int:
         return kernel_shapes_only(scale, edgefactor, seed, card)
     if "--bag-shapes" in sys.argv[1:]:
         return bag_shapes_only(seed, card)
-    t0 = time.perf_counter()
-    reports = build.build()
-    say("build", card, seconds=time.perf_counter() - t0, built=sorted(reports))
+    def timed_build():
+        t0 = time.perf_counter()
+        return build.build(), time.perf_counter() - t0
+
+    # the whole run builds the main path's graphs on the host while nvcc runs
+    whole_run = not any(a.startswith("--") for a in sys.argv[1:])
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(timed_build)
+        graphs = main_graphs(scale, edgefactor, seed, device, card) if whole_run else None
+        reports, build_s = pending.result()
+    say("build", card, seconds=build_s, built=sorted(reports))
     for name, log in reports.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
@@ -5856,8 +6076,22 @@ def main() -> int:
                                                       d, window, 0, what, bwd_gen, device))
         say("flash_bwd_order", card, **flash_bwd_order_cost(bwd_gen, device))
         return 0
+    if "--row-gemm" in sys.argv[1:]:  # row blocks of the GNN products: no result line
+        row_gemm_probe(device, card)
+        return 0
     if "--mesh-probe" in sys.argv[1:]:  # GraphCast's mesh error by layer: no result line
         mesh_probe(seed, device, card)
+        return 0
+    if "--mesh-gnn" in sys.argv[1:]:  # the GNNs on the mesh alone: no result line
+        gnn_path(device, card, only_mesh=True)
+        torch.cuda.empty_cache()
+        mesh_train_gat(seed, device, card)
+        from repro_torch.launch import dryrun
+
+        hw = dryrun.default_hw(device.type)
+        for mesh in ("single", "multi"):
+            for arch, shape_id in DRY_POD_CELLS:
+                dry_cell(arch, shape_id, mesh, device, hw, card)
         return 0
     if "--mesh-only" in sys.argv[1:]:  # the mesh phase alone: no result line
         gnn_path(device, card, only_mesh=True)
@@ -5900,7 +6134,7 @@ def main() -> int:
     say("kernel_check", card, ok=True, cases=cases, flash_max_row_ratio=row_ratio,
         versus="plain PyTorch versions")
 
-    launches, graphs, replicated = main_path(scale, edgefactor, seed, device, card)
+    launches, graphs, replicated = main_path(scale, edgefactor, seed, device, card, graphs)
     partitioned = partitioned_path(graphs, replicated, device, card)
     rows = kernel_rows(graphs, launches, partitioned)
     busy_share(graphs[0], replicated[2]["result"].supersteps, card)

@@ -25,6 +25,14 @@ per mesh dimension). :func:`device_put` applies them only on a mesh of
 more than one rank; on one rank it moves the tensor to the mesh's device
 and makes no collective.
 
+A graph's node and edge dimensions (:data:`ALL`) have a carrier of their
+own: a tensor whose rows are split over every rank is a flat DTensor,
+``Shard(0)`` on :func:`flat_mesh` (the mesh flattened row-major), whose
+local tensor holds this rank's rows; the dense work on it runs on that
+local tensor (:func:`rowwise`). :func:`constrain` to ``(ALL, ...)`` cuts
+a whole tensor to this rank's rows and gathers a flat one whole where the
+mesh does not divide its rows, as JAX's ``_maybe`` leaves it replicated.
+
 Param-spec policy (``lm_param_spec``, keyed by the JAX tree's param path;
 the port's LM parameters are renested by ``models.transformer.model.
 params_tree``):
@@ -280,22 +288,32 @@ def _maybe(axes: Sequence[_AxisEntry], shape: Sequence[int], mesh: Mesh) -> Part
 
 def constrain(x: torch.Tensor, axes: Sequence[Any]) -> torch.Tensor:
     """``with_sharding_constraint`` against the active mesh, which never
-    changes a value. A plain tensor (every rank holds the global value), an
-    edge-sharded DTensor (:func:`edge_mesh`: its rows are the regions'
-    layout, ragged where the mesh does not divide them) and any tensor
-    without a multi-rank mesh come back unchanged. A DTensor on the mesh's
-    ``DeviceMesh`` is laid out by the spec, after ``_maybe`` drops the
-    indivisible entries: gathered whole (``dist.collectives.full_tensor``)
-    and placed, unless it has the spec's placements already."""
+    changes a value. Without a multi-rank mesh on a process group, ``x``
+    as it is. A DTensor on the mesh's ``DeviceMesh`` is laid out by the
+    spec, after ``_maybe`` drops the indivisible entries: gathered whole
+    (``dist.collectives.full_tensor``) and placed, unless it has the spec's
+    placements already. The graph dimensions (:func:`flat_mesh`): where
+    the spec splits the rows over every axis (:data:`ALL`) and nothing
+    else, a plain tensor (every rank holds the global value) becomes this
+    rank's block of its rows (:func:`shard_rows`: a view, no collective)
+    and a flat DTensor stays as it is; where it does not — the mesh does
+    not divide the rows, or another spec — a flat DTensor is gathered
+    whole (:func:`whole`), as JAX's ``_maybe`` leaves it replicated. Any
+    other plain tensor comes back unchanged."""
     mesh = _ACTIVE_MESH
-    if mesh is None or mesh.size == 1 or not _is_dtensor(x):
+    if mesh is None or mesh.size == 1 or mesh.device_mesh is None:
         return x
-    if x.device_mesh is not mesh.device_mesh:
-        return x
-    sharding = NamedSharding(mesh, _maybe(_resolve(axes, mesh), x.shape, mesh))
-    if tuple(x.placements) == sharding.placements:
-        return x
-    return device_put(collectives.full_tensor(x), sharding)
+    spec = _maybe(_resolve(axes, mesh), x.shape, mesh)
+    if _is_dtensor(x) and x.device_mesh is mesh.device_mesh:
+        sharding = NamedSharding(mesh, spec)
+        if tuple(x.placements) == sharding.placements:
+            return x
+        return device_put(collectives.full_tensor(x), sharding)
+    rows = (len(spec) > 0 and spec[0] == _collapse(all_axes(mesh))
+            and all(e is None for e in spec[1:]))
+    if is_flat(x):
+        return x if rows else whole(x)
+    return shard_rows(x, mesh) if rows else x
 
 
 def _is_dtensor(x) -> bool:
@@ -340,19 +358,142 @@ def axis_group(mesh: Mesh, axes: Sequence[str]):
     return groups[key]
 
 
-def edge_mesh(mesh: Mesh):
+def flat_mesh(mesh: Mesh):
     """The 1-D ``DeviceMesh`` over every rank in row-major order: the mesh
-    flattened, as the edge and node dimensions of graph workloads are
-    (:data:`ALL`). A DTensor ``Shard(0)`` on it splits its rows as
-    ``torch.chunk`` does, ``ceil(E / n)`` a rank — the rows of the JAX
-    package's edge dimension padded to ``n`` parts."""
+    flattened (:data:`ALL`), as a graph's node and edge dimensions are."""
     _need_ranks(mesh)
-    if "edges" not in mesh._cache:
+    if "flat" not in mesh._cache:
         from torch.distributed.device_mesh import DeviceMesh
 
-        mesh._cache["edges"] = DeviceMesh(mesh.device_mesh.device_type,
-                                          torch.arange(mesh.size), mesh_dim_names=("edges",))
-    return mesh._cache["edges"]
+        mesh._cache["flat"] = DeviceMesh(mesh.device_mesh.device_type,
+                                         torch.arange(mesh.size), mesh_dim_names=("flat",))
+    return mesh._cache["flat"]
+
+
+# --------------------------------------------------------------------------
+# the flat carrier: a graph's node and edge rows split over every rank
+#
+# A tensor whose leading (node or edge) dimension is split over every rank
+# is a DTensor ``Shard(0)`` on :func:`flat_mesh` ("flat"): its global shape
+# is the logical array's, its local tensor this rank's rows. Node rows and
+# the batch's rows split evenly, as JAX's ``_maybe`` splits a dimension the
+# mesh divides (rank ``r`` holds rows ``[r·N/n, (r+1)·N/n)``, ``r``
+# flattened row-major over ``(pod, data, model)``); the rows of a region's
+# edge results are ``torch.chunk``'s, ``ceil(E/n)`` a rank — the JAX
+# region's padded edge shards, ragged where the mesh does not divide ``E``.
+# No DTensor of the port communicates (see ``dist.collectives``): the
+# dense work on the rows runs on local tensors (:func:`rowwise`), the
+# gathers are the collectives'.
+
+
+def is_flat(x) -> bool:
+    """Whether ``x`` is a flat DTensor (see above)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return (isinstance(x, DTensor) and x.device_mesh.ndim == 1
+            and tuple(x.placements) == (Shard(0),))
+
+
+def local_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a flat DTensor (its local tensor; the gradient
+    flows back into the DTensor); any other tensor itself."""
+    return x.to_local() if is_flat(x) else x
+
+
+def row_start(x: torch.Tensor) -> int:
+    """The global index of this rank's first row of a flat DTensor
+    (``rank · ceil(rows / n)``); 0 for any other tensor."""
+    if not is_flat(x):
+        return 0
+    dm = x.device_mesh
+    return dm.get_local_rank() * -(-x.shape[0] // dm.size())
+
+
+def _contiguous_strides(shape):
+    strides, acc = [], 1
+    for d in reversed(shape):
+        strides.append(acc)
+        acc *= d
+    return tuple(reversed(strides))
+
+
+def from_rows(local: torch.Tensor, rows: int, dm) -> torch.Tensor:
+    """This rank's ``local`` rows as the flat DTensor of ``rows`` global
+    rows on ``dm`` (a :func:`flat_mesh`); no collective."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    shape = (rows,) + tuple(local.shape[1:])
+    return DTensor.from_local(local, dm, [Shard(0)], run_check=False, shape=shape,
+                              stride=_contiguous_strides(shape))
+
+
+def splits_rows(mesh: Optional[Mesh], rows: int) -> bool:
+    """Whether ``rows`` rows split over every rank of ``mesh``: a mesh of
+    several ranks on a process group whose size divides them (JAX's
+    ``_maybe`` keeps :data:`ALL` on such a dimension)."""
+    return (mesh is not None and mesh.size > 1 and mesh.device_mesh is not None
+            and rows % mesh.size == 0)
+
+
+def shard_rows(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``x`` (whole on every rank) as this rank's block of its rows, a flat
+    DTensor — a view, no collective; backward the ranks' cotangents of
+    their blocks all-gathered (JAX's transpose of a replicated value
+    constrained to row shards: the whole value's cotangent on every rank)
+    — where ``mesh`` (by default the active one) splits them
+    (:func:`splits_rows`); else ``x`` itself, as is a flat DTensor."""
+    mesh = mesh or _ACTIVE_MESH
+    if is_flat(x) or not splits_rows(mesh, x.shape[0]):
+        return x
+    dm = flat_mesh(mesh)
+    return from_rows(collectives.own_block(x, 0, dm.get_group()), x.shape[0], dm)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A flat DTensor gathered whole on every rank (its rows ragged or
+    not): a plain tensor; backward this rank's rows of the cotangent. Any
+    other tensor itself."""
+    if not is_flat(x):
+        return x
+    dm, rows = x.device_mesh, x.shape[0]
+    per = -(-rows // dm.size())
+    local = x.to_local()
+    if local.shape[0] != per:
+        local = torch.cat([local, local.new_zeros((per - local.shape[0],) + local.shape[1:])])
+    return collectives.all_gather_rows(local, dm.get_group())[:rows]
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def rowwise(fn, rows: Sequence[torch.Tensor], params=None):
+    """``fn(*rows)`` (``fn(*rows, params)`` when ``params`` is given) on
+    this rank's rows. Where one of ``rows`` (tensors of one leading
+    dimension: nodes, or edges) is a flat DTensor, ``fn`` takes each as
+    its rank's rows — a plain one, whole on every rank, cut to its block
+    as :func:`shard_rows` cuts it — and every tensor of ``params`` through
+    ``collectives.copy_in`` (the ranks' gradients summed: each rank's rows
+    hold its share of it); each tensor ``fn`` returns (one, or a tuple)
+    becomes the flat DTensor of the same global rows. Otherwise ``fn`` on
+    the tensors as they are, the one-rank computation itself."""
+    rows = tuple(rows)
+    extra = () if params is None else (params,)
+    flat = next((t for t in rows if is_flat(t)), None)
+    if flat is None:
+        return fn(*rows, *extra)
+    dm, n_rows = flat.device_mesh, flat.shape[0]
+    group = dm.get_group()
+    local = [t.to_local() if is_flat(t) else collectives.own_block(t, 0, group) for t in rows]
+    extra = tuple(_map_tensors(lambda p: collectives.copy_in(p, group), e) for e in extra)
+    out = fn(*local, *extra)
+    if isinstance(out, tuple):
+        return tuple(from_rows(o, n_rows, dm) for o in out)
+    return from_rows(out, n_rows, dm)
 
 
 # --------------------------------------------------------------------------

@@ -32,9 +32,10 @@ The message-passing wrappers of the GNN layers (:func:`mp_gather`,
 :func:`mp_segment_reduce`, :func:`mp_edge_softmax`) are the JAX functions:
 without a multi-rank mesh the plain :func:`gather`, :func:`segment_reduce`
 and :func:`edge_softmax`, with the segment ``offsets`` passed through (the
-card needs them); on one, the ``shard_map`` branch (each rank's edge rows
-against replicated node state, on the same kernels, then one collective of
-``dist.collectives``; see the section below).
+card needs them); on one, the ``shard_map`` branch (each rank's edge
+rows against the node state gathered whole at the region's entry, on the
+same kernels, then one collective of ``dist.collectives``; node and edge
+tensors split over the ranks are flat DTensors; see the section below).
 
 Dtypes stay the JAX package's (x64 off): int32 ids, float32, bool.
 """
@@ -270,18 +271,20 @@ def edge_softmax(
 
 # ---------------------------------------------------------------------------
 # mesh-aware message passing: under an active multi-rank mesh these run the
-# gather/scatter *locally* per edge shard with replicated node state, and
-# reduce partials with one collective (the JAX package's ``shard_map``
-# branch; vertex-cut partitioning with replicated vertex state):
+# gather/scatter *locally* per edge shard, with the node state gathered
+# whole at the region's entry, and reduce partials with one collective (the
+# JAX package's ``shard_map`` branch; vertex-cut partitioning):
 #
-#   mp_gather          node[N,D] (replicated) × idx[E](sharded) → edge-local
+#   mp_gather          node[N,D] (gathered whole) × idx[E](sharded) → edge-local
 #   mp_segment_reduce  edge-local values → local partial [N,D] → psum/pmax
 #
 # A rank is one process; its region works on plain tensors and ends in one
 # collective of ``dist.collectives``, whose backward is the transpose JAX
-# takes. An edge-sharded result is a DTensor ``Shard(0)`` on the flattened
-# mesh (``dist.sharding.edge_mesh``), holding this rank's rows; a
-# replicated result is a plain tensor.
+# takes. A node or edge tensor split over the ranks is a flat DTensor
+# (``dist.sharding``'s carrier: its local tensor holds this rank's rows) —
+# a batch's edge leaves where the mesh divides E, node state between
+# layers, a region's edge results; one whole on every rank is a plain
+# tensor, as is a replicated result.
 
 
 def _mp_mesh():
@@ -322,48 +325,52 @@ class EdgeRegion:
         self.real = max(0, min(self.e_loc, e - self.start))
 
     def rows(self, t: torch.Tensor, fill) -> torch.Tensor:
-        """This rank's rows of a global ``[E, ...]`` tensor (each rank holds
-        it whole), padded with ``fill``."""
+        """This rank's rows of an ``[E, ...]`` edge tensor, padded with
+        ``fill``: a flat DTensor's local rows, or the rows cut from a tensor
+        whole on every rank."""
+        from repro_torch.dist import sharding as shd
+
+        if shd.is_flat(t):
+            return _pad_rows(t.to_local(), self.e_loc, fill)
         return _pad_rows(t[self.start:self.start + self.real], self.e_loc, fill)
 
     def values(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of edge values, padded with 0: the local shard of
-        an edge-sharded DTensor, or the rows of a replicated tensor (which
-        enters the region: its gradient sums over the ranks)."""
-        from torch.distributed.tensor import DTensor
-
+        """This rank's rows of edge values, padded with 0; a tensor whole on
+        every rank enters the region (its gradient sums over the ranks)."""
         from repro_torch.dist import collectives as coll
+        from repro_torch.dist import sharding as shd
 
-        if isinstance(t, DTensor):
-            return _pad_rows(t.to_local(), self.e_loc, 0)
-        return self.rows(coll.copy_in(t, self.group), 0)
+        return self.rows(t if shd.is_flat(t) else coll.copy_in(t, self.group), 0)
+
+    def nodes(self, field: torch.Tensor) -> torch.Tensor:
+        """Node state whole on every rank at the region's entry (JAX's
+        ``in_specs`` ``P(None)``): a flat DTensor's rows all-gathered, its
+        backward the ranks' partial cotangents summed in float32 and
+        reduce-scattered onto their rows (JAX's all-gather, then the
+        region's psum of its unmapped input, then a slice); a tensor whole
+        on every rank enters through ``copy_in``."""
+        from repro_torch.dist import collectives as coll
+        from repro_torch.dist import sharding as shd
+
+        if shd.is_flat(field):
+            return coll.all_gather_sum(field.to_local(), 0, self.group)
+        return coll.copy_in(field, self.group)
 
     def offsets(self, offsets: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The segment offsets of this rank's rows of sorted ids (the padding
-        lies past the last one)."""
+        lies past the last one), from offsets into the global rows: the whole
+        ids' or those of this rank's own rows (``models.gnn.models.
+        dst_offsets``), which agree on them."""
         if offsets is None:
             return None
         return torch.clamp(offsets - self.start, 0, self.real).to(torch.int32)
 
     def shard(self, local: torch.Tensor) -> torch.Tensor:
-        """This rank's ``e_loc`` result rows as the edge-sharded DTensor of
-        the global ``[E, ...]`` result (the padding rows cut off)."""
-        from torch.distributed.tensor import DTensor, Shard
-
+        """This rank's ``e_loc`` result rows as the flat DTensor of the
+        global ``[E, ...]`` result (the padding rows cut off)."""
         from repro_torch.dist import sharding as shd
 
-        local = local[:self.real]
-        shape = (self.e,) + tuple(local.shape[1:])
-        return DTensor.from_local(local, shd.edge_mesh(self.mesh), [Shard(0)], run_check=False,
-                                  shape=shape, stride=_contiguous_strides(shape))
-
-
-def _contiguous_strides(shape):
-    strides, acc = [], 1
-    for d in reversed(shape):
-        strides.append(acc)
-        acc *= d
-    return tuple(reversed(strides))
+        return shd.from_rows(local[:self.real], self.e, shd.flat_mesh(self.mesh))
 
 
 def _region(n_edges: int):
@@ -375,34 +382,30 @@ def _region(n_edges: int):
 
 
 def edge_sharded(t: torch.Tensor) -> torch.Tensor:
-    """A global ``[E, ...]`` tensor as the edge-sharded DTensor of the active
-    multi-rank mesh (unchanged off-mesh or if already a DTensor): what the
-    JAX package's ``_ce`` constraint makes of a replicated edge tensor."""
-    from torch.distributed.tensor import DTensor
+    """An ``[E, ...]`` tensor as the flat DTensor of a region's edge rows on
+    the active multi-rank mesh (unchanged off-mesh or if already one)."""
+    from repro_torch.dist import sharding as shd
 
-    if isinstance(t, DTensor):
+    if shd.is_flat(t):
         return t
     region = _region(t.shape[0])
     return t if region is None else region.shard(region.values(t))
 
 
 def mp_gather(field: torch.Tensor, idx, fill=None) -> torch.Tensor:
-    """Edge-sharded gather of (replicated) node state.
+    """Edge-sharded gather of node state.
 
     Off-mesh, :func:`gather`. On a multi-rank mesh each rank gathers its
     rows of ``idx`` (padded with 0 to mesh divisibility, the padding sliced
-    off again) from the whole ``field`` and returns its rows of the
-    ``[E, ...]`` result as an edge-sharded DTensor; ``field``'s gradient is
-    the sum over the ranks."""
+    off again) from the whole ``field`` (gathered at entry when its rows
+    are split: :meth:`EdgeRegion.nodes`) and returns its rows of the
+    ``[E, ...]`` result as a flat DTensor."""
     if not isinstance(idx, torch.Tensor):
         idx = torch.tensor(idx, dtype=torch.int32)
     region = _region(idx.shape[0])
     if region is None:
         return gather(field, idx, fill)
-    from repro_torch.dist import collectives as coll
-
-    out = gather(coll.copy_in(field, region.group), region.rows(idx, 0), fill)
-    return region.shard(out)
+    return region.shard(gather(region.nodes(field), region.rows(idx, 0), fill))
 
 
 def mp_segment_reduce(
@@ -421,7 +424,7 @@ def mp_segment_reduce(
     partial ``[N, ...]``, then one collective: psum for sum and prod (the
     JAX package's, so a prod is the sum of the ranks' partial products),
     ``_diff_pminmax`` for max and min, int32 pmax/pmin then bool for or
-    and and. ``offsets`` of the global sorted ids give each rank's own."""
+    and and. ``offsets`` index the global rows (:meth:`EdgeRegion.offsets`)."""
     region = _region(segment_ids.shape[0])
     if region is None:
         return segment_reduce(values, segment_ids, num_segments, op, mask=mask,

@@ -43,8 +43,13 @@ The rank holds its shard of the state as the trainer does
 for the three dense ``train_4k`` cells (parameters over the model axis
 only, moments in ``fsdp``, each rank updating its slice) — and its share
 of the batch (``launch.train.batch_axes``: an LM's rows over the data
-axes, AutoInt's over every axis; a batch they do not divide, and a GNN's
-graph, whole, with the model on the mesh). An LM, dense or MoE, runs
+axes, AutoInt's over every axis; a batch they do not divide whole, with
+the model on the mesh). A GNN's graph is split over every rank as
+``batch_shardings("gnn")`` places it: the rank holds its block of every
+leaf whose rows the mesh divides (nodes, edges), the others whole, and
+the model keeps node and edge activations split likewise between its
+layers (``models.gnn.models``), gathering node state whole only at a
+region's entry. An LM, dense or MoE, runs
 tensor- and sequence-parallel over the model axis, as JAX's specs lay it
 out (``models.transformer.model``): the rank uses its ``model`` block of
 every weight (gathered over the data axes only), computes its query heads,
@@ -208,13 +213,22 @@ class _Traffic(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        outs = [_local(t) for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         for t in outs:
             self.track(t)
         if outs and not func.is_view and func.__name__.split(".")[0] not in _NO_TRAFFIC:
-            ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
+            ins = [_local(t) for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
             self.bytes += fake.nbytes(*ins, *outs)
         return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's own tensor of a DTensor (whose op this mode sees; its
+    local op it does not), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 def _storages(tree) -> Dict[int, int]:
@@ -365,7 +379,7 @@ def fake_ranks(shape, axes, device="cuda"):
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
     try:
         mesh = make_mesh(shape, axes, device)
-        shd.edge_mesh(mesh)  # made here, off the fake mode: a DeviceMesh reads its ranks
+        shd.flat_mesh(mesh)  # made here, off the fake mode: a DeviceMesh reads its ranks
         yield mesh
     finally:
         dist.destroy_process_group()
@@ -375,7 +389,8 @@ def fake_ranks(shape, axes, device="cuda"):
 class Rank:
     """A rank's place in a cell: its ``mesh`` (``None``: the card, one
     rank), its ``rows`` of the batch, the ``group`` over which its step
-    averages (``None``: the batch whole, the model on the mesh) and the
+    averages (``None``: nothing averaged, the model on the mesh — the batch
+    whole, or a GNN's split leaf by leaf by :func:`gnn_cell`) and the
     batch ``axes`` it is split over."""
 
     mesh: Optional[shd.Mesh]
@@ -386,12 +401,15 @@ class Rank:
     @classmethod
     def of(cls, family: str, batch: int, mesh: Optional[shd.Mesh]) -> "Rank":
         """The trainer's rule (``launch.train.data_parallel``): the batch's
-        rows split over the family's batch axes when they divide it."""
+        rows split over the family's batch axes when they divide it (a
+        GNN's placed by :func:`gnn_cell`)."""
         if mesh is None or mesh.size == 1:
             return cls(None, batch)
         axes = batch_axes(family, mesh)
         n = math.prod(mesh.shape[a] for a in axes)
-        if not axes or batch % n or n == 1:
+        if family == "gnn" or batch % n or n == 1:
+            # a GNN's batch is split leaf by leaf (gnn_cell), its model on
+            # the mesh and its loss the global one: nothing to average
             return cls(mesh, batch)
         return cls(mesh, batch // n, shd.axis_group(mesh, axes), axes)
 
@@ -405,9 +423,10 @@ class Rank:
                             self.axes)
 
     def run(self, fn: Callable) -> Callable:
-        """``fn`` under the mesh when the model runs on it: the batch whole,
-        or split over the data axes with a model axis to split the heads and
-        the experts (``models.transformer.model.tensor_parallel``)."""
+        """``fn`` under the mesh when the model runs on it: the batch whole
+        or a GNN's graph split leaf by leaf, or an LM's split over the data
+        axes with a model axis to split the heads and the experts
+        (``models.transformer.model.tensor_parallel``)."""
         if self.mesh is None or not (self.group is None or tm.tensor_parallel(self.mesh)):
             return fn
 
@@ -508,7 +527,9 @@ def gnn_graph_size(shape: Dict) -> Tuple[int, int]:
 def gnn_cell(spec, shape_id: str, shape: Dict, device="cuda", mesh=None):
     """``(fn, args, model_flops)`` of a GNN cell: the train step on the
     batch graph of :func:`gnn_graph_size` (JAX's ``gnn_cell``); on a mesh
-    the graph whole on every rank, its regions splitting the edges."""
+    the rank's block of every batch leaf whose rows the mesh divides
+    (``batch_shardings("gnn")``, as ``launch.train.shard_graph`` places it;
+    the others whole), with the model on the mesh."""
     cfg = configs.resolve_gnn_config(spec.config, shape_id, shape)
     n, e = gnn_graph_size(shape)
     if shape["kind"] == "batched_graphs":
@@ -533,7 +554,27 @@ def gnn_cell(spec, shape_id: str, shape: Dict, device="cuda", mesh=None):
     with common.fake_mode():
         opt = adamw_init(params, oc)
     fn = train_step(lambda p, b: gm.loss_fn(p, b, cfg), oc)
+    if mesh is not None:
+        batch_specs, fn = gnn_rank_batch(batch_specs, fn, mesh, device)
     return Rank.of("gnn", n, mesh).run(fn), (params, opt, batch_specs), gnn_model_flops(cfg, n, e)
+
+
+def gnn_rank_batch(batch_specs, fn, mesh, device):
+    """Rank 0's own rows of every batch leaf the mesh divides (fake
+    tensors: the step's arguments are what the rank holds), and ``fn``
+    taking them as the flat DTensors ``launch.train.shard_graph`` makes."""
+    bshard = shd.batch_shardings("gnn", batch_specs, mesh)
+    rows = {k: v.shape[0] for k, v in batch_specs.items()
+            if bshard[k].spec and bshard[k].spec[0]}
+    local = {k: common.fake_tensor(shd.shard_shape(v.shape, bshard[k]), v.dtype, device)
+             if k in rows else v for k, v in batch_specs.items()}
+
+    def on_rows(p, o, batch):
+        dm = shd.flat_mesh(mesh)
+        return fn(p, o, {k: shd.from_rows(v, rows[k], dm) if k in rows else v
+                         for k, v in batch.items()})
+
+    return local, on_rows
 
 
 def gnn_model_flops(cfg, n_nodes: int, n_edges: int) -> float:

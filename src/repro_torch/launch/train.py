@@ -36,9 +36,12 @@ On several ranks (a process group of ``world`` ranks: the JAX trainer's
 ``(world, 1)`` mesh) each rank runs the same step on its share of the
 batch (:func:`data_parallel`): an LM's or AutoInt's rows split over the
 ranks (loss and replicated gradients averaged over them in float32: JAX's
-psum over the data axes), or a GNN's full graph whole on every rank with
-the model on the mesh, whose regions split the edges (likewise a batch the
-ranks do not divide). The live state is placed as JAX's ``main`` places it
+psum over the data axes), or a GNN's graph split over every rank as
+``batch_shardings`` places it — each rank its block of the nodes and of
+the edges — with the model on the mesh, whose loss and gradients are the
+global ones already (the sums over the ranks' rows: nothing is averaged);
+a batch the ranks do not divide is whole on every rank, the model on the
+mesh. The live state is placed as JAX's ``main`` places it
 (``param_shardings`` in ``fsdp`` mode, the moments like the parameters;
 :func:`shard_state_`): each rank holds only its slice of every leaf the
 rules split — the LM's matrices and embeddings over ``data`` — and the
@@ -245,33 +248,47 @@ def make_step(loss_fn: Callable, oc: AdamWConfig, warmup: int, total: int, group
 
 def batch_axes(family: str, mesh: shd.Mesh) -> Tuple[str, ...]:
     """The mesh axes a family's batch rows are split over
-    (``batch_shardings``: an LM's over the data axes, AutoInt's over every
-    axis); a GNN's graph is whole on every rank."""
-    return {"lm": shd.data_axes(mesh), "recsys": shd.all_axes(mesh), "gnn": ()}[family]
+    (``batch_shardings``: an LM's over the data axes, AutoInt's and a
+    GNN's over every axis)."""
+    return {"lm": shd.data_axes(mesh), "recsys": shd.all_axes(mesh),
+            "gnn": shd.all_axes(mesh)}[family]
+
+
+def shard_graph(batch: Dict[str, torch.Tensor], mesh: shd.Mesh) -> Dict[str, torch.Tensor]:
+    """A GNN batch placed by ``batch_shardings("gnn")``, leaf by leaf: a
+    leaf whose rows (nodes, edges or graphs) the mesh's ranks divide as
+    this rank's block of them (a flat DTensor over a view: no copy, no
+    collective), any other whole."""
+    bshard = shd.batch_shardings("gnn", batch, mesh)
+    return {k: shd.shard_rows(v, mesh) if bshard[k].spec and bshard[k].spec[0] else v
+            for k, v in batch.items()}
 
 
 def data_parallel(family: str, batch_for_step: Callable, mesh: shd.Mesh):
     """How JAX's sharded step takes its batches on ``mesh``: ``(batch_for_step,
-    group, on_mesh)``. On several ranks an LM's or AutoInt's batch whose
+    group, on_mesh)``. On several ranks a GNN's batch is placed by
+    ``batch_shardings`` (:func:`shard_graph`: each rank its block of every
+    leaf the mesh divides) with the model on the mesh (``on_mesh``;
+    ``group`` None: the model's loss and gradients are the global ones
+    already, summed over the ranks' rows). An LM's or AutoInt's batch whose
     rows the ranks of :func:`batch_axes` divide is split over them: each
     rank's step sees its rows and averages over ``group``
     (:func:`make_step`); the model runs off the mesh unless the mesh has a
     model axis of several ranks (``on_mesh``: an LM's tensor parallelism,
     dense or MoE, the MoE's routed experts expert-parallel, over the rows
     the rank's data shard holds). Any other batch is whole on every rank
-    and the model runs on the mesh (``on_mesh``; ``group`` None): a GNN's
-    regions split the edges, an LM its heads over ``model`` and an MoE
-    layer its tokens over the data axes (a data axis of one rank leaves the
-    batch whole). On one rank each batch is placed on the mesh's device, on
-    its 1×1 mesh."""
+    and the model runs on the mesh (``on_mesh``; ``group`` None): an LM its
+    heads over ``model`` and an MoE layer its tokens over the data axes (a
+    data axis of one rank leaves the batch whole). On one rank each batch
+    is placed on the mesh's device, on its 1×1 mesh."""
     if mesh.device_mesh is None:
         bshard = shd.batch_shardings(family, batch_for_step(0), mesh)
         return (lambda i: place(batch_for_step(i), bshard)), None, True
     if family not in MESH_FAMILIES:
         raise ValueError(f"unknown family {family!r}")
+    if family == "gnn":
+        return (lambda i: shard_graph(batch_for_step(i), mesh)), None, True
     axes = batch_axes(family, mesh)
-    if not axes:
-        return batch_for_step, None, True
     group = shd.axis_group(mesh, axes)
     n, r = dist.get_world_size(group), dist.get_rank(group)
     b = next(iter(batch_for_step(0).values())).shape[0]

@@ -11,16 +11,22 @@ Palgol main path.
 
 Each layer takes the ``offsets`` of its ascending ``dst`` (the model's
 ``forward`` computes them once per batch); the card needs them, the CPU's
-plain versions read the ids. On a multi-rank mesh the ``mp_*`` calls run
-each rank's edge rows (``graph.ops``): their edge results are edge-sharded
-DTensors, so the elementwise work between them runs on each rank's rows,
-as does a product of one with a weight (:func:`_mm`).
+plain versions read the ids. On a multi-rank mesh node state and a
+batch's edges are split over every rank as JAX lays them out (flat
+DTensors, ``dist.sharding``; whole where the mesh does not divide them).
+The ``mp_*`` calls run each rank's edge rows against the node state
+gathered whole at the region's entry (``graph.ops``); their edge results
+are flat DTensors, so the elementwise work between them runs on each
+rank's rows, as does a product of one with a weight (:func:`_mm`). A
+reduction returns the whole ``[N, ...]`` (JAX's psum), of which each rank
+keeps its rows (:func:`_ce`) for the dense node update on them
+(``dist.sharding.rowwise``: the parameters enter through ``copy_in``).
 :func:`pna_layer_fused` and :func:`mpnn_layer_fused` run a whole layer's
-edge work in one region — the node state replicated
-once a layer, the sums reduce-scattered to node shards, the node update on
-this rank's shard, then gathered whole — and fall back to
-:func:`pna_layer` / :func:`mpnn_layer` off-mesh or when the mesh does not
-divide the edges, as the JAX functions do.
+edge work in one region — the node state gathered whole once a layer,
+the sums reduce-scattered to node shards, the node update on this rank's
+rows, which they return (JAX's ``out_specs`` ``P(d, None)``) — and fall
+back to :func:`pna_layer` / :func:`mpnn_layer` off-mesh or when the mesh
+does not divide the edges, as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -29,27 +35,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.sharding import ALL, constrain
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import ALL, constrain, rowwise
 from repro_torch.graph import ops as gops
 from repro_torch.models.common import dense_init
 
 
 def _ce(t):
-    """Shard an edge-indexed tensor over every mesh axis."""
+    """Shard a node- or edge-indexed tensor over every mesh axis."""
     return constrain(t, (ALL,) + (None,) * (t.ndim - 1))
 
 
-def _mm(edges, w):
-    """``edges @ w``; on an edge-sharded DTensor each rank's rows times the
-    replicated weight (a region input: its gradient sums over the ranks)."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(edges, DTensor):
-        return edges @ w
-    local = edges.to_local() @ coll.copy_in(w, edges.device_mesh.get_group())
-    shape = tuple(edges.shape[:-1]) + (w.shape[-1],)
-    return DTensor.from_local(local, edges.device_mesh, edges.placements, run_check=False,
-                              shape=shape, stride=gops._contiguous_strides(shape))
+def _mm(rows, w):
+    """``rows @ w`` on this rank's rows (the weight enters the region)."""
+    return rowwise(torch.matmul, (rows,), w)
 
 
 def _mean(vals, dst, n, mask, offsets=None, cnt=None):
@@ -84,6 +83,10 @@ def sage_layer(p, x, src, dst, emask, n, aggregator="mean", offsets=None):
                                      offsets=offsets)
         if aggregator in ("min", "max"):
             agg = torch.where(torch.isfinite(agg), agg, 0.0)
+    return rowwise(_sage_update, (_ce(x), _ce(agg)), p)
+
+
+def _sage_update(x, agg, p):
     return F.relu(x @ p["w_self"] + agg @ p["w_nbr"] + p["b"])
 
 
@@ -97,13 +100,13 @@ def init_gat_layer(gen, d_in, d_out, n_heads, dtype):
 
 
 def gat_layer(p, x, src, dst, emask, n, n_heads, d_out, concat=True, offsets=None):
-    h = (x @ p["w"]).reshape(n, n_heads, d_out)
-    alpha_src = torch.einsum("nhd,hd->nh", h, p["a_src"])
-    alpha_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
+    h, alpha_src, alpha_dst = rowwise(
+        lambda x, p: _gat_project(x, p, n_heads, d_out), (_ce(x),), p)
     scores = _ce(F.leaky_relu(
         gops.mp_gather(alpha_src, src) + gops.mp_gather(alpha_dst, dst),
         negative_slope=0.2,
     ))  # [E, H]
+    del alpha_src, alpha_dst
     att = _ce(gops.mp_edge_softmax(scores, dst, n, mask=emask, offsets=offsets))
     del scores
     vals = _ce(gops.mp_gather(h, src))  # [E, H, D]
@@ -112,11 +115,20 @@ def gat_layer(p, x, src, dst, emask, n, n_heads, d_out, concat=True, offsets=Non
     else:  # serving: no second [E, H, D] buffer
         vals.mul_(att[..., None])
     del att
-    out = gops.mp_segment_reduce(vals, dst, n, "sum", mask=emask,
-                                 offsets=offsets)  # [N, H, D]
+    out = _ce(gops.mp_segment_reduce(vals, dst, n, "sum", mask=emask,
+                                     offsets=offsets))  # [N, H, D]
     if concat:
-        return F.elu(out.reshape(n, n_heads * d_out))
-    return F.elu(out.mean(dim=1))
+        return rowwise(lambda o: F.elu(o.reshape(o.shape[0], n_heads * d_out)), (out,))
+    return rowwise(lambda o: F.elu(o.mean(dim=1)), (out,))
+
+
+def _gat_project(x, p, n_heads, d_out):
+    """The heads' features ``[n, H, D]`` and their source and destination
+    attention logits ``[n, H]``."""
+    h = (x @ p["w"]).reshape(x.shape[0], n_heads, d_out)
+    alpha_src = torch.einsum("nhd,hd->nh", h, p["a_src"])
+    alpha_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
+    return h, alpha_src, alpha_dst
 
 
 def init_pna_layer(gen, d_in, d_out, n_agg, n_scale, dtype):
@@ -130,6 +142,7 @@ def init_pna_layer(gen, d_in, d_out, n_agg, n_scale, dtype):
 def pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=None):
     nbr = gops.mp_gather(x, src)
     msg = _ce(F.relu(_mm(nbr, p["w_pre"])))
+    del nbr
     # the in-degree of every aggregator and scaler: one sum of ones in the
     # compute dtype, as the JAX layer's (which sums it once for ``deg`` and
     # once in each ``_mean``, to the same value)
@@ -147,6 +160,13 @@ def pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=Non
             aggs.append(torch.where(torch.isfinite(v), v, 0.0))
     del msg
     agg = torch.stack(aggs, dim=1)  # [N, A, D]
+    return rowwise(lambda x, agg, deg, p: _pna_update(x, agg, deg, p, scalers, delta),
+                   (_ce(x), _ce(agg), _ce(deg)), p)
+
+
+def _pna_update(x, agg, deg, p, scalers, delta):
+    """The scalers over the aggregates ``agg`` ``[n, A, D]`` of nodes of
+    in-degree ``deg``, then the output layer over them and ``x``."""
     logd = torch.log1p(deg)[:, None, None]
     outs = []
     for s in scalers:
@@ -156,7 +176,7 @@ def pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=Non
             outs.append(agg * (logd / delta))
         elif s == "attenuation":
             outs.append(agg * (delta / torch.clamp(logd, min=1e-3)))
-    feats = torch.cat([x] + [o.reshape(n, -1) for o in outs], dim=-1)
+    feats = torch.cat([x] + [o.reshape(x.shape[0], -1) for o in outs], dim=-1)
     return F.relu(feats @ p["w"] + p["b"])
 
 
@@ -173,15 +193,18 @@ def init_mpnn_layer(gen, d_node, d_edge, dtype):
 
 def mpnn_layer(p, x, e_feat, src, dst, emask, n, offsets=None):
     """x: [N, Dn]; e_feat: [E, De] → (x', e') with residuals (GraphCast)."""
-    e_feat = _ce(gops.edge_sharded(e_feat))
+    e_feat = _ce(e_feat)
     cat = _ce(torch.cat(
-        [gops.mp_gather(x, src), gops.mp_gather(x, dst), e_feat], dim=-1
+        [_ce(gops.mp_gather(x, src)), _ce(gops.mp_gather(x, dst)), e_feat], dim=-1
     ))
     e_new = _ce(_mm(F.silu(_mm(cat, p["edge_w1"])), p["edge_w2"]) + e_feat)
     del cat
     agg = gops.mp_segment_reduce(e_new, dst, n, "sum", mask=emask, offsets=offsets)
-    x_new = F.silu(torch.cat([x, agg], dim=-1) @ p["node_w1"]) @ p["node_w2"] + x
-    return x_new, e_new
+    return rowwise(_mpnn_node_update, (_ce(x), _ce(agg)), p), e_new
+
+
+def _mpnn_node_update(x, agg, p):
+    return F.silu(torch.cat([x, agg], dim=-1) @ p["node_w1"]) @ p["node_w2"] + x
 
 
 def _node_rows(region, n):
@@ -193,25 +216,32 @@ def _node_rows(region, n):
     return slice(region.rank * n_loc, (region.rank + 1) * n_loc)
 
 
+def _entered(p, keys, group):
+    """The parameters ``keys`` of ``p``, each entering the region."""
+    return {k: coll.copy_in(p[k], group) for k in keys}
+
+
 def pna_layer_fused(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets=None):
-    """PNA with all aggregations in ONE region: the node state is replicated
-    once per layer (instead of once per ``mp_*`` call), the peak-memory
-    lever on 62M-edge graphs. ``cnt``, ``sum`` and ``sumsq`` are
-    reduce-scattered to node shards; ``max`` and ``min`` are all-reduced
-    (``_diff_pminmax``), then this rank's rows kept — so, as in the JAX
-    package, a max's gradient reaches only the ranks that attain it among
-    those whose rows hold it. The scalers and the output layer run on this
-    rank's node rows, gathered whole at the end. Falls back to
+    """PNA with all aggregations in ONE region: the node state is gathered
+    whole once per layer (instead of once per ``mp_*`` call), the
+    peak-memory lever on 62M-edge graphs. ``cnt``, ``sum`` and ``sumsq``
+    are reduce-scattered to node shards; ``max`` and ``min`` are
+    all-reduced (``_diff_pminmax``), then this rank's rows kept — so, as in
+    the JAX package, a max's gradient reaches only the ranks that attain it
+    among those whose rows hold it. The scalers and the output layer run on
+    this rank's node rows, returned as a flat DTensor. Falls back to
     :func:`pna_layer` off-mesh or when the mesh does not divide the edges."""
     region = gops._region(src.shape[0])
     if region is None or src.shape[0] % region.n != 0:
         return pna_layer(p, x, src, dst, emask, n, aggregators, scalers, delta, offsets)
     rows = _node_rows(region, n)
     g = region.group
-    x_full, w_pre = coll.copy_in(x, g), coll.copy_in(p["w_pre"], g)
+    x = _ce(x)
+    x_full, w_pre = region.nodes(x), coll.copy_in(p["w_pre"], g)
     src_l, dst_l, m_l = region.rows(src, 0), region.rows(dst, n), region.rows(emask, False)
     off_l = region.offsets(offsets)
     msg = F.relu(gops.gather(x_full, src_l) @ w_pre)
+    del x_full
 
     def seg(v, op):
         return gops.segment_reduce(v, dst_l, n, op, mask=m_l, offsets=off_l)
@@ -228,7 +258,6 @@ def pna_layer_fused(p, x, src, dst, emask, n, aggregators, scalers, delta, offse
     del msg
     cnt = torch.clamp(r["cnt"][:, :1], min=1.0)
     mean = r["sum"] / cnt
-    deg = r["cnt"][:, 0]
     aggs = []
     for a in aggregators:
         if a == "mean":
@@ -239,37 +268,29 @@ def pna_layer_fused(p, x, src, dst, emask, n, aggregators, scalers, delta, offse
         elif a in ("max", "min"):
             aggs.append(torch.where(torch.isfinite(r[a]), r[a], 0.0))
     agg = torch.stack(aggs, dim=1)  # [N/n, A, D]
-    logd = torch.log1p(deg)[:, None, None]
-    outs = []
-    for s in scalers:
-        if s == "identity":
-            outs.append(agg)
-        elif s == "amplification":
-            outs.append(agg * (logd / delta))
-        elif s == "attenuation":
-            outs.append(agg * (delta / torch.clamp(logd, min=1e-3)))
-    n_loc = agg.shape[0]
-    feats = torch.cat([x_full[rows]] + [o.reshape(n_loc, -1) for o in outs], dim=-1)
-    out = F.relu(feats @ coll.copy_in(p["w"], g) + coll.copy_in(p["b"], g))
-    return coll.all_gather_rows(out, g)
+    out = _pna_update(shd.local_rows(x), agg, r["cnt"][:, 0], _entered(p, ("w", "b"), g),
+                      scalers, delta)
+    return shd.from_rows(out, n, shd.flat_mesh(region.mesh))
 
 
 def mpnn_layer_fused(p, x, e_feat, src, dst, emask, n, offsets=None):
     """GraphCast block with the gathers, the edge MLP and the aggregation in
-    one region: one node-state replication per layer. The aggregate is
-    reduce-scattered (no replicated ``[N, D]`` buffer), the node MLP runs on
-    this rank's node rows, gathered whole; ``e'`` stays edge-sharded. Falls
-    back to :func:`mpnn_layer` off-mesh or when the mesh does not divide the
-    edges."""
+    one region: one node-state gather per layer. The aggregate is
+    reduce-scattered (no replicated ``[N, D]`` buffer survives it), the
+    node MLP runs on this rank's node rows; ``x'`` and ``e'`` come back as
+    this rank's rows (flat DTensors). Falls back to :func:`mpnn_layer`
+    off-mesh or when the mesh does not divide the edges."""
     region = gops._region(src.shape[0])
     if region is None or src.shape[0] % region.n != 0:
         return mpnn_layer(p, x, e_feat, src, dst, emask, n, offsets)
-    rows = _node_rows(region, n)
+    _node_rows(region, n)
     g = region.group
-    x_full = coll.copy_in(x, g)
+    x = _ce(x)
+    x_full = region.nodes(x)
     e_loc = region.values(e_feat)
     cat = torch.cat([gops.gather(x_full, region.rows(src, 0)),
                      gops.gather(x_full, region.rows(dst, n)), e_loc], dim=-1)
+    del x_full
     e_new = (F.silu(cat @ coll.copy_in(p["edge_w1"], g)) @ coll.copy_in(p["edge_w2"], g)
              + e_loc)
     del cat
@@ -281,7 +302,6 @@ def mpnn_layer_fused(p, x, e_feat, src, dst, emask, n, offsets=None):
                             mask=region.rows(emask, False), offsets=region.offsets(offsets)),
         g,
     ).to(x.dtype)
-    x_loc = x_full[rows]
-    x_new = (F.silu(torch.cat([x_loc, agg], dim=-1) @ coll.copy_in(p["node_w1"], g))
-             @ coll.copy_in(p["node_w2"], g) + x_loc)
-    return coll.all_gather_rows(x_new, g), region.shard(e_new)
+    x_new = _mpnn_node_update(shd.local_rows(x), agg,
+                              _entered(p, ("node_w1", "node_w2"), g))
+    return shd.from_rows(x_new, n, shd.flat_mesh(region.mesh)), region.shard(e_new)

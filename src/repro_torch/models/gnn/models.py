@@ -26,11 +26,23 @@ layer checkpointed (``torch.utils.checkpoint``) under ``cfg.remat`` when a
 gradient is wanted, as JAX's ``jax.checkpoint``; ``optimization_barrier``
 has no counterpart (``models.common``).
 
-On a multi-rank mesh (``dist.sharding.activate``) every rank holds the
-batch and the parameters whole; PNA and GraphCast run their fused layers
-(one region a layer) and SAGE and GAT reach the mesh through the ``mp_*``
-ops, so each rank works on its share of the edges, and the output is the
-replicated ``[N, n_out]``, equal on every rank.
+On a multi-rank mesh (``dist.sharding.activate``) a graph's node and edge
+rows are split over every rank, as JAX's ``batch_shardings("gnn")`` and
+its ``constrain(t, (ALL, ...))`` lay them out: rank ``r`` holds rows
+``[r·N/n, (r+1)·N/n)`` of every node tensor and ``[r·E/n, (r+1)·E/n)`` of
+every edge tensor (flat DTensors, ``dist.sharding``), from the batch's
+leaves through every activation between layers to the output; a dimension
+the mesh does not divide stays whole on every rank, as JAX's ``_maybe``
+leaves it. The batch may come split so (``launch.train.data_parallel``)
+or whole (then each rank takes its rows: a view, no collective). A rank
+gathers node state whole only at a region's entry (``graph.ops``), as
+JAX's ``shard_map`` does, and drops it after the region. PNA and GraphCast
+run their fused layers (one region a layer); SAGE and GAT reach the mesh
+through the ``mp_*`` ops. The parameters are whole on every rank and enter
+each rank's share of the work through ``copy_in``, so their gradients are
+the sums over the ranks: every rank holds the whole gradient. The output
+is this rank's rows of ``[N, n_out]``; :func:`loss_fn` sums the ranks'
+shares into JAX's global loss, equal on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +53,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import ALL, constrain
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import ALL, constrain, rowwise
 from repro_torch.graph import ops as gops
 from repro_torch.graph.structure import resolve_device, segment_offsets
 from repro_torch.kernels import fake
@@ -137,7 +151,13 @@ def dst_offsets(dst: torch.Tensor, n: int) -> Optional[torch.Tensor]:
     check that it is ascending. Unsorted ids raise on the card; on the CPU
     they give ``None`` (the plain versions read the ids). The dry-run's
     fake ids have no values to check: its batches are the pipeline's, in
-    the graph's pull ordering (``input_specs``), so they count as ascending."""
+    the graph's pull ordering (``input_specs``), so they count as ascending.
+    Of a flat DTensor (a rank's rows of the batch) the offsets of this
+    rank's rows, into the global rows: each shifted by the index of the
+    rank's first row (``graph.ops.EdgeRegion.offsets`` reads either kind)."""
+    if shd.is_flat(dst):
+        off = dst_offsets(dst.to_local(), n)
+        return None if off is None else off + shd.row_start(dst)
     if fake.is_fake(dst):
         return segment_offsets(dst.to(torch.int32), n)
     ascending = bool((dst[1:] >= dst[:-1]).all()) if dst.numel() > 1 else True
@@ -162,8 +182,34 @@ def _ckpt(cfg: GNNConfig, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def _rows_mm(x, w):
+    """``x @ w`` whose every row rounds alike whatever the number of rows.
+    On the card a bf16 or f16 product with a dimension that is not a
+    multiple of 8 (GraphCast's 1,433-wide cora features, its 227 outputs)
+    takes a kernel that cuBLAS picks by the row count (split-K, partial
+    sums in the half type): a rank's block of rows rounds otherwise than
+    the whole (``chip_smoke.py --row-gemm`` measures it), and GraphCast's
+    sixteen layers grow such a difference past any elementwise bound.
+    With the contraction and the output zero-padded to multiples of 8 the
+    product takes the aligned kernels, whose rows round alike for any row
+    count. Elsewhere ``x @ w``."""
+    k, n = w.shape
+    if (k % 8 == 0 and n % 8 == 0) or x.dtype not in (torch.bfloat16, torch.float16) \
+            or not fake.on_card(x):
+        return x @ w
+    pad_k, pad_n = -k % 8, -n % 8
+    return (F.pad(x, (0, pad_k)) @ F.pad(w, (0, pad_n, 0, pad_k)))[..., :n]
+
+
+def _head(h, w):
+    """The output layer ``f32[N, n_out]`` on this rank's rows."""
+    return rowwise(lambda h, w: _rows_mm(h, w).float(), (h,), w)
+
+
 def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
-    """Node outputs ``f32[N, n_out]`` of a full-graph batch."""
+    """Node outputs ``f32[N, n_out]`` of a full-graph batch (on a multi-rank
+    mesh this rank's rows of them, a flat DTensor, where the mesh divides
+    ``N``)."""
     cdt = getattr(torch, cfg.compute_dtype)
     x = batch["x"].to(cdt)
     src, dst, emask = batch["src"], batch["dst"], batch["emask"]
@@ -176,10 +222,11 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     x = _c(x)
     if cfg.variant == "graphcast":
         cp = _cast(params, cdt)
-        h = _c(F.silu(x @ cp["encode_node"]))
+        h = _c(rowwise(lambda x, w: F.silu(_rows_mm(x, w)), (x,), cp["encode_node"]))
         w = batch.get("ew")
-        w = torch.ones(src.shape, dtype=cdt, device=x.device) if w is None else w.to(cdt)
-        e = _c(F.silu(w[:, None] @ cp["encode_edge"]))  # [E, De]
+        w = torch.ones_like(src, dtype=cdt) if w is None else w.to(cdt)
+        e = _c(rowwise(lambda w, we: F.silu(_rows_mm(w[:, None], we)), (_c(w),),
+                       cp["encode_edge"]))  # [E, De]
 
         def gc_body(lp, h, e):
             h, e = L.mpnn_layer_fused(lp, h, e, src, dst, emask, n, offsets=off)
@@ -187,7 +234,7 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
 
         for i in range(cp["layers"]["edge_w1"].shape[0]):
             h, e = _ckpt(cfg, gc_body)(_layer(cp["layers"], i), h, e)
-        return (h @ cp["head"]).float()
+        return _head(h, cp["head"])
 
     if cfg.variant == "pna":
         cp = _cast(params, cdt)
@@ -200,7 +247,7 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
         if cp.get("layers") is not None:
             for i in range(cp["layers"]["w"].shape[0]):
                 h = _ckpt(cfg, pna_apply)(_layer(cp["layers"], i), h)
-        return (h @ cp["head"]).float()
+        return _head(h, cp["head"])
 
     def one_layer(lp, h):
         if cfg.variant == "sage":
@@ -213,46 +260,83 @@ def forward(params, batch, cfg: GNNConfig) -> torch.Tensor:
     h = x
     for lp in params["layers"]:
         h = _ckpt(cfg, one_layer)(lp, h)
-    return (h @ params["head"]).float()
+    return _head(h, params["head"])
+
+
+def _mine(t: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """A node-level batch leaf as the rows of ``out`` this rank holds: a
+    flat DTensor's local rows, a whole leaf cut to the rows of a flat
+    ``out``; else the leaf itself."""
+    if shd.is_flat(t):
+        return t.to_local()
+    if shd.is_flat(out):
+        start = shd.row_start(out)
+        return t[start:start + out.to_local().shape[0]]
+    return t
 
 
 def loss_fn(params, batch, cfg: GNNConfig) -> torch.Tensor:
     """The JAX ``loss_fn``'s task branches: regression (masked MSE, or per
     graph over ``graph_id`` pooling), graph classification (mean-pooled
     cross-entropy) and node classification (masked cross-entropy). The
-    per-graph pools are segment sums over the ascending ``graph_id``."""
+    per-graph pools are segment sums over the ascending ``graph_id``. On a
+    mesh whose ranks each hold their node rows the sums over nodes — the
+    masked sums and their denominators, the per-graph pools and counts —
+    are each rank's rows' sums psummed over the ranks (a graph's nodes may
+    straddle ranks), so every rank computes JAX's global loss; a
+    graph-level ``labels`` split over the ranks is gathered whole."""
     out = forward(params, batch, cfg)
+    group = out.device_mesh.get_group() if shd.is_flat(out) else None
+    local = shd.local_rows(out)
+
+    def mine(key):
+        return _mine(batch[key], out)
+
+    def total(t):
+        s = t.sum()
+        return s if group is None else coll.psum(s, group)
+
     if cfg.task == "regression":
         if "graph_id" in batch:
-            pred = _graph_mean(out, batch["graph_id"], batch["labels"].shape[0])
-            return (pred - batch["labels"]).float().square().mean()
-        err = (out - batch["labels"]).float()
+            labels = shd.whole(batch["labels"])
+            pred = _graph_mean(local, mine("graph_id"), labels.shape[0], group)
+            return (pred - labels).float().square().mean()
+        err = (local - mine("labels")).float()
         m = batch.get("lmask")
         if m is not None:
+            m = mine("lmask")
             err = err * m[:, None]
-            denom = torch.clamp(m.sum(), min=1.0) * out.shape[-1]
-            return err.square().sum() / denom
-        return err.square().mean()
+            denom = torch.clamp(total(m), min=1.0) * out.shape[-1]
+            return total(err.square()) / denom
+        if group is None:
+            return err.square().mean()
+        return total(err.square()) / out.numel()
     if cfg.task == "graph_class":
-        logits = _graph_mean(out, batch["graph_id"], batch["labels"].shape[0])
-        return common.softmax_cross_entropy(logits, batch["labels"])
+        labels = shd.whole(batch["labels"])
+        logits = _graph_mean(local, mine("graph_id"), labels.shape[0], group)
+        return common.softmax_cross_entropy(logits, labels)
     # node classification with a labeled-node mask
-    logits = out.float()
+    logits = local.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    gold = logits.gather(-1, mine("labels").long()[:, None])[:, 0]
     per_node = lse - gold
-    m = batch.get("lmask")
-    if m is not None:
-        return (per_node * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return per_node.mean()
+    if batch.get("lmask") is not None:
+        m = mine("lmask")
+        return total(per_node * m) / torch.clamp(total(m), min=1.0)
+    if group is None:
+        return per_node.mean()
+    return total(per_node) / out.shape[0]
 
 
-def _graph_mean(out, graph_id, n_graphs):
-    """Mean of ``out``'s rows per graph (disjoint-union batching)."""
+def _graph_mean(out, graph_id, n_graphs, group=None):
+    """Mean of ``out``'s rows per graph (disjoint-union batching); with
+    ``group`` the ranks' partial pools and counts of their rows summed."""
     off = dst_offsets(graph_id, n_graphs)
     pooled = gops.segment_reduce(out, graph_id, n_graphs, "sum", offsets=off)
     ones = torch.ones(out.shape[:1], dtype=out.dtype, device=out.device)
     cnt = gops.segment_reduce(ones, graph_id, n_graphs, "sum", offsets=off)
+    if group is not None:
+        pooled, cnt = coll.psum(pooled, group), coll.psum(cnt, group)
     return pooled / torch.clamp(cnt[:, None], min=1.0)
 
 

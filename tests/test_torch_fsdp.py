@@ -239,7 +239,8 @@ DRY_CELLS = [("h2o-danube-1.8b", "train_4k"), ("h2o-danube-1.8b", "decode_32k"),
 def _arg_bytes(arch, shape_id, mesh_kind):
     """The bytes rank 0 holds for a reduced cell on the mesh, from the
     rules and ``shard_shape``: its parameters (``PARAM_MODE``), moments
-    (``fsdp``) and step, and its rows of the batch (or all of them); a
+    (``fsdp``) and step, and its rows of the batch (or all of them; a
+    GNN's block of each leaf by ``batch_shardings``); a
     LM's decode cache (dense or MoE) its ``C / model`` slots, as JAX's
     ``lm_cache_spec`` splits the cache's sequence."""
     spec = configs.get_spec(arch)
@@ -283,6 +284,10 @@ def _arg_bytes(arch, shape_id, mesh_kind):
         n_nodes, n_edges = dryrun.gnn_graph_size(shape)
         specs = gm.input_specs(cfg, "full_graph", "cpu", n_nodes=n_nodes, n_edges=n_edges,
                                d_feat=shape["d_feat"])
+        # each leaf's block under batch_shardings("gnn"): its rows over every axis
+        bshard = shd.batch_shardings("gnn", specs, mesh)
+        return total + sum(int(np.prod(shd.shard_shape(t.shape, bshard[k]))) * t.element_size()
+                           for k, t in specs.items())
     return total + sum(t.numel() * t.element_size() for _, t in _flatten(specs))
 
 

@@ -20,9 +20,10 @@ JAX's, values and gradients:
   ``ValueError`` of both at 94 nodes, which 4 node shards do not divide;
 * ``moe_ffn`` (expert-parallel, capacity per data shard, drops, a shared
   expert), its ``aux`` and its gradients;
-* ``constrain`` on the mesh (a DTensor relaid by each spec, values kept);
-* the reduced GNN forwards (PNA and GraphCast fused) and a reduced
-  deepseek-moe prefill;
+* ``constrain`` on the mesh (a DTensor relaid by each spec, a plain
+  tensor cut to its rank's rows, values kept);
+* the reduced GNN forwards (PNA and GraphCast fused; each rank's rows
+  gathered whole) and a reduced deepseek-moe prefill;
 * two steps of the trainer (``Supervised`` against JAX's ``step_fn`` on
   ``(4, 1)``): the losses, the parameters and first moments after them —
   gat-cora, deepseek-moe (rows split, and a batch whole), the dense
@@ -153,7 +154,10 @@ def test_constrain_on_mesh(results, case):
     """``constrain`` on the (2, 2) mesh never changes a value: a DTensor is
     laid out by each spec as JAX's ``_maybe`` cleans it (gathered whole by
     ``dist.collectives.full_tensor``, equal to the logical array); a plain
-    tensor and an edge-sharded DTensor come back as they are."""
+    tensor constrained to rows over every axis becomes this rank's block
+    (a flat DTensor), to another spec it comes back as it is; a region's
+    edge rows stay split where the mesh divides them and are gathered
+    whole where it does not."""
     assert bool(results[1][f"constrain/{case}"])
 
 

@@ -120,7 +120,9 @@ def mp_cases(a, res):
 def constrain_cases(res):
     """``constrain`` on the (2, 2) mesh: a DTensor laid out anew by each
     spec (indivisible entries dropped) holds the same values; a plain
-    tensor and an edge-sharded DTensor come back as they are."""
+    tensor constrained to rows over every axis becomes this rank's block,
+    to any other spec stays as it is; a region's edge rows stay split
+    where the mesh divides them and are gathered whole where it does not."""
     from repro_torch.dist import sharding as shd
     from repro_torch.graph import ops as gops
 
@@ -134,10 +136,22 @@ def constrain_cases(res):
         res[f"constrain/{i}"] = np.asarray(
             torch.equal(torch.from_numpy(_gather(out)), x)
             and shd.spec_of(out) == want)
-    res["constrain/plain"] = np.asarray(shd.constrain(x, (shd.ALL, None)) is x)
-    e = gops.edge_sharded(torch.ones(257, 3))
-    res["constrain/edges"] = np.asarray(shd.constrain(e, (shd.ALL, None)) is e
-                                        and shd.constrain(e, (None, "model")) is e)
+    # a plain tensor constrained to ALL rows: this rank's block (a flat
+    # DTensor), the values kept; to another spec, itself
+    rows = shd.constrain(x, (shd.ALL, None))
+    r = dist.get_rank()
+    res["constrain/plain"] = np.asarray(
+        shd.is_flat(rows) and torch.equal(rows.to_local(), x[2 * r:2 * r + 2])
+        and torch.equal(torch.from_numpy(_gather(rows)), x)
+        and shd.constrain(x, (None, "model")) is x)
+    # a region's edge rows: kept where the mesh divides them, else gathered
+    # whole (JAX's _maybe leaves 257 rows replicated)
+    e = gops.edge_sharded(torch.ones(256, 3))
+    ragged = gops.edge_sharded(torch.ones(257, 3))
+    whole = [shd.constrain(ragged, axes) for axes in ((shd.ALL, None), (None, "model"))]
+    res["constrain/edges"] = np.asarray(
+        shd.constrain(e, (shd.ALL, None)) is e
+        and all(not shd.is_flat(w) and torch.equal(w, torch.ones(257, 3)) for w in whole))
 
 
 def _gather(t):
@@ -154,6 +168,7 @@ def _grads(params, prefix, res):
 
 
 def layer_cases(a, res):
+    from repro_torch.dist import sharding as shd
     from repro_torch.graph import ops as gops
     from repro_torch.graph.structure import segment_offsets
     from repro_torch.models.common import trainable
@@ -171,7 +186,8 @@ def layer_cases(a, res):
                                 ref.PNA_DELTA, offsets=off)
         res[f"pna/{tag}/out"] = _full(out)
         _replicated(f"pna/{tag}/out", out, res)
-        (out * w_x).sum().backward()
+        # the rank's node rows gathered whole, every rank the whole loss
+        (shd.whole(out) * w_x).sum().backward()
         _grads(p, f"pna/{tag}/grad_p", res)
         res[f"pna/{tag}/grad_x"] = x.grad.numpy()
 
@@ -179,10 +195,13 @@ def layer_cases(a, res):
         e = _t(a[f"{tag}/e_feat"], grad=True)
         xn, en = L.mpnn_layer_fused(p, x, e, src, dst, mask, n, offsets=off)
         res[f"mpnn/{tag}/x"], res[f"mpnn/{tag}/e"] = _full(xn), _full(en)
-        local = en.to_local()
-        start = gops._region(dst.shape[0]).start
-        ((xn * w_x).sum() + (local * w_e[start:start + local.shape[0]]).sum()
-         ).backward()
+        if shd.is_flat(en):  # each rank's loss over its own edge rows
+            local = en.to_local()
+            start = gops._region(dst.shape[0]).start
+            e_loss = (local * w_e[start:start + local.shape[0]]).sum()
+        else:  # whole on every rank (257 rows), as the node term
+            e_loss = (en * w_e).sum()
+        ((shd.whole(xn) * w_x).sum() + e_loss).backward()
         _grads(p, f"mpnn/{tag}/grad_p", res)
         res[f"mpnn/{tag}/grad_x"], res[f"mpnn/{tag}/grad_e"] = x.grad.numpy(), e.grad.numpy()
     src, dst, mask = (_t(a[f"e256/{k}"]) for k in ("src", "dst", "mask"))
