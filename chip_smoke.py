@@ -296,7 +296,6 @@ import json
 import math
 import re
 import shutil
-import signal
 import subprocess
 import sys
 import tempfile
@@ -2405,12 +2404,15 @@ def lm_path(cfg, batch, prompt_len, steps, seed, device, card):
     flash_attention.launches = 0
     flash_attention.launches_tc = 0
     flash_attention.launches_simt = 0
+    flash_attention.launches_pos = 0
     res = srv.serve(params, cfg, prompts, steps)
     launches = flash_attention.launches
     launches_tc = flash_attention.launches_tc
-    if device.type == "cuda" and not launches == launches_tc == cfg.n_layers:
+    if device.type == "cuda" and not (launches == launches_tc == cfg.n_layers
+                                      and flash_attention.launches_pos == 0):
         raise AssertionError(f"{launches} flash launches ({launches_tc} on the tensor "
-                             f"cores) for one prefill of {cfg.n_layers} layers")
+                             f"cores, {flash_attention.launches_pos} on the positions "
+                             f"route) for one prefill of {cfg.n_layers} layers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
     warm = srv.serve(params, cfg, prompts, steps)  # every kernel loaded
     if not torch.equal(warm.tokens, res.tokens):
@@ -2504,7 +2506,7 @@ def moe_counters(zero: bool = False) -> dict:
     from repro_torch.models.transformer import moe
 
     out = graph_counters(zero)
-    for counter in ("launches", "launches_tc", "launches_simt"):
+    for counter in ("launches", "launches_tc", "launches_simt", "launches_pos"):
         if zero:
             setattr(flash_attention, counter, 0)
         out["flash_attention" + counter[8:]] = getattr(flash_attention, counter)
@@ -2523,7 +2525,7 @@ def require_moe_launches(counts: dict, what: str, n_layers: int, prefills: int, 
     passes = prefills + steps
     want = {
         "flash_attention": n_layers * prefills, "flash_attention_tc": n_layers * prefills,
-        "flash_attention_simt": 0,
+        "flash_attention_simt": 0, "flash_attention_pos": 0,
         "gather_rows": 2 * n_layers * passes, "gather_rows_scalar": 2 * n_layers * passes,
         "gather_rows_vec": 0,
         "segment_reduce": n_layers * passes, "segment_reduce_cols": n_layers * passes,
@@ -3312,8 +3314,8 @@ def train_counters(zero: bool = False) -> dict:
 
     out = graph_counters(zero)
     names = {
-        flash_attention: ("launches", "launches_tc", "launches_simt"),
-        flash_attention_bwd: ("launches", "launches_tc", "launches_simt"),
+        flash_attention: ("launches", "launches_tc", "launches_simt", "launches_pos"),
+        flash_attention_bwd: ("launches", "launches_tc", "launches_simt", "launches_pos"),
         embedding_bag: ("launches", "launches_vec", "launches_scalar"),
         scatter_rows: ("launches",),
         segment_reduce_bwd: ("launches", "launches_sum", "launches_ties"),
@@ -3694,11 +3696,12 @@ CKPT_STEPS, CKPT_STOP, CKPT_FAIL = 6, 3, 4
 #: (bit-equal replay) does not depend on depth
 DRILL_LAYERS = 3
 #: the depth of h2o-danube-1.8b's mesh cases (its sharded and
-#: tensor-parallel trainers and serve): full width, 4 of its 24 layers (6
-#: until the GNN mesh phase's sharded graphs came), to keep the run inside
-#: its time; what they check (each mesh against one rank at the same depth,
-#: every layer the same code) does not depend on depth
-CKPT_LAYERS = 4
+#: tensor-parallel trainers and serve): full width, 2 of its 24 layers (6
+#: until the GNN mesh phase's sharded graphs came, then 4 until the flash
+#: positions phase came), to keep the run inside its time; what they check
+#: (each mesh against one rank at the same depth, every layer the same
+#: code, a layer's output feeding the next) does not depend on depth
+CKPT_LAYERS = 2
 #: h2o-danube-1.8b's parameter paths in the JAX package's tree (``init`` of
 #: its config: no biases, no qk-norm, an untied unembedding), the keys of
 #: its checkpoints; tests/test_torch_ckpt.py holds them to JAX's
@@ -4079,6 +4082,227 @@ def flash_bwd_row(b, h, hkv, s, d, window, n_launches, what, gen, device):
         "max_row_ratio": ratio,
         "tflops": pairs * b * h * 10 * d / ms / 1e9, "bound_share": f_bound / ms,
     }
+
+
+#: the positions route's full-width cases: left-padded prompts of these
+#: lengths in POSITIONS_SLOTS slots (positions ``arange − pad``, the pads
+#: masked out of the keys), at h2o-danube's and deepseek-moe's attention
+POSITIONS_SLOTS = 6144
+POSITIONS_LENGTHS = (6144, 4096, 1536, 64)
+POSITIONS_SHAPES = (  # (arch, H, Hkv, D, causal, window)
+    ("h2o-danube-1.8b", 32, 8, 80, True, 4096),
+    ("deepseek-moe-16b", 16, 16, 128, True, None),
+)
+#: the SIMT case: [B, H, Hkv, Sq, Sk, D], random positions in [0, Sk + 100),
+#: a window, 10 % of the keys masked, f32, JAX's chunk_kv (its pad > 0)
+POSITIONS_SIMT = (2, 4, 2, 700, 900, 64, 128, 256)
+
+
+def kept_pairs_host(q_pos, k_pos, kv_mask, causal: bool, window) -> int:
+    """The (query, key) pairs one head keeps, summed over the batch rows,
+    counted on the host from the positions and the mask (each row's kept
+    key positions sorted, each query's range by binary search)."""
+    qp, kp, keep = (t.cpu().numpy() for t in (q_pos, k_pos, kv_mask))
+    total = 0
+    for b in range(qp.shape[0]):
+        keys = np.sort(kp[b][keep[b]].astype(np.int64))
+        q = qp[b].astype(np.int64)
+        hi = np.searchsorted(keys, q, side="right") if causal else np.full(q.shape, keys.size)
+        lo = (np.searchsorted(keys, q - int(window), side="right") if window is not None
+              else np.zeros(q.shape, np.int64))
+        total += int(np.maximum(hi - lo, 0).sum())
+    return total
+
+
+def flash_counts() -> dict:
+    """The two flash wrappers' launch counters."""
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    return {f"{fn.__name__}.{c}": getattr(fn, c)
+            for fn in (fl.flash_attention, fl.flash_attention_bwd)
+            for c in ("launches", "launches_tc", "launches_simt", "launches_pos")}
+
+
+def require_flash_launches(before: dict, route: str, positions: bool, what: str):
+    """Fails unless the forward and the backward each launched once since
+    ``before``, on ``route``, on the positions route iff ``positions``."""
+    after = flash_counts()
+    for fn in ("flash_attention", "flash_attention_bwd"):
+        want = {"launches": 1, f"launches_{route}": 1, "launches_pos": int(positions)}
+        got = {c: after[f"{fn}.{c}"] - before[f"{fn}.{c}"] for c in want}
+        if got != want:
+            raise AssertionError(f"{what}: {fn} launched {got}, expected {want}")
+
+
+def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad):
+    """One case of the flash kernels' positions route on the card.
+
+    Forward and backward are held row by row (``FLASH_ROW``) to their plain
+    versions on the same inputs, the rows that keep no key flagged alike
+    (lse ``NEG_INF``); then the index route on the same q, k, v is held to
+    its plain version, with its one launch each, none on the positions
+    route. Then the times (CUDA events): both routes, the plain versions,
+    and ``scaled_dot_product_attention`` with the same boolean mask ``[B,
+    1, Sq, Sk]`` (kv expanded to H heads) forward and backward as the
+    library call; the bound is the kept pairs, counted on the host, × 4·D
+    flops forward and × 10·D backward at the tensor-core bf16 rate (f32:
+    the f32 units' rate), or the bytes if larger. Returns the forward's and
+    the backward's rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = d**-0.5
+    pos = dict(q_pos=q_pos, k_pos=k_pos, kv_mask=kv_mask)
+    route = fl.route(q.dtype, d)
+    before = flash_counts()
+    out, lse = fl.flash_attention(q, k, v, causal, window, scale, True, True, pad=pad, **pos)
+    grads = fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, scale, True, **pos)
+    require_flash_launches(before, route, True, f"positions route, {what}")
+    want, want_lse = fl.flash_attention_plain(q, k, v, causal, window, scale, True, True,
+                                              pad=pad, **pos)
+    flash_row_check(out, want, f"positions route, {what}")
+    empty = want_lse == fl.NEG_INF
+    if not torch.equal(lse == fl.NEG_INF, empty):
+        raise AssertionError(f"positions route, {what}: the rows that keep no key differ")
+    fwd_err = float((out.float() - want.float()).abs().max())
+    del want, want_lse
+    want = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, window, scale, True,
+                                        **pos)
+    bwd_err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        flash_row_check(g, w, f"positions route backward {name}, {what}")
+        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
+    del want, grads
+    before = flash_counts()
+    iout, ilse = fl.flash_attention(q, k, v, causal, window, scale, True, True)
+    igrads = fl.flash_attention_bwd(q, k, v, iout, ilse, do, causal, window, scale, True)
+    require_flash_launches(before, route, False, f"index route, {what}")
+    flash_row_check(iout, fl.flash_attention_plain(q, k, v, causal, window, scale,
+                                                   round_scores=True),
+                    f"index route, {what}")
+    for name, g, w in zip(("dq", "dk", "dv"), igrads, fl.flash_attention_bwd_plain(
+            q, k, v, iout, ilse, do, causal, window, scale, True)):
+        flash_row_check(g, w, f"index route backward {name}, {what}")
+    del igrads
+
+    def fwd():
+        return fl.flash_attention(q, k, v, causal, window, scale, round_scores=True, pad=pad,
+                                  **pos)
+
+    def bwd():
+        return fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, scale, True,
+                                      **pos)
+
+    times = {
+        "ms": cuda_ms(fwd, reps=5), "bwd_ms": cuda_ms(bwd, reps=5),
+        "index_ms": cuda_ms(lambda: fl.flash_attention(q, k, v, causal, window, scale,
+                                                       round_scores=True), reps=5),
+        "index_bwd_ms": cuda_ms(lambda: fl.flash_attention_bwd(
+            q, k, v, iout, ilse, do, causal, window, scale, True), reps=5),
+        "plain_ms": cuda_ms(lambda: fl.flash_attention_plain(
+            q, k, v, causal, window, scale, round_scores=True, pad=pad, **pos), reps=1),
+        "plain_bwd_ms": cuda_ms(lambda: fl.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal, window, scale, True, **pos), reps=1),
+    }
+    del iout, ilse
+    mask = fl.keep_mask(q_pos[:, None], k_pos[:, None], causal, window, kv_mask[:, None])
+    kx, vx = (t.repeat_interleave(h // hkv, 1) for t in (k, v))
+    try:
+        times["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask, scale=scale), reps=5)
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kx, vx))
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+        times["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), reps=5)
+        del ql, kl, vl, lib_out
+    except RuntimeError as exc:  # no backend takes this call: say so
+        times.setdefault("library_ms", None)
+        times["library_bwd_ms"] = None
+        times["library_refused"] = str(exc).splitlines()[0][:300]
+    del mask, kx, vx
+    pairs = kept_pairs_host(q_pos, k_pos, kv_mask, causal, window)
+    rate = BF16_TENSOR_OPS_PER_S if route == "tc" else SCALAR_OPS_PER_S
+    size = q.element_size()
+    pos_bytes = 4 * (q_pos.numel() + k_pos.numel()) + kv_mask.numel()
+    f_bytes = (2 * q.numel() + 2 * k.numel()) * size + pos_bytes
+    b_bytes = (4 * q.numel() + 4 * k.numel()) * size + lse.numel() * 4 + pos_bytes
+    f_bound, f_by = bound(f_bytes, pairs * h * 4 * d, rate)
+    b_bound, b_by = bound(b_bytes, pairs * h * 10 * d, rate)
+    shape = (f"q {str(q.dtype)[6:]}[{b},{h},{sq},{d}], kv [{b},{hkv},{sk},{d}], "
+             f"{'causal' if causal else 'not causal'}, window {window}, pad {pad} ({what})")
+    common = {"route": "cuda", "kernel_route": f"positions, {route}", "launches": 0,
+              "launches_positions_phase": 1, "shape": shape, "kept_pairs_per_head": pairs,
+              "visited_pairs_per_head": b * sq * sk, "rows_keeping_no_key": int(empty.sum()),
+              "library": "scaled_dot_product_attention(bool attn_mask [B,1,Sq,Sk], "
+                         f"kv expanded to {h} heads), forward or backward"}
+    fwd_row = {
+        "name": "flash_attention", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "semantics": "src/repro/models/transformer/attention.py:87 attention_chunked",
+        "max_abs_err": fwd_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": f_bound, "bound_by": f_by, "library_ms": times["library_ms"],
+        "index_route_ms": times["index_ms"], "bound_share": f_bound / times["ms"], **common}
+    bwd_row = {
+        "name": "flash_attention_bwd", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/transformer/attention.py:188",
+        "max_abs_err": bwd_err, "ms": times["bwd_ms"], "plain_ms": times["plain_bwd_ms"],
+        "bound_ms": b_bound, "bound_by": b_by, "library_ms": times["library_bwd_ms"],
+        "index_route_ms": times["index_bwd_ms"], "bound_share": b_bound / times["bwd_ms"],
+        **common}
+    if "library_refused" in times:
+        fwd_row["library_refused"] = bwd_row["library_refused"] = times["library_refused"]
+    return [fwd_row, bwd_row]
+
+
+def positions_phase(seed, device, card):
+    """The flash kernels' positions route (the JAX package's whole
+    ``attention_chunked``: query and key positions, a key mask): (a) a
+    left-padded batch of ``POSITIONS_LENGTHS`` prompts in
+    ``POSITIONS_SLOTS`` slots, bf16 on the tensor cores, at h2o-danube's and
+    deepseek-moe's attention, the pad rows keeping no key; (b) random
+    positions with a window and 10 % of the keys masked, f32 on the SIMT
+    route, at a small shape whose JAX chunk pads. Each by
+    :func:`positions_case`; returns the ``kernels`` rows."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed + 26)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dt)
+
+    rows = []
+    b, s = len(POSITIONS_LENGTHS), POSITIONS_SLOTS
+    pads = torch.tensor([s - n for n in POSITIONS_LENGTHS], dtype=torch.int32, device=device)
+    pos = (torch.arange(s, dtype=torch.int32, device=device)[None] - pads[:, None]).contiguous()
+    for arch, h, hkv, d, causal, window in POSITIONS_SHAPES:
+        dt = torch.bfloat16
+        q, k, v, do = (rnd(shape, dt) for shape in ((b, h, s, d), (b, hkv, s, d),
+                                                    (b, hkv, s, d), (b, h, s, d)))
+        rows += positions_case(f"{arch}'s attention, left-padded prompts of "
+                               f"{'/'.join(map(str, POSITIONS_LENGTHS))} tokens", q, k, v, do,
+                               pos, pos, pos >= 0, causal, window, 0)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    b, h, hkv, sq, sk, d, window, chunk_kv = POSITIONS_SIMT
+    dt = torch.float32
+    q, k, v, do = (rnd(shape, dt) for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                                (b, hkv, sk, d), (b, h, sq, d)))
+    q_pos = torch.randint(0, sk + 100, (b, sq), generator=gen, device=device,
+                          dtype=torch.int32)
+    k_pos = torch.randint(0, sk + 100, (b, sk), generator=gen, device=device,
+                          dtype=torch.int32)
+    kv_mask = torch.rand((b, sk), generator=gen, device=device) >= 0.1
+    rows += positions_case(f"random positions, window {window}, 10 % of keys masked", q, k,
+                           v, do, q_pos, k_pos, kv_mask, True, window,
+                           (-sk) % min(chunk_kv, sk))
+    for row in rows:
+        say("positions_case", card, **{k_: v_ for k_, v_ in row.items()
+                                       if k_ not in ("route", "source", "replaces")})
+    say("positions_phase", card, seconds=time.perf_counter() - t_phase)
+    return rows
 
 
 def train_kernel_rows(launches, seed, device, card):
@@ -5249,13 +5473,9 @@ def _supervised_case(arch, seed, device, reduced, ckpt_dir, want=None, measure=F
         _measure_last_step(run, device, step)
     sync(device)
     train_counters(zero=True)
-    handler = signal.getsignal(signal.SIGTERM)
     t0 = time.perf_counter()
-    try:
-        with flash_heads([]) as heads:
-            run.run(MESH_TRAIN_STEPS)
-    finally:  # the supervisor's SIGTERM handler holds it, and the run's state, alive
-        signal.signal(signal.SIGTERM, handler)
+    with flash_heads([]) as heads:  # run() restores the SIGTERM handler it replaced
+        run.run(MESH_TRAIN_STEPS)
     sync(device)
     peaks = [p for p in (peak_gb(device), step.pop("run_peak_before_gb", None)) if p is not None]
     rep = {"losses": [x for _, x in run.losses], "seconds": time.perf_counter() - t0,
@@ -6023,6 +6243,8 @@ def main() -> int:
         return kernel_shapes_only(scale, edgefactor, seed, card)
     if "--bag-shapes" in sys.argv[1:]:
         return bag_shapes_only(seed, card)
+    if "--flash-index-hash" in sys.argv[1:]:
+        return flash_index_hash(seed, card)
     def timed_build():
         t0 = time.perf_counter()
         return build.build(), time.perf_counter() - t0
@@ -6075,6 +6297,9 @@ def main() -> int:
             say("train_kernel", card, **flash_bwd_row(LM_TRAIN_BATCH, h, hkv, LM_TRAIN_SEQ,
                                                       d, window, 0, what, bwd_gen, device))
         say("flash_bwd_order", card, **flash_bwd_order_cost(bwd_gen, device))
+        return 0
+    if "--positions" in sys.argv[1:]:  # the flash positions route alone: no result line
+        positions_phase(seed, device, card)
         return 0
     if "--row-gemm" in sys.argv[1:]:  # row blocks of the GNN products: no result line
         row_gemm_probe(device, card)
@@ -6172,6 +6397,8 @@ def main() -> int:
     cases, ratio = check_backward_kernels(device, gen)
     say("backward_check", card, ok=True, cases=cases, flash_bwd_max_row_ratio=ratio,
         versus="plain PyTorch versions")
+    rows += positions_phase(seed, device, card)
+    torch.cuda.empty_cache()
     launches = train_path(park(minibatch, device), seed, device, card)
     del minibatch
     torch.cuda.empty_cache()
@@ -6277,6 +6504,57 @@ def bag_shapes_only(seed, card) -> int:
         }
         del got, want
     say("bag_shapes", card, setup_s=time.perf_counter() - t0, **out)
+    return 0
+
+
+#: ``--flash-index-hash``'s cases: (B, H, Hkv, S, D, dtype, causal, window,
+#: round_scores) — the two prefills' shapes, then small ones over both
+#: routes, D % 16 != 0, a window without causal
+INDEX_HASH_CASES = [
+    (4, 32, 8, 6144, 80, torch.bfloat16, True, 4096, True),
+    (4, 16, 16, 6144, 128, torch.bfloat16, True, None, True),
+    (2, 4, 2, 700, 80, torch.bfloat16, True, 300, True),
+    (2, 4, 2, 300, 40, torch.float32, True, 100, False),
+    (1, 2, 1, 333, 80, torch.bfloat16, False, 50, False),
+    (1, 2, 2, 257, 8, torch.bfloat16, True, None, True),
+]
+
+
+def flash_index_hash(seed, card) -> int:
+    """``--flash-index-hash [--against FILE]``: builds the two flash
+    libraries and runs their index route (the forward with its lse, the
+    backward) on ``INDEX_HASH_CASES`` from seeded inputs, printing a
+    ``flash_index_hash`` line with a SHA-256 of every output's bits; with
+    ``--against FILE`` (another run's output) it also says, tensor by
+    tensor, whether the bits are equal. It calls only the wrappers'
+    index-route arguments, so a copy of this script beside an earlier
+    tree of the port hashes that tree's kernels: the index route bit for
+    bit across two trees. No result line."""
+    import hashlib
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    build.build(["flash_attention", "flash_attention_bwd"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hashes = {}
+    for i, (b, h, hkv, s, d, dt, causal, window, rnd) in enumerate(INDEX_HASH_CASES):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                       for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                                     (b, h, s, d)))
+        out, lse = fl.flash_attention(q, k, v, causal, window, d**-0.5, return_lse=True,
+                                      round_scores=rnd)
+        grads = fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, d**-0.5, rnd)
+        for name, t in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads)):
+            bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+            hashes[f"{i}/{name}"] = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+    line = {"cases": len(INDEX_HASH_CASES), "sha256": hashes}
+    if "--against" in sys.argv[1:]:
+        other = Path(sys.argv[sys.argv.index("--against") + 1]).read_text()
+        theirs = json.loads(other.split("flash_index_hash ", 1)[1].splitlines()[0])["sha256"]
+        line["equal"] = {k: theirs.get(k) == v for k, v in hashes.items()}
+        line["all_equal"] = all(line["equal"].values())
+    say("flash_index_hash", card, **line)
     return 0
 
 

@@ -107,6 +107,24 @@
 //
 // All element offsets are 64-bit in the SIMT kernel; the tensor-core
 // kernel takes Sq, Sk < 2^31 (TMA coordinates are 32-bit).
+//
+// The positions route (template POS, where the caller passes q_pos int32
+// [B, Sq], k_pos int32 [B, Sk] and kv_mask bool [B, Sk]) is the JAX
+// package's whole attention_chunked: key j is kept for query i iff
+// kv_mask[j], q_pos[i] >= k_pos[j] under causal and q_pos[i] - k_pos[j] <
+// window under a window (positions within +-2^30). The positions are data,
+// so both routes visit every key tile of every query tile, masking each
+// score from the tile's key positions, loaded once a tile into shared
+// memory (the tensor-core route: a bulk copy beside the K tile, from an
+// int32 [B, tiles * 128] array of key positions that a first launch
+// writes, a key the mask removes stored as MASKED). A masked score takes
+// JAX's finite mask value NEG_INF (-1e30), a key past Sk -inf, and the
+// running max starts at NEG_INF: so a row with a kept key is computed as on
+// the index route, and a row that keeps none sums every key's V with weight
+// 1, its sum of weights Sk plus the `pad` zero keys that JAX's last KV
+// chunk adds (pad * exp(NEG_INF - m), 0 in any other row), its lse NEG_INF:
+// out = sum_j v_j / (Sk + pad), as JAX gives. The index route's code and
+// results are unchanged (POS = false).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -115,6 +133,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "positions.cuh"
 
 namespace simt {
 
@@ -137,15 +156,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(
   return __float2bfloat16_rn(x);
 }
 
-// NJ: output columns per thread (8 * NJ >= D).
-template <typename T, int NJ>
+// NJ: output columns per thread (8 * NJ >= D); POS: the positions route.
+template <typename T, int NJ, bool POS>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int n_heads,
                      int n_rep, int64_t sq, int64_t sk, int d, int causal,
                      int has_window, int64_t window, float scale,
-                     int round_scores) {
+                     int round_scores, const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos,
+                     const uint8_t* __restrict__ kv_mask, float pad) {
   extern __shared__ float smem[];
   const int ld = d + 1;     // padded row of Q and K
   const int ldv = 8 * NJ;   // V row, zero past D
@@ -153,6 +174,7 @@ __global__ void __launch_bounds__(THREADS)
   float* ks = qs + BQ * ld;        // [BK][ld]
   float* vs = ks + BK * ld;        // [BK][ldv]
   float* ps = vs + BK * ldv;       // [BQ][BK + 1]
+  int* kps = reinterpret_cast<int*>(ps + BQ * (BK + 1));  // [BK], POS only
 
   const int64_t bh = blockIdx.x;   // b * n_heads + h
   const int64_t b = bh / n_heads;
@@ -173,23 +195,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   float m[RPT], l[RPT], acc[RPT][NJ];
+  int qp[RPT];  // the rows' positions (POS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    m[i] = -INFINITY;
+    m[i] = POS ? NEG_INF : -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    const int64_t row = q_start + r0 + i;
+    qp[i] = POS && row < sq ? q_pos[b * sq + row] : 0;
   }
 
-  // the live KV tiles of this query tile, as the TPU kernel's rule
+  // the live KV tiles of this query tile, as the TPU kernel's rule (every
+  // tile on the positions route)
   const int64_t n_kt = (sk + BK - 1) / BK;
   int64_t kt_end = n_kt;
-  if (causal) {
+  if (causal && !POS) {
     const int64_t last = (q_start + BQ - 1) / BK + 1;
     kt_end = last < n_kt ? last : n_kt;
   }
   int64_t kt_begin = 0;
-  if (has_window) {
+  if (has_window && !POS) {
     const int64_t lo = q_start - window + 1;  // first key any row keeps
     if (lo > 0) kt_begin = lo / BK;
   }
@@ -205,6 +231,11 @@ __global__ void __launch_bounds__(THREADS)
       const int r = i / ldv, c = i - r * ldv;
       vs[i] = (c < d && k_start + r < sk) ? widen(vb[(k_start + r) * d + c])
                                           : 0.f;
+    }
+    if (POS) {
+      for (int i = tid; i < BK; i += THREADS)
+        kps[i] = k_start + i < sk ? key_position(k_pos, kv_mask, b, sk, k_start + i)
+                                  : MASKED;
     }
     __syncthreads();
 
@@ -234,10 +265,17 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < CPT; ++j) {
         const int64_t kpos = k_start + tx + 8 * j;
         bool ok = kpos < sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (has_window) ok = ok && qpos - kpos < window;
+        float fill = -INFINITY;  // a key past Sk (or masked, index route)
+        if (POS) {
+          const bool keep = keeps(qp[i], kps[tx + 8 * j], causal, has_window, window);
+          if (ok && !keep) fill = NEG_INF;
+          ok = ok && keep;
+        } else {
+          if (causal) ok = ok && kpos <= qpos;
+          if (has_window) ok = ok && qpos - kpos < window;
+        }
         const float raw = round_scores ? widen(narrow<T>(s[i][j])) : s[i][j];
-        s[i][j] = ok ? raw * scale : -INFINITY;
+        s[i][j] = ok ? raw * scale : fill;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -286,6 +324,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < RPT; ++i) {
     const int64_t row = q_start + r0 + i;
     if (row >= sq) continue;
+    if (POS) l[i] += pad * expf(NEG_INF - m[i]);  // JAX's pad keys: 1 each, no V
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     if (lse != nullptr && tx == 0)
       lse[bh * sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
@@ -298,25 +337,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool POS>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int64_t batch,
            int n_heads, int n_kv_heads, int64_t sq, int64_t sk, int d,
            int causal, int has_window, int64_t window, float scale,
-           int round_scores, cudaStream_t stream) {
+           int round_scores, const int* q_pos, const int* k_pos,
+           const uint8_t* kv_mask, float pad, cudaStream_t stream) {
   const int ld = d + 1;
   const size_t smem =
-      sizeof(float) * (size_t)(BQ * ld + BK * ld + BK * 8 * NJ + BQ * (BK + 1));
+      sizeof(float) * (size_t)(BQ * ld + BK * ld + BK * 8 * NJ + BQ * (BK + 1)) +
+      (POS ? sizeof(int) * BK : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, NJ, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
-  flash_fwd_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, NJ, POS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, n_heads,
       n_heads / n_kv_heads, sq, sk, d, causal, has_window, window, scale,
-      round_scores);
+      round_scores, q_pos, k_pos, kv_mask, pad);
   return (int)cudaGetLastError();
 }
 
@@ -324,11 +365,17 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
              int64_t sk, int d, int causal, int has_window, int64_t window,
-             float scale, int round_scores, cudaStream_t s) {
+             float scale, int round_scores, const int* q_pos, const int* k_pos,
+             const uint8_t* kv_mask, float pad, cudaStream_t s) {
   const int nj = (d + 7) / 8;
-#define FLASH_CASE(N)                                                        \
-  return launch<T, N>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk, d, \
-                      causal, has_window, window, scale, round_scores, s)
+#define FLASH_CASE(N)                                                          \
+  return q_pos != nullptr                                                      \
+             ? launch<T, N, true>(q, k, v, o, lse, batch, n_heads, n_kv_heads,  \
+                                  sq, sk, d, causal, has_window, window, scale, \
+                                  round_scores, q_pos, k_pos, kv_mask, pad, s)  \
+             : launch<T, N, false>(q, k, v, o, lse, batch, n_heads, n_kv_heads, \
+                                   sq, sk, d, causal, has_window, window, scale, \
+                                   round_scores, q_pos, k_pos, kv_mask, pad, s)
   if (nj <= 1) FLASH_CASE(1);
   if (nj <= 2) FLASH_CASE(2);
   if (nj <= 4) FLASH_CASE(4);
@@ -356,12 +403,16 @@ constexpr int STAGES = 3;      // K/V ring depth
 constexpr uint32_t BOX_BYTES = BK * CHUNK * 2;  // one 128-row box
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
+constexpr uint32_t KPOS_BYTES = BK * 4;  // a tile's key positions (POS)
+constexpr float NEG2 = NEG_INF * 1.4426950408889634f;  // NEG_INF in log2 units
 
-// A 128-row tile of NC chunks of 16 columns, one box each.
+// A 128-row tile of NC chunks of 16 columns, one box each; the barrier
+// also counts `extra` bytes that the caller loads beside it.
 template <int NC>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          int row, int head, uint32_t bar) {
-  mbar_expect_tx(bar, NC * BOX_BYTES);
+                                          int row, int head, uint32_t bar,
+                                          uint32_t extra = 0) {
+  mbar_expect_tx(bar, NC * BOX_BYTES + extra);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
     tma_load(dst + c * BOX_BYTES, map, c * CHUNK, row, head, bar);
@@ -417,18 +468,22 @@ __device__ __forceinline__ void pv_issue(float (&o)[DP / 2],
 // to the rounded score), masks it where it straddles Sk, the diagonal or
 // the window's edge (interior tiles skip the mask), updates the rows' max m and per-thread partial sum
 // l, leaves p = 2^(s - m) in s and the factor for the old accumulator in
-// corr. A row whose max is still -inf takes p = 0 and keeps l = 0.
+// corr. A row whose max is still -inf takes p = 0 and keeps l = 0. On the
+// positions route (POS) every tile is masked, from the tile's key
+// positions kp (shared memory) and the rows' positions qp: a masked score
+// is NEG2, a key past Sk -inf.
+template <bool POS>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2], int k0,
                                              int row0, int qa, int sk, int causal,
                                              int has_window, int window,
                                              float scale_log2, int round_scores,
-                                             int t) {
+                                             int t, const int* kp, const int (&qp)[2]) {
   if (round_scores) {
 #pragma unroll
     for (int i = 0; i < BK / 2; i += 2) round_bf16(sc[i], sc[i + 1]);
   }
-  const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
+  const bool edge = POS || k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
                     (has_window && (long long)qa + WG_ROWS - 1 - k0 >= window);
   // an interior tile under a scale >= 0 takes its max on the raw scores and
   // folds the scale into the exponent's FMA; other tiles scale and mask first
@@ -449,9 +504,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
           const int col = k0 + 8 * j + 2 * t + (e & 1);
           const int row = row0 + 8 * (e >> 1);
           bool ok = col < sk;
-          if (causal) ok = ok && col <= row;
-          if (has_window) ok = ok && (long long)row - col < window;
-          x = ok ? x : -INFINITY;
+          if (POS) {
+            const bool keep =
+                keeps(qp[e >> 1], kp[8 * j + 2 * t + (e & 1)], causal, has_window, window);
+            x = ok ? (keep ? x : NEG2) : -INFINITY;
+          } else {
+            if (causal) ok = ok && col <= row;
+            if (has_window) ok = ok && (long long)row - col < window;
+            x = ok ? x : -INFINITY;
+          }
         }
         sc[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -488,7 +549,7 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
       p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 }
 
-template <int DP>
+template <int DP, bool POS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -496,7 +557,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int n_heads, int n_rep, int sq,
                  int sk, int d, int causal, int has_window, int window,
-                 float scale_log2, int round_scores) {
+                 float scale_log2, int round_scores, const int* __restrict__ q_pos,
+                 const int* __restrict__ keys, float pad) {
   constexpr int NC = DP / CHUNK;
   constexpr uint32_t TILE = NC * BOX_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -509,6 +571,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto k_full = [&](int s) { return bars + 8u * (1 + s); };
   auto v_full = [&](int s) { return bars + 8u * (1 + STAGES + s); };
   auto empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+  const uint32_t kpos_s = bars + 128;  // + stage * KPOS_BYTES (POS)
 
   const int bh = blockIdx.x;  // b * n_heads + h
   const int b = bh / n_heads;
@@ -516,12 +579,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kvh = b * (n_heads / n_rep) + h / n_rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tiles first
 
-  // the live KV tiles of this query tile, as the TPU kernel's rule
+  // the live KV tiles of this query tile, as the TPU kernel's rule (every
+  // tile on the positions route)
   const int n_kt = (sk + BK - 1) / BK;
   int kt_end = n_kt;
-  if (causal) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
+  if (causal && !POS) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
   int kt_begin = 0;
-  if (has_window) {
+  if (has_window && !POS) {
     const long long lo = (long long)q0 - window + 1;  // first key any row keeps
     if (lo > 0) kt_begin = (int)(lo / BK);
   }
@@ -547,7 +611,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
-        load_tile<NC>(k_s + s * TILE, &kmap, kt * BK, kvh, k_full(s));
+        load_tile<NC>(k_s + s * TILE, &kmap, kt * BK, kvh, k_full(s),
+                      POS ? KPOS_BYTES : 0);
+        if (POS)
+          bulk_load(kpos_s + s * KPOS_BYTES, keys + ((long long)b * n_kt + kt) * BK,
+                    KPOS_BYTES, k_full(s));
         load_tile<NC>(v_s + s * TILE, &vmap, kt * BK, kvh, v_full(s));
       }
     }
@@ -563,7 +631,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float m[2] = {POS ? NEG2 : -INFINITY, POS ? NEG2 : -INFINITY}, l[2] = {0.f, 0.f};
+    int qp[2] = {0, 0};  // the rows' positions (POS)
+    const int* kp = reinterpret_cast<const int*>(smem_raw + (kpos_s - smem_u32(smem_raw)));
+    if (POS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < sq) qp[r] = q_pos[(long long)b * sq + row0 + 8 * r];
+    }
 
     // Per tile i: S(i+1) = Q K^T and O += P(i) V are issued back to back,
     // then softmax(i+1) runs while P(i) V is still on the tensor cores.
@@ -583,8 +658,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(sc);
-      softmax_tile(sc, m, l, corr, kt_begin * BK, row0, qa, sk, causal, has_window,
-                   window, scale_log2, round_scores, t);
+      softmax_tile<POS>(sc, m, l, corr, kt_begin * BK, row0, qa, sk, causal, has_window,
+                        window, scale_log2, round_scores, t, kp, qp);
       pack_p(sc, p);
     }
     for (int i = 0; i + 1 < n_tiles; ++i) {
@@ -597,8 +672,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_pass(wg);
       wgmma_wait<1>();  // S(i+1) is ready, P(i) V may still run
       fence_regs(sc);
-      softmax_tile(sc, m, l, corr, (kt_begin + i + 1) * BK, row0, qa, sk, causal,
-                   has_window, window, scale_log2, round_scores, t);
+      softmax_tile<POS>(sc, m, l, corr, (kt_begin + i + 1) * BK, row0, qa, sk, causal,
+                        has_window, window, scale_log2, round_scores, t,
+                        kp + s1 * BK, qp);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(p);
@@ -626,10 +702,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (POS) l[r] += pad * ex2(NEG2 - m[r]);  // JAX's pad keys: 1 each, no V
       const int row = row0 + 8 * r;
       if (lse != nullptr && t == 0 && row < sq)  // m is in log2 units
         lse[(long long)bh * sq + row] =
-            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
+            POS && m[r] == NEG2 ? NEG_INF  // no key kept: JAX's lse, exactly
+            : l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
       l[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     }
 #pragma unroll
@@ -714,30 +792,47 @@ __global__ void __launch_bounds__(128)
 }
 
 
-constexpr size_t smem_bytes(int dp, int tiles) {
-  return (size_t)tiles * (dp / CHUNK) * BOX_BYTES + 8 * (1 + 3 * STAGES) + 1024;
+// the barriers' 80 bytes, or on the positions route 128 bytes and the
+// ring's key positions
+constexpr size_t smem_bytes(int dp, int tiles, bool pos = false) {
+  return (size_t)tiles * (dp / CHUNK) * BOX_BYTES +
+         (pos ? 128 + STAGES * KPOS_BYTES : 8 * (1 + 3 * STAGES)) + 1024;
 }
 
-template <int DP>
+// keys[b][j] for j < tiles * BK: k_pos[b][j] where j < Sk and kv_mask
+// keeps key j, else MASKED
+__global__ void key_positions(const int* __restrict__ k_pos,
+                              const uint8_t* __restrict__ kv_mask,
+                              int* __restrict__ keys, long long n, long long sk,
+                              long long sk_pad) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long b = i / sk_pad, j = i - b * sk_pad;
+    keys[i] = j < sk ? key_position(k_pos, kv_mask, b, sk, j) : MASKED;
+  }
+}
+
+template <int DP, bool POS>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            long long batch,
            int n_heads, int n_kv_heads, long long sq, long long sk, int d,
            int causal, int has_window, long long window, float scale,
-           int round_scores, cudaStream_t stream) {
+           int round_scores, const int* q_pos, const int* k_pos,
+           const uint8_t* kv_mask, int* keys, float pad, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int rc = encode(&qm, q, batch * n_heads, sq, d, BK);
   if (rc == 0) rc = encode(&km, k, batch * n_kv_heads, sk, d, BK);
   if (rc == 0) rc = encode(&vm, v, batch * n_kv_heads, sk, d, BK);
   if (rc != 0) return rc;
-  const size_t smem = smem_bytes(DP, 1 + 2 * STAGES);
+  const size_t smem = smem_bytes(DP, 1 + 2 * STAGES, POS);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_tc<DP, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // setmaxnreg moves registers inside the block only: the producer
   // warpgroup must free at least what the consumers take, or their
   // increase waits forever
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, flash_fwd_tc<DP>);
+  err = cudaFuncGetAttributes(&attr, flash_fwd_tc<DP, POS>);
   if (err != cudaSuccess) return (int)err;
   if (128 * (attr.numRegs - PRODUCER_REGS) <
       CONSUMERS * 128 * (CONSUMER_REGS - attr.numRegs))
@@ -745,11 +840,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   // positions are 32-bit in the kernel: a window past every key is none
   const long long lim = 1LL << 30;
   const int win = (int)(window > lim ? lim : (window < -lim ? -lim : window));
+  if (POS) {
+    const long long sk_pad = (sk + BK - 1) / BK * BK;
+    key_positions<<<256, 256, 0, stream>>>(k_pos, kv_mask, keys, batch * sk_pad, sk,
+                                           sk_pad);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
-  flash_fwd_tc<DP><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tc<DP, POS><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, n_heads, n_heads / n_kv_heads,
       (int)sq, (int)sk, d, causal, has_window, win, scale * 1.4426950408889634f,
-      round_scores);
+      round_scores, q_pos, keys, pad);
   return (int)cudaGetLastError();
 }
 
@@ -804,8 +906,11 @@ __global__ void fill_inf(float* x, long long n) {
 // of one type (0 float32, 1 bfloat16), lse f32 [B, H, Sq] or null (not
 // stored); D <= 128, H a multiple of Hkv,
 // Sq <= 65535 * 64; on the tensor-core route besides Sq, Sk and B*H below
-// 2^31 and q, k, v 16-byte aligned. Returns 0 on success, else the
-// cudaError_t.
+// 2^31 and q, k, v 16-byte aligned. The positions route: q_pos int32
+// [B, Sq], k_pos int32 [B, Sk], kv_mask bool [B, Sk] (all three, or null
+// for the index route), `pad` the zero keys of JAX's last KV chunk, and on
+// the tensor-core route `keys`, int32 scratch [B, ceil(Sk / 128) * 128].
+// Returns 0 on success, else the cudaError_t.
 extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       long long batch,
@@ -813,12 +918,18 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       long long sq, long long sk, int d,
                                       int dtype, int causal, int has_window,
                                       long long window, float scale,
-                                      int round_scores, void* stream) {
+                                      int round_scores, const int* q_pos,
+                                      const int* k_pos, const uint8_t* kv_mask,
+                                      int* keys, float pad, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch * n_heads * sq == 0) return 0;
   if (d < 1 || d > 128 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
       (sq + simt::BQ - 1) / simt::BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool pos = q_pos != nullptr;
+  if (pos && (k_pos == nullptr || kv_mask == nullptr || pad < 0.f ||
+              (flash_attention_uses_tc(dtype, d) && keys == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (flash_attention_uses_tc(dtype, d)) {
@@ -836,20 +947,25 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
       }
       return (int)cudaMemsetAsync(o, 0, (size_t)(batch * n_heads * sq * d) * 2, s);
     }
-    TC_DISPATCH(d, tc::launch<DP>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq, sk,
-                                  d, causal, has_window, window, scale, round_scores,
-                                  s));
+    TC_DISPATCH(d, pos ? tc::launch<DP, true>(q, k, v, o, lse, batch, n_heads,
+                                              n_kv_heads, sq, sk, d, causal, has_window,
+                                              window, scale, round_scores, q_pos, k_pos,
+                                              kv_mask, keys, pad, s)
+                       : tc::launch<DP, false>(q, k, v, o, lse, batch, n_heads,
+                                               n_kv_heads, sq, sk, d, causal, has_window,
+                                               window, scale, round_scores, q_pos, k_pos,
+                                               kv_mask, keys, pad, s));
   }
   switch (dtype) {
     case 0:
       return simt::dispatch<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq,
                                    sk, d, causal, has_window, window, scale,
-                                   round_scores, s);
+                                   round_scores, q_pos, k_pos, kv_mask, pad, s);
     case 1:
       return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, n_heads,
                                            n_kv_heads, sq, sk, d, causal,
                                            has_window, window, scale, round_scores,
-                                           s);
+                                           q_pos, k_pos, kv_mask, pad, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -91,6 +91,18 @@
 //   flops a pair: S and dP in both passes). Block: 256 threads, thread
 //   (ty, tx) = (tid / 16, tid % 16) owns rows 4ty..4ty+3 and columns tx,
 //   tx+16, ...; tiles staged in shared memory as f32 rows padded to D + 1.
+//
+// The positions route (template POS; q_pos int32 [B, Sq], k_pos int32
+// [B, Sk], kv_mask bool [B, Sk], the forward's): a pair is kept by the
+// forward's positions rule (csrc/flash_attention.cu), and a masked pair
+// takes JAX's P = exp(NEG_INF - lse_i): 1 in a row that keeps no key,
+// whose forward stored lse = NEG_INF (-1e30), 0 in any other; a key past
+// Sk takes P = 0. Every key tile meets every query tile (the positions are
+// data), so the ordered dQ adds of a query tile run over key tiles 0, 1,
+// ... in turn. The rows' positions are read from device memory where a
+// score is masked (the tensor-core route) or staged with the tile (the
+// f32 units); each thread holds its keys' positions. The index route's
+// code and results are unchanged (POS = false).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -99,6 +111,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "positions.cuh"
 
 namespace {
 
@@ -158,14 +171,16 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // dK and dV of one 64-key tile of one kv head, over its group's query heads
-template <typename T, int NJ>
+template <typename T, int NJ, bool POS>
 __global__ void __launch_bounds__(THREADS)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dk, T* __restrict__ dv, int n_heads, int n_rep,
                 int64_t sq, int64_t sk, int d, int causal, int has_window,
-                int64_t window, float scale, int round_scores) {
+                int64_t window, float scale, int round_scores,
+                const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                const uint8_t* __restrict__ kv_mask) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* ks = smem;               // [BT][ld]
@@ -176,6 +191,7 @@ __global__ void __launch_bounds__(THREADS)
   float* dss = ps + BT * (BT + 1);
   float* lse_s = dss + BT * (BT + 1);  // [BT]
   float* delta_s = lse_s + BT;         // [BT]
+  int* qp_s = reinterpret_cast<int*>(delta_s + BT);  // [BT], POS only
 
   const int64_t bkv = blockIdx.x;  // b * Hkv + g
   const int n_kv = n_heads / n_rep;
@@ -188,11 +204,17 @@ __global__ void __launch_bounds__(THREADS)
   stage(ks, k + bkv * sk * d, k0, sk, d);
   stage(vs, v + bkv * sk * d, k0, sk, d);
 
-  // the query tiles that keep any key of this tile
+  // the query tiles that keep any key of this tile (every one on the
+  // positions route), and this thread's keys' positions
   const int64_t n_qt = (sq + BT - 1) / BT;
-  const int64_t qt_begin = causal ? k0 / BT : 0;
+  const int64_t qt_begin = causal && !POS ? k0 / BT : 0;
   int64_t qt_end = n_qt;
-  if (has_window) {
+  int kp[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    kp[i] = POS && k0 + r0 + i < sk ? key_position(k_pos, kv_mask, b, sk, k0 + r0 + i)
+                                    : MASKED;
+  if (has_window && !POS) {
     const int64_t last = k0 + BT - 1 + window - 1;  // last query any key keeps
     const int64_t e = last < 0 ? 0 : last / BT + 1;
     qt_end = e < qt_end ? e : qt_end;
@@ -216,6 +238,7 @@ __global__ void __launch_bounds__(THREADS)
       if (tid < BT) {
         lse_s[tid] = q0 + tid < sq ? lse[bh * sq + q0 + tid] : INFINITY;
         delta_s[tid] = q0 + tid < sq ? delta[bh * sq + q0 + tid] : 0.f;
+        if (POS) qp_s[tid] = q0 + tid < sq ? q_pos[b * sq + q0 + tid] : 0;
       }
       __syncthreads();
 
@@ -251,9 +274,17 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           const int qi = tx + 16 * j;
-          const bool ok = kept(q0 + qi, k0 + r0 + i, sq, sk, causal, has_window, window);
           const float raw = round_scores ? widen(narrow<T>(s[i][j])) : s[i][j];
-          const float p = ok ? expf(raw * scale - lse_s[qi]) : 0.f;
+          float p;
+          if (POS) {  // rows past Sq have lse +inf: P = 0 either way
+            p = k0 + r0 + i >= sk ? 0.f
+                : keeps(qp_s[qi], kp[i], causal, has_window, window)
+                    ? expf(raw * scale - lse_s[qi])
+                    : expf(NEG_INF - lse_s[qi]);
+          } else {
+            const bool ok = kept(q0 + qi, k0 + r0 + i, sq, sk, causal, has_window, window);
+            p = ok ? expf(raw * scale - lse_s[qi]) : 0.f;
+          }
           ps[(r0 + i) * (BT + 1) + qi] = p;
           dss[(r0 + i) * (BT + 1) + qi] = p * (dp[i][j] - delta_s[qi]) * scale;
         }
@@ -298,14 +329,15 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // dQ of one 64-row query tile of one head, over its live key tiles
-template <typename T, int NJ>
+template <typename T, int NJ, bool POS>
 __global__ void __launch_bounds__(THREADS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int n_heads, int n_rep, int64_t sq,
               int64_t sk, int d, int causal, int has_window, int64_t window,
-              float scale, int round_scores) {
+              float scale, int round_scores, const int* __restrict__ q_pos,
+              const int* __restrict__ k_pos, const uint8_t* __restrict__ kv_mask) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;               // [BT][ld]
@@ -313,6 +345,7 @@ __global__ void __launch_bounds__(THREADS)
   float* ks = dos + BT * ld;      // [BT][ld]
   float* vs = ks + BT * ld;       // [BT][ld]
   float* dss = vs + BT * ld;      // [query][key], [BT][BT + 1]
+  int* kp_s = reinterpret_cast<int*>(dss + BT * (BT + 1));  // [BT], POS only
 
   const int64_t bh = blockIdx.x;  // b * H + h
   const int64_t b = bh / n_heads;
@@ -325,22 +358,25 @@ __global__ void __launch_bounds__(THREADS)
   stage(qs, q + bh * sq * d, q0, sq, d);
   stage(dos, dout + bh * sq * d, q0, sq, d);
   float row_lse[RPT], row_delta[RPT];
+  int qp[RPT];  // the rows' positions (POS)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int64_t row = q0 + r0 + i;
     row_lse[i] = row < sq ? lse[bh * sq + row] : INFINITY;
     row_delta[i] = row < sq ? delta[bh * sq + row] : 0.f;
+    qp[i] = POS && row < sq ? q_pos[b * sq + row] : 0;
   }
 
-  // the live key tiles of this query tile, the forward's rule
+  // the live key tiles of this query tile, the forward's rule (every tile
+  // on the positions route)
   const int64_t n_kt = (sk + BT - 1) / BT;
   int64_t kt_end = n_kt;
-  if (causal) {
+  if (causal && !POS) {
     const int64_t last = (q0 + BT - 1) / BT + 1;
     kt_end = last < n_kt ? last : n_kt;
   }
   int64_t kt_begin = 0;
-  if (has_window) {
+  if (has_window && !POS) {
     const int64_t lo = q0 - window + 1;  // first key any row keeps
     if (lo > 0) kt_begin = lo / BT;
   }
@@ -356,6 +392,8 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the previous tile is consumed (and Q, dO staged)
     stage(ks, k + bkv * sk * d, k0, sk, d);
     stage(vs, v + bkv * sk * d, k0, sk, d);
+    if (POS && tid < BT)
+      kp_s[tid] = k0 + tid < sk ? key_position(k_pos, kv_mask, b, sk, k0 + tid) : MASKED;
     __syncthreads();
 
     // S and dP for queries r0 + i, keys tx + 16 j
@@ -390,9 +428,17 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int kj = tx + 16 * j;
-        const bool ok = kept(q0 + r0 + i, k0 + kj, sq, sk, causal, has_window, window);
         const float raw = round_scores ? widen(narrow<T>(s[i][j])) : s[i][j];
-        const float p = ok ? expf(raw * scale - row_lse[i]) : 0.f;
+        float p;
+        if (POS) {  // rows past Sq have lse +inf: P = 0 either way
+          p = k0 + kj >= sk ? 0.f
+              : keeps(qp[i], kp_s[kj], causal, has_window, window)
+                  ? expf(raw * scale - row_lse[i])
+                  : expf(NEG_INF - row_lse[i]);
+        } else {
+          const bool ok = kept(q0 + r0 + i, k0 + kj, sq, sk, causal, has_window, window);
+          p = ok ? expf(raw * scale - row_lse[i]) : 0.f;
+        }
         dss[(r0 + i) * (BT + 1) + kj] = p * (dp[i][j] - row_delta[i]) * scale;
       }
     __syncthreads();
@@ -425,21 +471,24 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool POS>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq, void* dk,
            void* dv, int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
            int64_t sk, int d, int causal, int has_window, int64_t window,
-           float scale, int round_scores, cudaStream_t stream) {
+           float scale, int round_scores, const int* q_pos, const int* k_pos,
+           const uint8_t* kv_mask, cudaStream_t stream) {
   const int ld = d + 1;
   const size_t tile = sizeof(float) * (size_t)BT * ld;
   const size_t grid_tile = sizeof(float) * (size_t)BT * (BT + 1);
-  const size_t smem_dkdv = 4 * tile + 2 * grid_tile + 2 * sizeof(float) * BT;
-  const size_t smem_dq = 4 * tile + grid_tile;
+  const size_t pos_row = POS ? sizeof(int) * BT : 0;  // a tile's positions
+  const size_t smem_dkdv = 4 * tile + 2 * grid_tile + 2 * sizeof(float) * BT + pos_row;
+  const size_t smem_dq = 4 * tile + grid_tile + pos_row;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
+      dkdv_kernel<T, NJ, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<T, NJ>,
+  err = cudaFuncSetAttribute(dq_kernel<T, NJ, POS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
   const int n_rep = n_heads / n_kv_heads;
@@ -456,16 +505,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
   if (sk > 0) {
     const dim3 grid_kv((unsigned)(batch * n_kv_heads), (unsigned)((sk + BT - 1) / BT));
-    dkdv_kernel<T, NJ><<<grid_kv, THREADS, smem_dkdv, stream>>>(
+    dkdv_kernel<T, NJ, POS><<<grid_kv, THREADS, smem_dkdv, stream>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), n_heads,
-        n_rep, sq, sk, d, causal, has_window, window, scale, round_scores);
+        n_rep, sq, sk, d, causal, has_window, window, scale, round_scores, q_pos, k_pos,
+        kv_mask);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid_q((unsigned)(batch * n_heads), (unsigned)((sq + BT - 1) / BT));
-  dq_kernel<T, NJ><<<grid_q, THREADS, smem_dq, stream>>>(
+  dq_kernel<T, NJ, POS><<<grid_q, THREADS, smem_dq, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), n_heads, n_rep, sq, sk, d,
-      causal, has_window, window, scale, round_scores);
+      causal, has_window, window, scale, round_scores, q_pos, k_pos, kv_mask);
   return (int)cudaGetLastError();
 }
 
@@ -474,12 +524,19 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq, void* dk,
              void* dv, int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
              int64_t sk, int d, int causal, int has_window, int64_t window,
-             float scale, int round_scores, cudaStream_t s) {
+             float scale, int round_scores, const int* q_pos, const int* k_pos,
+             const uint8_t* kv_mask, cudaStream_t s) {
   const int nj = (d + 15) / 16;
-#define BWD_CASE(N)                                                              \
-  return launch<T, N>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, n_heads,  \
-                      n_kv_heads, sq, sk, d, causal, has_window, window, scale,  \
-                      round_scores, s)
+#define BWD_CASE(N)                                                                   \
+  return q_pos != nullptr                                                             \
+             ? launch<T, N, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,     \
+                                  n_heads, n_kv_heads, sq, sk, d, causal, has_window,  \
+                                  window, scale, round_scores, q_pos, k_pos, kv_mask,  \
+                                  s)                                                   \
+             : launch<T, N, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,    \
+                                   n_heads, n_kv_heads, sq, sk, d, causal, has_window, \
+                                   window, scale, round_scores, q_pos, k_pos, kv_mask, \
+                                   s)
   if (nj <= 1) BWD_CASE(1);
   if (nj <= 2) BWD_CASE(2);
   if (nj <= 3) BWD_CASE(3);
@@ -514,6 +571,9 @@ constexpr uint32_t ROWS_BYTES = 2 * BQ * 4;   // a stage's lse and delta rows
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
+// NEG_INF in log2 units: the rows kernel's lse2 of a row whose forward lse
+// is NEG_INF, bit for bit (one rounded product of the same two floats)
+constexpr float NEG2 = NEG_INF * LOG2E;
 
 // The live tiles, the forward's rule (a key tile [k0, k0 + BK) is live for
 // a query tile [q0, q0 + BQ) iff k0 <= q0 + BQ - 1 under causal and
@@ -586,8 +646,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // dq = scale * the accumulator, in bf16; 0 for a query tile that no key
-// tile meets (the accumulator holds nothing there). One thread per 8
-// columns of a row.
+// tile meets (the accumulator holds nothing there; every key tile meets
+// every query tile on the positions route). One thread per 8 columns of a
+// row.
+template <bool POS>
 __global__ void __launch_bounds__(256)
     dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
               long long rows, int sq, int sk, int d, int dp, int causal,
@@ -600,8 +662,8 @@ __global__ void __launch_bounds__(256)
   const long long bh = row / sq;
   const int r = (int)(row - bh * sq);
   const int qt = r / BQ, n_qt = (sq + BQ - 1) / BQ;
-  int kt_begin, kt_end;
-  key_tiles(qt, sk, causal, has_window, window, kt_begin, kt_end);
+  int kt_begin = 0, kt_end = (sk + BK - 1) / BK;
+  if (!POS) key_tiles(qt, sk, causal, has_window, window, kt_begin, kt_end);
   float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (kt_begin < kt_end) {
     const float4* src = reinterpret_cast<const float4*>(
@@ -618,7 +680,7 @@ __global__ void __launch_bounds__(256)
   *reinterpret_cast<uint4*>(dq + row * d + c) = out;
 }
 
-template <int DP>
+template <int DP, bool POS>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_tc(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
@@ -629,7 +691,8 @@ __global__ void __launch_bounds__(THREADS, 1)
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
            int n_heads, int n_rep, int sq, int sk, int d, int causal,
            int has_window, int window, float scale, float scale_log2,
-           int round_scores) {
+           int round_scores, const int* __restrict__ q_pos,
+           const int* __restrict__ k_pos, const uint8_t* __restrict__ kv_mask) {
   constexpr int NC = DP / CHUNK;         // chunks of 16 columns of D
   constexpr int NCQ = (NC + 1) / 2;      // chunks of dQ a warpgroup computes
   constexpr uint32_t KT = NC * KBOX;     // a K or V tile
@@ -661,8 +724,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int k0 = kt * BK;
   const int n_qt = (sq + BQ - 1) / BQ;
   const int sq_pad = n_qt * BQ;
-  int qt_begin, qt_end;
-  query_tiles(kt, sq, causal, has_window, window, qt_begin, qt_end);
+  int qt_begin = 0, qt_end = n_qt;  // every query tile on the positions route
+  if (!POS) query_tiles(kt, sq, causal, has_window, window, qt_begin, qt_end);
   const int n_q = qt_end - qt_begin;
   const int steps = n_rep * n_q;  // step i: head h0 + i / n_q, tile qt_begin + i % n_q
 
@@ -715,8 +778,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int hr = i / n_q;
         const int qt = qt_begin + i - hr * n_q;
         const long long tile = (long long)(h0 + hr) * n_qt + qt;
-        int kt_first, kt_end;
-        key_tiles(qt, sk, causal, has_window, window, kt_first, kt_end);
+        int kt_first = 0, kt_end;  // every key tile on the positions route
+        if (!POS) key_tiles(qt, sk, causal, has_window, window, kt_first, kt_end);
         const int before = kt - kt_first;  // key tiles that add before this one
         mbar_wait(dq_full(buf), (i >> 1) & 1);
 #ifndef FLASH_BWD_UNORDERED
@@ -755,6 +818,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int c0 = wg == 0 ? 0 : NC - NCQ;    // the warpgroup's first dQ chunk
     const float* rows_g = reinterpret_cast<const float*>(gen + (rows_s - base));
     float* dq_g = reinterpret_cast<float*>(gen + (dq_s - base));
+    int kp[2] = {MASKED, MASKED};  // this thread's keys' positions (POS)
+    if (POS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (key0 + 8 * r < sk) kp[r] = key_position(k_pos, kv_mask, b, sk, key0 + 8 * r);
+    }
 
     float acc_v[DP / 2], acc_k[DP / 2];
 #pragma unroll
@@ -789,7 +858,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // need the mask
       const float* lse_row = rows_g + s * (ROWS_BYTES / 4);
       const float* delta_row = lse_row + BQ;
-      const bool edge = kw + WG_KEYS > sk || (causal && kw + WG_KEYS - 1 > q0) ||
+      const bool edge = POS || kw + WG_KEYS > sk || (causal && kw + WG_KEYS - 1 > q0) ||
                         (has_window && (long long)q0 + BQ - 1 - kw >= window);
       if (round_scores) {
 #pragma unroll
@@ -800,14 +869,22 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float2 l2 = *reinterpret_cast<const float2*>(lse_row + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = ex2(fmaf(sc[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          const float lr = (e & 1) ? l2.y : l2.x;
+          float p = ex2(fmaf(sc[4 * j + e], scale_log2, -lr));
           if (edge) {
             const int key = key0 + 8 * (e >> 1);
             const int qpos = q0 + 8 * j + 2 * t + (e & 1);
             bool ok = key < sk;
-            if (causal) ok = ok && key <= qpos;
-            if (has_window) ok = ok && (long long)qpos - key < window;
-            p = ok ? p : 0.f;
+            if (POS) {  // a masked pair: JAX's exp(NEG_INF - lse); rows past Sq: 0
+              const int qp = qpos < sq ? q_pos[(long long)b * sq + qpos] : 0;
+              p = !ok ? 0.f
+                  : keeps(qp, kp[e >> 1], causal, has_window, window) ? p
+                  : ex2(NEG2 - lr);
+            } else {
+              if (causal) ok = ok && key <= qpos;
+              if (has_window) ok = ok && (long long)qpos - key < window;
+              p = ok ? p : 0.f;
+            }
           }
           sc[4 * j + e] = p;
         }
@@ -928,12 +1005,13 @@ constexpr size_t smem_bytes(int dp) {
 
 // scratch: lse2 then delta, f32 [B*H, n_qt * 64] each; dq_acc f32
 // [B*H, n_qt, 64, DP]; counters int32 [B*H, n_qt] (zeroed here).
-template <int DP>
+template <int DP, bool POS>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* scratch, float* dq_acc, int* counters, void* dq,
            void* dk, void* dv, long long batch, int n_heads, int n_kv_heads, long long sq,
            long long sk, int d, int causal, int has_window, long long window,
-           float scale, int round_scores, cudaStream_t stream) {
+           float scale, int round_scores, const int* q_pos, const int* k_pos,
+           const uint8_t* kv_mask, cudaStream_t stream) {
   const long long n_qt = (sq + BQ - 1) / BQ, sq_pad = n_qt * BQ;
   const long long bh = batch * n_heads;
   float* lse2 = scratch;
@@ -962,27 +1040,28 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
     if (rc == 0) rc = encode(&vm, v, batch * n_kv_heads, sk, d, BK);
     if (rc != 0) return rc;
     const size_t smem = smem_bytes(DP);
-    err = cudaFuncSetAttribute(bwd_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(bwd_tc<DP, POS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     // setmaxnreg moves registers inside the block only: the producer
     // warpgroup must free at least what the consumers take
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, bwd_tc<DP>);
+    err = cudaFuncGetAttributes(&attr, bwd_tc<DP, POS>);
     if (err != cudaSuccess) return (int)err;
     if (128 * (attr.numRegs - PRODUCER_REGS) <
         CONSUMERS * 128 * (CONSUMER_REGS - attr.numRegs))
       return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)(batch * n_kv_heads), (unsigned)n_kt);
-    bwd_tc<DP><<<grid, THREADS, smem, stream>>>(
+    bwd_tc<DP, POS><<<grid, THREADS, smem, stream>>>(
         qm, km, vm, dom, lse2, delta, dq_acc, counters, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), n_heads, n_heads / n_kv_heads, (int)sq, (int)sk,
-        d, causal, has_window, win, scale, scale * LOG2E, round_scores);
+        d, causal, has_window, win, scale, scale * LOG2E, round_scores, q_pos, k_pos,
+        kv_mask);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const long long rows = bh * sq;
-  dq_kernel<<<(unsigned)((rows * (d / 8) + 255) / 256), 256, 0, stream>>>(
+  dq_kernel<POS><<<(unsigned)((rows * (d / 8) + 255) / 256), 256, 0, stream>>>(
       dq_acc, static_cast<__nv_bfloat16*>(dq), rows, (int)sq, (int)sk, d, DP, causal,
       has_window, win, scale);
   return (int)cudaGetLastError();
@@ -1016,18 +1095,23 @@ extern "C" void flash_attention_bwd_scratch(long long bh, long long sq, int d,
 // `acc` and `counters` are unused; on the tensor-core route their sizes
 // are flash_attention_bwd_scratch's. D <= 128, H a multiple of Hkv, Sq and
 // Sk / 64 within the grid's y limit; on the tensor-core route besides Sq,
-// Sk and B*H below 2^31 and the bf16 tensors 16-byte aligned. Returns 0 on
-// success, else the cudaError_t.
+// Sk and B*H below 2^31 and the bf16 tensors 16-byte aligned. The
+// positions route: the forward's q_pos int32 [B, Sq], k_pos int32 [B, Sk]
+// and kv_mask bool [B, Sk] (all three, or null for the index route).
+// Returns 0 on success, else the cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     int device, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* rows, float* acc, int* counters,
     void* dq, void* dk, void* dv, long long batch, int n_heads, int n_kv_heads,
     long long sq, long long sk, int d, int dtype, int causal, int has_window,
-    long long window, float scale, int round_scores, void* stream) {
+    long long window, float scale, int round_scores, const int* q_pos,
+    const int* k_pos, const uint8_t* kv_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
       (sq + BT - 1) / BT > 65535 || (sk + BT - 1) / BT > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (q_pos != nullptr && (k_pos == nullptr || kv_mask == nullptr))
     return (int)cudaErrorInvalidValue;
   if (batch * n_heads * sq == 0) {
     if (batch * n_kv_heads * sk == 0) return 0;
@@ -1051,9 +1135,15 @@ extern "C" int flash_attention_bwd_launch(
       return (int)cudaErrorMisalignedAddress;
 #define TC_CASE(DP)                                                                    \
   if (d <= DP)                                                                         \
-    return tcb::launch<DP>(q, k, v, o, dout, lse, rows, acc, counters, dq, dk, dv,     \
-                           batch, n_heads, n_kv_heads, sq, sk, d, causal, has_window,  \
-                           window, scale, round_scores, s)
+    return q_pos != nullptr                                                            \
+               ? tcb::launch<DP, true>(q, k, v, o, dout, lse, rows, acc, counters, dq, \
+                                       dk, dv, batch, n_heads, n_kv_heads, sq, sk, d,  \
+                                       causal, has_window, window, scale,              \
+                                       round_scores, q_pos, k_pos, kv_mask, s)         \
+               : tcb::launch<DP, false>(q, k, v, o, dout, lse, rows, acc, counters,    \
+                                        dq, dk, dv, batch, n_heads, n_kv_heads, sq,    \
+                                        sk, d, causal, has_window, window, scale,      \
+                                        round_scores, q_pos, k_pos, kv_mask, s)
     TC_CASE(16); TC_CASE(32); TC_CASE(48); TC_CASE(64);
     TC_CASE(80); TC_CASE(96); TC_CASE(112); TC_CASE(128);
 #undef TC_CASE
@@ -1063,11 +1153,12 @@ extern "C" int flash_attention_bwd_launch(
     case 0:
       return dispatch<float>(q, k, v, o, dout, lse, rows, dq, dk, dv, batch, n_heads,
                              n_kv_heads, sq, sk, d, causal, has_window, window, scale,
-                             round_scores, s);
+                             round_scores, q_pos, k_pos, kv_mask, s);
     case 1:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, rows, dq, dk, dv, batch,
                                      n_heads, n_kv_heads, sq, sk, d, causal, has_window,
-                                     window, scale, round_scores, s);
+                                     window, scale, round_scores, q_pos, k_pos, kv_mask,
+                                     s);
     default:
       return (int)cudaErrorInvalidValue;
   }

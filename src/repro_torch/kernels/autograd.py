@@ -177,24 +177,33 @@ def embedding_bag(table, indices, weights=None, mask=None):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, round_scores):
+    def forward(ctx, q, k, v, causal, window, scale, round_scores, q_pos, k_pos, kv_mask,
+                pad):
         out, lse = flash_ops.flash_attention(q, k, v, causal, window, scale,
-                                             return_lse=True, round_scores=round_scores)
-        ctx.save_for_backward(q, k, v, out, lse)
+                                             return_lse=True, round_scores=round_scores,
+                                             q_pos=q_pos, k_pos=k_pos, kv_mask=kv_mask,
+                                             pad=pad)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos, kv_mask)
         ctx.args = (causal, window, scale, round_scores)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_pos, k_pos, kv_mask = ctx.saved_tensors
         dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
-                                                   *ctx.args)
-        return dq, dk, dv, None, None, None, None
+                                                   *ctx.args, q_pos, k_pos, kv_mask)
+        # the positions, the mask and the pad take no gradient (JAX: float0)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, window=None, scale=1.0, round_scores=False):
-    """``kernels.flash_attention`` with the gradients of q, k and v."""
+def flash_attention(q, k, v, causal=True, window=None, scale=1.0, round_scores=False,
+                    q_pos=None, k_pos=None, kv_mask=None, pad=0):
+    """``kernels.flash_attention`` with the gradients of q, k and v; the
+    positions route's ``q_pos``, ``k_pos``, ``kv_mask`` and ``pad`` ride
+    along to the backward."""
     if not _wants_grad(q, k, v):
         return flash_ops.flash_attention(q, k, v, causal, window, scale,
-                                         round_scores=round_scores)
-    return _FlashAttention.apply(q, k, v, causal, window, scale, round_scores)
+                                         round_scores=round_scores, q_pos=q_pos,
+                                         k_pos=k_pos, kv_mask=kv_mask, pad=pad)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, round_scores, q_pos,
+                                 k_pos, kv_mask, pad)

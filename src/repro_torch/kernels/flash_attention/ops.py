@@ -40,6 +40,21 @@ the tensor cores (TMA + ``wgmma``, one pass, counted in
 (``flash_attention_bwd.launches_simt``); ``flash_attention_bwd.launches``
 counts both. :func:`bwd_schedule` models the tensor-core route's walk:
 the query tiles each block visits and the fixed order of its dQ adds.
+
+The positions route (``q_pos`` int32 ``[B, Sq]``, ``k_pos`` int32 ``[B,
+Sk]``, ``kv_mask`` bool ``[B, Sk]``, all three or none; and ``pad``) is the
+JAX package's whole ``attention_chunked``: key ``j`` is kept for query
+``i`` iff ``kv_mask[j]`` and ``q_pos[i] >= k_pos[j]`` under ``causal`` and
+``q_pos[i] - k_pos[j] < window`` under a window (:func:`keep_mask`,
+positions within ±2^30). Rows that keep a key are computed as on the
+index route. A row that keeps no key follows JAX's finite mask value
+``NEG_INF = -1e30``: its output is ``Σ_{j<Sk} v_j / (Sk + pad)``, where
+``pad`` counts the zero keys that pad JAX's last chunk (``(-Sk) mod
+min(chunk_kv, Sk)``), its lse is ``NEG_INF``, and the backward gives every
+masked pair of a row ``P = exp(NEG_INF - lse)``: 1 in such a row, 0 in any
+other. Both kernels visit every key tile on this route (the positions are
+data; no host reads them), in both routes by dtype and D, and count
+their launches in ``launches_pos`` too.
 """
 
 from __future__ import annotations
@@ -58,6 +73,8 @@ _BLOCK_Q, _MAX_Q_TILES = 64, 65535
 TC_BLOCK_Q, TC_BLOCK_K = 128, 128
 #: the tensor-core backward's query tile (a step) and key tile (a block)
 BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
+#: the JAX package's finite mask value (``attention.NEG_INF``)
+NEG_INF = -1e30
 
 
 def route(dtype, d: int) -> str:
@@ -79,8 +96,9 @@ def bwd_route(dtype, d: int) -> str:
 def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
                bk: int = TC_BLOCK_K):
     """``[(q_tile, kt_begin, kt_end)]``: the key tiles each query tile
-    visits, by the TPU kernel's skip rule as a loop range, the formula of
-    both CUDA kernels."""
+    visits on the index route, by the TPU kernel's skip rule as a loop
+    range, the formula of both CUDA kernels (the positions route visits
+    every key tile)."""
     n_kt = -(-sk // bk)
     out = []
     for qt in range(-(-sq // bq)):
@@ -129,7 +147,7 @@ def bwd_query_tiles(kt: int, sq: int, causal: bool, window, bq: int = BWD_BLOCK_
 
 
 def bwd_schedule(batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
-                 causal: bool, window):
+                 causal: bool, window, positions: bool = False):
     """The tensor-core backward's walk, as its blocks run it: a list in
     launch order (``blockIdx.y`` = key tile slowest, ``blockIdx.x`` = batch
     · kv head) of ``(block, kt, steps)``, each step ``(bh, qt, before)``:
@@ -137,34 +155,50 @@ def bwd_schedule(batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
     next (the group's heads in turn, each over its live query tiles in
     order) and the number of key tiles whose dQ adds into that tile must
     come first — the value the block waits for on the tile's counter
-    (``before == 0``: it stores instead of adding)."""
+    (``before == 0``: it stores instead of adding). On the positions route
+    every key tile meets every query tile."""
     n_rep = n_heads // n_kv_heads
     out = []
     for kt in range(-(-sk // BWD_BLOCK_K)):
-        qb, qe = bwd_query_tiles(kt, sq, causal, window)
+        qb, qe = ((0, -(-sq // BWD_BLOCK_Q)) if positions
+                  else bwd_query_tiles(kt, sq, causal, window))
         for bkv in range(batch * n_kv_heads):
             b, g = divmod(bkv, n_kv_heads)
             steps = []
             for hr in range(n_rep):
                 bh = b * n_heads + g * n_rep + hr
                 for qt in range(qb, qe):
-                    steps.append((bh, qt, kt - bwd_key_tiles(qt, sk, causal, window)[0]))
+                    first = 0 if positions else bwd_key_tiles(qt, sk, causal, window)[0]
+                    steps.append((bh, qt, kt - first))
             out.append((kt * batch * n_kv_heads + bkv, kt, steps))
     return out
 
 
-def keep_mask(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
+def keep_mask(q_pos, k_pos, causal: bool, window, kv_mask=None) -> torch.Tensor:
     """bool ``[..., Sq, Sk]`` from position vectors ``[..., Sq]`` and
-    ``[..., Sk]``: key ``k`` is kept for query ``q`` iff ``k <= q`` under
-    ``causal`` and ``q - k < window`` under a window. The one statement of
-    the rule, shared by the plain version and the dense attention."""
+    ``[..., Sk]`` and an optional key mask ``[..., Sk]``: key ``k`` is kept
+    for query ``q`` iff ``kv_mask[k]``, ``k <= q`` under ``causal`` and
+    ``q - k < window`` under a window (the JAX package's ``_mask_bias``
+    with its ``kv_mask``). The one statement of the rule, shared by the
+    plain versions and the dense attention."""
     diff = q_pos[..., :, None] - k_pos[..., None, :]
     keep = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
         keep &= diff >= 0
     if window is not None:
         keep &= diff < window
+    if kv_mask is not None:
+        keep &= kv_mask[..., None, :]
     return keep
+
+
+def _keeps(q, k, causal, window, q_pos, k_pos, kv_mask):
+    """The keep mask of each batch row: ``[Sq, Sk]`` by index positions,
+    shared by every row, or ``[B, Sq, Sk]`` on the positions route."""
+    if q_pos is None:
+        return keep_mask(torch.arange(q.shape[2], device=q.device),
+                         torch.arange(k.shape[2], device=q.device), causal, window)
+    return keep_mask(q_pos, k_pos, causal, window, kv_mask)
 
 
 def _scores(q, k, scale, round_scores):
@@ -178,20 +212,23 @@ def _scores(q, k, scale, round_scores):
 
 
 def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
-                          return_lse=False, round_scores=False):
+                          return_lse=False, round_scores=False, q_pos=None, k_pos=None,
+                          kv_mask=None, pad=0):
     """The plain PyTorch version, one (batch, kv-head group) at a time so
     that no ``[B, H, Sq, Sk]`` score tensor is ever held: f32 scores (with
     ``round_scores`` each q·k rounded to q's dtype before the scale),
     ``-inf`` where masked, softmax, NaN rows (no key kept) to 0, p rounded
-    to q's dtype, f32 product with v."""
+    to q's dtype, f32 product with v. On the positions route a row that
+    keeps no key takes ``Σ_{j<Sk} v_j / (Sk + pad)`` and the lse
+    ``NEG_INF``, as the JAX package's finite mask value gives them."""
     b, h, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = h // hkv
-    keep = keep_mask(torch.arange(sq, device=q.device),
-                     torch.arange(sk, device=q.device), causal, window)
+    keeps = _keeps(q, k, causal, window, q_pos, k_pos, kv_mask)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     for bi in range(b):
+        keep = keeps if q_pos is None else keeps[bi]
         for g in range(hkv):
             heads = slice(g * rep, (g + 1) * rep)
             s = _scores(q[bi, heads], k[bi, g], scale, round_scores)
@@ -201,31 +238,41 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=1.0,
             p = torch.softmax(s, dim=-1)
             p = torch.where(torch.isnan(p), 0.0, p).to(q.dtype).float()
             out[bi, heads] = (p @ v[bi, g].float()).to(q.dtype)
+            if q_pos is not None:
+                empty = ~keep.any(dim=-1)
+                mean = (v[bi, g].float().sum(dim=0) / (sk + pad)).to(q.dtype)
+                out[bi, heads] = torch.where(empty[:, None], mean, out[bi, heads])
+                lse[bi, heads] = torch.where(empty, NEG_INF, lse[bi, heads])
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, window=None,
-                              scale=1.0, round_scores=False):
+                              scale=1.0, round_scores=False, q_pos=None, k_pos=None,
+                              kv_mask=None):
     """The plain PyTorch backward, one (batch, kv-head group) at a time, the
     JAX package's ``_flash_bwd`` in float32: ``delta = rowsum(dO·O)``,
     ``P = exp(scale·q·k − lse)`` where kept (q·k rounded as the forward
     rounds it under ``round_scores``), ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``,
     ``dS = P·(dP − delta)·scale``, ``dQ = dS·K``, ``dK = dSᵀ·Q``, the
-    group's heads summed onto their kv head; results in the inputs' dtype."""
+    group's heads summed onto their kv head; results in the inputs' dtype.
+    A masked pair's P is 0 on the index route and ``exp(NEG_INF − lse)`` on
+    the positions route: 1 in a row that keeps no key (lse ``NEG_INF``)."""
     b, h, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = h // hkv
-    keep = keep_mask(torch.arange(sq, device=q.device),
-                     torch.arange(sk, device=q.device), causal, window)
+    keeps = _keeps(q, k, causal, window, q_pos, k_pos, kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for bi in range(b):
+        keep = keeps if q_pos is None else keeps[bi]
         for g in range(hkv):
             heads = slice(g * rep, (g + 1) * rep)
             qf, kf, vf = q[bi, heads].float(), k[bi, g].float(), v[bi, g].float()
             do = dout[bi, heads].float()
             delta = (do * out[bi, heads].float()).sum(dim=-1)
             s = _scores(q[bi, heads], k[bi, g], scale, round_scores)
-            p = torch.where(keep, torch.exp(s - lse[bi, heads][..., None]), 0.0)
+            row = lse[bi, heads][..., None]
+            masked = 0.0 if q_pos is None else torch.exp(NEG_INF - row)
+            p = torch.where(keep, torch.exp(s - row), masked)
             ds = p * (do @ vf.T - delta[..., None]) * scale
             dv[bi, g] = (p.transpose(-1, -2) @ do).sum(dim=0).to(v.dtype)
             dq[bi, heads] = (ds @ kf).to(q.dtype)
@@ -242,7 +289,8 @@ def _entry():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -256,7 +304,7 @@ def _bwd_entry():
         ctypes.c_int, *[ctypes.c_void_p] * 12, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 3, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -343,19 +391,50 @@ def _check(q, k, v):
         raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
 
 
-def _pair_flops(q, k, causal, window, per_pair: int) -> int:
-    """``per_pair · D`` flops for every kept (query, key) pair of every head."""
+def _check_positions(q, k, q_pos, k_pos, kv_mask, pad) -> bool:
+    """Whether the call takes the positions route; raises on positions, a
+    key mask or a pad that the kernels do not take."""
+    given = [t is not None for t in (q_pos, k_pos, kv_mask)]
+    if not any(given):
+        return False
+    if not all(given):
+        raise TypeError("the positions route takes q_pos, k_pos and kv_mask together")
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
+    for name, t, shape, dtype in (("q_pos", q_pos, (b, sq), torch.int32),
+                                  ("k_pos", k_pos, (b, sk), torch.int32),
+                                  ("kv_mask", kv_mask, (b, sk), torch.bool)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} {list(shape)}, got {t.dtype} "
+                            f"{list(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if int(pad) < 0:
+        raise ValueError(f"pad {pad} < 0")
+    return True
+
+
+def _pair_flops(q, k, causal, window, per_pair: int, positions: bool = False) -> int:
+    """``per_pair · D`` flops for every kept (query, key) pair of every head;
+    on the positions route, whose kept pairs are data, every pair (each of
+    them is visited; the fake route reads no values)."""
     b, h, sq, d = q.shape
-    return fake.kept_pairs(sq, k.shape[2], causal, window) * b * h * per_pair * d
+    pairs = (sq * k.shape[2] if positions
+             else fake.kept_pairs(sq, k.shape[2], causal, window))
+    return pairs * b * h * per_pair * d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=False,
-                    round_scores=False):
+                    round_scores=False, q_pos=None, k_pos=None, kv_mask=None, pad=0):
     """Attention on the card by ``csrc/flash_attention.cu``; see module."""
     if not fake.on_card(q):
         return flash_attention_plain(q, k, v, causal, window, scale, return_lse,
-                                     round_scores)
+                                     round_scores, q_pos, k_pos, kv_mask, pad)
     _check(q, k, v)
+    positions = _check_positions(q, k, q_pos, k_pos, kv_mask, pad)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -363,49 +442,59 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=Fal
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     if fake.is_fake(q):
-        fake.record("flash_attention", fake.nbytes(q, k, v, out, lse),
-                    _pair_flops(q, k, causal, window, 4))
-        return _count_fwd(q, out, lse, return_lse)
+        fake.record("flash_attention",
+                    fake.nbytes(q, k, v, out, lse, q_pos, k_pos, kv_mask),
+                    _pair_flops(q, k, causal, window, 4, positions))
+        return _count_fwd(q, out, lse, return_lse, positions)
+    keys = None  # the tensor-core route's key positions, a tile's keys a bulk copy
+    if positions and route(q.dtype, d) == "tc":
+        keys = torch.empty(b * -(-k.shape[2] // TC_BLOCK_K) * TC_BLOCK_K,
+                           dtype=torch.int32, device=q.device)
     rc = _entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(),
-        b, h, k.shape[1], sq, k.shape[2], d,
+        out.data_ptr(), _ptr(lse), b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
         0 if window is None else int(window), float(scale), int(bool(round_scores)),
+        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask), _ptr(keys), float(pad),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    return _count_fwd(q, out, lse, return_lse)
+    return _count_fwd(q, out, lse, return_lse, positions)
 
 
-def _count_fwd(q, out, lse, return_lse):
+def _count_fwd(q, out, lse, return_lse, positions):
     flash_attention.launches += 1
     if route(q.dtype, q.shape[3]) == "tc":
         flash_attention.launches_tc += 1
     else:
         flash_attention.launches_simt += 1
+    flash_attention.launches_pos += int(positions)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
+flash_attention.launches_pos = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale=1.0,
-                        round_scores=False):
+                        round_scores=False, q_pos=None, k_pos=None, kv_mask=None):
     """``(dq, dk, dv)`` of :func:`flash_attention` on the card by
     ``csrc/flash_attention_bwd.cu`` (the plain version for CPU tensors):
     ``out`` and ``lse`` from the forward with ``return_lse=True`` and the
     same ``round_scores``, ``dout`` the output's cotangent ``[B, H, Sq,
     D]``. The tensor-core route takes its scratch from ``torch.empty``:
     an f32 dQ accumulator ``[B·H, ⌈Sq/64⌉, 64, D rounded up to 16]`` (168
-    MB at h2o-danube's training shape) beside f32 rows and int32 counters."""
+    MB at h2o-danube's training shape) beside f32 rows and int32 counters.
+    The positions route takes the forward's ``q_pos``, ``k_pos`` and
+    ``kv_mask`` (its pad is in ``out``)."""
     if not fake.on_card(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, window, scale,
-                                         round_scores)
+                                         round_scores, q_pos, k_pos, kv_mask)
     _check(q, k, v)
+    positions = _check_positions(q, k, q_pos, k_pos, kv_mask, 0)
     b, h, sq, d = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -420,9 +509,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
     tc = bwd_route(q.dtype, d) == "tc"
     if fake.is_fake(q):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        fake.record("flash_attention_bwd", fake.nbytes(q, k, v, out, lse, dout, dq, dk, dv),
-                    _pair_flops(q, k, causal, window, 10))
-        return _count_bwd(tc, dq, dk, dv)
+        fake.record("flash_attention_bwd",
+                    fake.nbytes(q, k, v, out, lse, dout, dq, dk, dv, q_pos, k_pos, kv_mask),
+                    _pair_flops(q, k, causal, window, 10, positions))
+        return _count_bwd(tc, dq, dk, dv, positions)
     if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("the backward's tensor-core route needs q, k, v and dout "
                          "16-byte aligned")
@@ -443,22 +533,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
         dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
         0 if window is None else int(window), float(scale), int(bool(round_scores)),
+        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
-    return _count_bwd(tc, dq, dk, dv)
+    return _count_bwd(tc, dq, dk, dv, positions)
 
 
-def _count_bwd(tc: bool, dq, dk, dv):
+def _count_bwd(tc: bool, dq, dk, dv, positions: bool):
     flash_attention_bwd.launches += 1
     if tc:
         flash_attention_bwd.launches_tc += 1
     else:
         flash_attention_bwd.launches_simt += 1
+    flash_attention_bwd.launches_pos += int(positions)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_tc = 0
 flash_attention_bwd.launches_simt = 0
+flash_attention_bwd.launches_pos = 0

@@ -66,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import signal
 import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -510,13 +511,21 @@ class Supervised:
     def run(self, n_steps: int):
         """Train to ``n_steps`` (resuming from the newest checkpoint); the
         live tensors then hold the final state. Returns ``(step,
-        metrics)``; ``metrics`` is ``None`` when no step ran."""
+        metrics)``; ``metrics`` is ``None`` when no step ran. The
+        supervisor's SIGTERM handler (which holds it, and through it the
+        whole training state) is replaced by the one from before the run
+        when the run ends."""
         if self.on_mesh:
             shd.activate(self.mesh, batch_split=self.batch_split)
+        sigterm = signal.getsignal(signal.SIGTERM)
         try:
             state, step, metrics = self.sup.run(self.init_state, n_steps)
         finally:
             shd.deactivate()
+            # None: a handler not installed from Python; off the main thread
+            # the supervisor installs none
+            if sigterm is not None and signal.getsignal(signal.SIGTERM) is not sigterm:
+                signal.signal(signal.SIGTERM, sigterm)
         self.load_(state)
         return step, metrics
 

@@ -19,11 +19,16 @@ The forward half of ``repro.models.transformer.attention``, layout
   ``_flash_bwd`` recomputes P from it): ``kernels.autograd.flash_attention``,
   whose backward is the kernel of ``csrc/flash_attention_bwd.cu``.
 
-One difference is kept on purpose: a query row with no key kept gives 0
-from the kernel, where ``attention_chunked`` in the JAX package gives the
-mean of V (its mask value ``NEG_INF`` is a finite −1e30). Causal prefill
-from position 0 keeps at least the query's own key, so no model path meets
-such a row; there the backward gives a zero gradient.
+:func:`attention_chunked` takes the JAX package's arguments whole: query
+and key positions (``[S]`` or ``[B, S]``) and a key mask ``[B, Sk]``. With
+none of them its positions are 0..S−1 — what ``forward`` and ``prefill``
+pass (``None`` through :func:`attention`) — and the kernel runs its index
+route, whose rows always keep a key there. Any positions or mask given
+take the kernel's positions route, which reads them on the card (no host
+sync) and follows the JAX package where a row keeps no key: its finite
+mask value ``NEG_INF`` (−1e30) gives such a row ``Σ_{j<Sk} v_j / (Sk +
+pad)``, the pad being the zero keys of JAX's last KV chunk, and in the
+backward a probability of 1 for every key.
 """
 
 from __future__ import annotations
@@ -138,18 +143,45 @@ def _pv_float32(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, h, sq, -1).transpose(1, 2)
 
 
+def _positions(pos, b: int, s: int, device) -> torch.Tensor:
+    """int32 ``[B, S]`` from ``[S]``, ``[B, S]`` or ``None`` (0..S−1)."""
+    if pos is None:
+        pos = torch.arange(s, dtype=torch.int32, device=device)
+    return pos.to(torch.int32).expand(b, s).contiguous()
+
+
 def attention_chunked(
-    q: torch.Tensor,  # [B, S, H, Dh]
-    k: torch.Tensor,  # [B, S, Hkv, Dh]
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Sk, Hkv, Dh]
     v: torch.Tensor,
+    q_pos: Optional[torch.Tensor] = None,  # [B, Sq] or [Sq]; None: 0..Sq−1
+    k_pos: Optional[torch.Tensor] = None,  # [B, Sk] or [Sk]; None: 0..Sk−1
     causal: bool = True,
     window: Optional[int] = None,
+    chunk_q: int = 1024,  # kept for API compat, as in JAX; unused
+    chunk_kv: int = 1024,
+    kv_mask: Optional[torch.Tensor] = None,  # [B, Sk] valid-KV mask
 ) -> torch.Tensor:
-    """Flash attention over positions 0..S−1 (those of a forward or a
-    prefill), scaled by ``Dh**-0.5``: one ``kernels.flash_attention`` call
-    in its ``[B, H, S, Dh]`` layout, each q·k rounded to the inputs' dtype
-    before the scale (``round_scores``), as the JAX package's bf16 einsum
-    rounds its scores and the decode step's ``attention_dense`` does."""
+    """Flash attention scaled by ``Dh**-0.5``: one ``kernels.flash_attention``
+    call in its ``[B, H, S, Dh]`` layout, each q·k rounded to the inputs'
+    dtype before the scale (``round_scores``), as the JAX package's bf16
+    einsum rounds its scores and the decode step's ``attention_dense``
+    does. Without positions and mask, where every row keeps a key (Sq ≤ Sk
+    and a window of at least 1), the kernel's index route; otherwise its
+    positions route, with ``chunk_kv`` setting only the pad that JAX's
+    last chunk adds to a row that keeps no key."""
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    extra = {}
+    if not (q_pos is None and k_pos is None and kv_mask is None and sq <= sk
+            and (window is None or window >= 1)):
+        extra = dict(
+            q_pos=_positions(q_pos, b, sq, q.device),
+            k_pos=_positions(k_pos, b, sk, q.device),
+            kv_mask=(torch.ones((b, sk), dtype=torch.bool, device=q.device)
+                     if kv_mask is None else kv_mask.to(torch.bool).contiguous()),
+            pad=(-sk) % min(chunk_kv, sk) if sk else 0,
+        )
     out = flash_attention(
         q.transpose(1, 2).contiguous(),
         k.transpose(1, 2).contiguous(),
@@ -158,22 +190,25 @@ def attention_chunked(
         window=window,
         scale=q.shape[-1] ** -0.5,
         round_scores=True,
+        **extra,
     )
     return out.transpose(1, 2)
 
 
 def attention(q, k, v, q_pos, k_pos, cfg, causal=True, kv_mask=None):
     """The JAX package's dispatch: one query (decode) or ``attn_impl ==
-    "dense"`` takes :func:`attention_dense`; a sequence takes
-    :func:`attention_chunked`, whose positions are 0..S−1 — the ones
-    ``forward`` and ``prefill`` pass — and which takes no key mask."""
+    "dense"`` takes :func:`attention_dense`, a sequence
+    :func:`attention_chunked`, with every argument passed through.
+    Positions ``None`` mean 0..S−1 (the model's forward and prefill)."""
     window = cfg.swa_window
     if cfg.attn_impl == "dense" or q.shape[1] == 1:
+        b = q.shape[0]
         return attention_dense(
-            q, k, v, q_pos, k_pos, causal=causal, window=window, kv_mask=kv_mask
+            q, k, v,
+            _positions(q_pos, b, q.shape[1], q.device) if q_pos is None else q_pos,
+            _positions(k_pos, b, k.shape[1], q.device) if k_pos is None else k_pos,
+            causal=causal, window=window, kv_mask=kv_mask,
         )
-    if kv_mask is not None or q_pos.ndim != 1 or q_pos.shape != k_pos.shape:
-        raise NotImplementedError(
-            "the flash path takes positions 0..S-1 of one sequence and no key mask"
-        )
-    return attention_chunked(q, k, v, causal=causal, window=window)
+    return attention_chunked(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                             kv_mask=kv_mask)

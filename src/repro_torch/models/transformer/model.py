@@ -7,8 +7,8 @@ tensors (``[L, ...]``, as the JAX tree stacks them for ``lax.scan``); the
 layer loop is a Python loop. Prefill attention goes through the
 ``flash_attention`` kernel (``attention.attention_chunked``); the decode
 step's attention over the ring-buffer cache is plain tensor code
-(``attention.attention_dense``), as in the JAX package, because the
-kernel's implicit positions cannot express the ring.
+(``attention.attention_dense``), as in the JAX package, whose dispatch
+takes the dense attention for a single query.
 
 :func:`decode_step_` is the JAX ``decode_step`` with one change of
 contract, which the trailing underscore marks as PyTorch marks its
@@ -475,7 +475,8 @@ def _attn_block(p, h, pos, cfg: TransformerConfig, tp: ModelAxis, kv_heads=None)
     kv_heads = kv_heads or (k0, k1)
     q, k, v = project_qkv(p, h, pos, cfg, tp, (q0, q1), kv_heads)
     read = slice(k0 - kv_heads[0], k1 - kv_heads[0])
-    out = attn_mod.attention(q, k[:, :, read], v[:, :, read], pos, pos, cfg, causal=True)
+    # positions None: 0..S−1, the flash kernel's index route
+    out = attn_mod.attention(q, k[:, :, read], v[:, :, read], None, None, cfg, causal=True)
     own = tp.block(cfg.n_heads * hd)
     out = out.reshape(b, s, (q1 - q0) * hd)[..., own.start - q0 * hd:own.stop - q0 * hd]
     return _mm(out, _take(p["wo"], cfg.n_heads * hd, own, tp, dim=-2), tp), k, v

@@ -19,10 +19,7 @@ batched small graphs whose graphs straddle ranks (8 graphs of 7 nodes, the
   divides them, whole where it does not — and values within ``TOL``;
 * the loss within ``TOL`` and every parameter's gradient within
   ``GRAD_F32`` · max|g| (``tests/test_torch_mesh.py``'s bounds), on every
-  rank; PNA with its std aggregator within ``GRAD_STD`` = 1e-3 · max|g|,
-  the bound its one-device gradient needs against JAX's without any mesh
-  (the std's ``1/sqrt(var + 1e-5)`` amplifies rounding), PNA without it
-  within ``GRAD_F32``;
+  rank, PNA with its std aggregator too;
 * each rank's batch leaves are JAX's shard shapes, ``1/4`` of the whole
   where the mesh divides them, and at no layer's entry is a plain tensor of
   ``N`` or ``E`` rows alive on a rank where the mesh divides both;
@@ -53,9 +50,6 @@ import torch_gnn_shard_reference as ref  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 2e-5
 GRAD_F32 = 1e-4
-#: PNA's gradients with its std aggregator (see
-#: test_pna_gradient_without_a_mesh)
-GRAD_STD = 1e-3
 RANKS = range(4)
 CASES = [(tag, case, arch) for tag in ref.MESHES for case, archs in ref.CASES.items()
          for arch in archs if not (case == "n94" and arch in ref.FUSED)]
@@ -129,18 +123,12 @@ def test_first_layer_blocks(results, tag, case, arch):
         assert results[1][f"{key}/e/0"].shape[0] == (e if e % 4 else e // 4)
 
 
-def _grad_tol(arch):
-    return GRAD_STD if arch == "pna" else GRAD_F32
-
-
 @pytest.mark.parametrize("tag,case,arch", CASES)
 def test_loss_and_gradients(results, tag, case, arch):
     """``loss_fn`` — JAX's global loss, the ranks' masked sums, pools and
     denominators summed over the ranks — within ``TOL`` on every rank, and
     every parameter's gradient, whole and alike on every rank, within
-    ``GRAD_F32`` · max|g|; PNA with its std aggregator within ``GRAD_STD``
-    (see :func:`test_pna_gradient_without_a_mesh`), PNA without it within
-    ``GRAD_F32``."""
+    ``GRAD_F32`` · max|g|, PNA with its std aggregator too."""
     jax_res, port = results[:2]
     key = f"{tag}/{case}/{arch}"
     keys = sorted(k for k in jax_res if k.startswith(f"{key}/grads/"))
@@ -150,20 +138,18 @@ def test_loss_and_gradients(results, tag, case, arch):
         assert sorted(k for k in port if k.startswith(f"{key}/grads/")
                       and k.endswith(f"/{r}")) == [f"{k}/{r}" for k in keys]
         for k in keys:
-            _close(port[f"{k}/{r}"], jax_res[k], f"{k} rank {r}", _grad_tol(arch))
+            _close(port[f"{k}/{r}"], jax_res[k], f"{k} rank {r}", GRAD_F32)
 
 
 @pytest.mark.parametrize("arch", ["pna", "pna-nostd"])
 @pytest.mark.parametrize("case", ["full", "e257"])
 def test_pna_gradient_without_a_mesh(results, case, arch):
-    """Why PNA's gradients have their own bound: its std aggregator divides
-    by ``sqrt(var + 1e-5)``, ~158× near a segment of equal messages, so
-    rounding in another order moves its gradients without any mesh (on an
-    earlier draw of these inputs the port's one-device first-layer
-    ``w_pre`` gradient lay 3.25e-4 · max|g| from JAX's). On one device, no
-    mesh, the port's PNA gradient is held to JAX's within the bound the
-    mesh's is held to: ``GRAD_STD`` with the std aggregator, ``GRAD_F32``
-    without it."""
+    """PNA's gradients on one device, no mesh, with and without its std
+    aggregator, within ``GRAD_F32`` · max|g| of JAX's: the bound the mesh's
+    are held to. The std divides by ``sqrt(var + 1e-5)``, ~158× near a
+    segment of equal messages, so rounding in another order moves these
+    gradients most (an earlier draw of these inputs put the first layer's
+    ``w_pre`` gradient 3.25e-4 · max|g| from JAX's)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -186,7 +172,7 @@ def test_pna_gradient_without_a_mesh(results, case, arch):
           for part in ("params", "batch")))), "g")
     assert sorted(f"g/{k}" for k in grads) == sorted(want)
     for k, g in grads.items():
-        _close(g.numpy(), want[f"g/{k}"], f"{arch} {k}", _grad_tol(arch))
+        _close(g.numpy(), want[f"g/{k}"], f"{arch} {k}", GRAD_F32)
 
 
 @pytest.mark.parametrize("tag,case,arch", CASES)

@@ -1026,9 +1026,10 @@ def test_merge_tiles_brute_force(layout, tile):
 def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     """On a copy of ``csrc/``: a library's name hashes its source and every
     ``csrc`` header it includes (``flash_attention.cu`` and
-    ``flash_attention_bwd.cu`` share ``hopper.cuh``), so an edited header
-    names a new library for both and a stale one is never loaded; a header
-    that no source includes, or another kernel's source, changes nothing."""
+    ``flash_attention_bwd.cu`` share ``hopper.cuh`` and ``positions.cuh``),
+    so an edited header names a new library for both and a stale one is
+    never loaded; a header that no source includes, or another kernel's
+    source, changes nothing."""
     from repro_torch.kernels import build
 
     csrc = tmp_path / "csrc"
@@ -1038,7 +1039,9 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     names = ("flash_attention", "flash_attention_bwd", "gather_rows")
     before = {n: build.library_path(n) for n in names}
     assert [p.name for p in build.sources("flash_attention_bwd")] == [
-        "flash_attention_bwd.cu", "hopper.cuh"]
+        "flash_attention_bwd.cu", "hopper.cuh", "positions.cuh"]
+    assert [p.name for p in build.sources("flash_attention")] == [
+        "flash_attention.cu", "hopper.cuh", "positions.cuh"]
     assert [p.name for p in build.sources("gather_rows")] == ["gather_rows.cu"]
     (csrc / "unused.cuh").write_text("#pragma once\n")
     with open(csrc / "segment_reduce.cu", "a") as f:
