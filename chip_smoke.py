@@ -4096,6 +4096,68 @@ POSITIONS_SHAPES = (  # (arch, H, Hkv, D, causal, window)
 #: the SIMT case: [B, H, Hkv, Sq, Sk, D], random positions in [0, Sk + 100),
 #: a window, 10 % of the keys masked, f32, JAX's chunk_kv (its pad > 0)
 POSITIONS_SIMT = (2, 4, 2, 700, 900, 64, 128, 256)
+#: a batch whose last row keeps no key at all (its mask all False), the
+#: first left-padded: [B, H, Hkv, S, D], causal; bf16 on the tensor cores,
+#: then f32 on the SIMT route (dead tiles and rows that keep no key there)
+POSITIONS_EMPTY_ROW = (2, 8, 2, 1024, 128, 300)
+
+
+def walk_counts(fwd_seen, bwd_seen, q_pos, k_pos, kv_mask, h, sq, sk, causal, window,
+                route: str) -> dict:
+    """The tiles the positions route's kernels visited in one forward and
+    one backward, as the card reports them (``ops.visited``), held to the
+    kernels' rule run on the host. Tensor cores: the walk lists the kernels
+    followed (128 × 128 forward, 64 × 128 backward) must equal
+    ``ops.walk_lists`` entry for entry — tile, the warpgroups' kinds
+    (interior: mask-free) and the backward's dQ rank. SIMT (64 × 64 both):
+    the tiles each kernel's blocks counted as they visited them must equal
+    the heads times ``ops.live_tiles``' live tiles; the pairs then come
+    from that walk. Returns live tiles a head beside every tile, and the
+    (query, key) pairs a head visits in them (rows below Sq, keys below
+    Sk)."""
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    positions = tuple(t.cpu() for t in (q_pos, k_pos, kv_mask))
+    b = q_pos.shape[0]
+
+    def span(t, n, s_):
+        return min(s_, (t + 1) * n) - t * n
+
+    out = {}
+    for what, seen in (("fwd", fwd_seen), ("bwd", bwd_seen)):
+        if route == "tc":
+            bq, bk = (128, 128) if what == "fwd" else (64, 128)
+            want = fl.walk_lists(positions, sq, sk, causal, window, bwd=what == "bwd")
+            got = None if seen is None else seen.get("walk")
+            if got != want:
+                at = next((i for i, (x, y) in enumerate(zip(got or [], want)) if x != y),
+                          min(len(got or []), len(want)))
+                raise AssertionError(
+                    f"positions route {what}: the card's walk differs from the rule's at "
+                    f"entry {at} of {len(want)}: {(got or [])[at:at + 1]} against "
+                    f"{want[at:at + 1]}")
+            tiles = ([(qt, kt) for _, qt, kt, *_ in seen["walk"]] if what == "fwd"
+                     else [(qt, kt) for _, kt, qt, *_ in seen["walk"]])
+            live, source = len(tiles), "the card's walk lists, equal to ops.walk_lists"
+            interior = sum(kind == fl.TILE_INTERIOR for e in seen["walk"] for kind in e[3:5])
+            extra = {"mask_free_halves": interior}
+        else:
+            bq = bk = 64
+            walk = fl.live_tiles(sq, sk, causal, window, bq, bk, positions=positions)
+            tiles = [(qt, kt) for _, qt, kts in walk for kt in kts]
+            want = [h * len(tiles)] * (1 if what == "fwd" else 2)
+            if seen is None or seen.get("tiles") != want:
+                raise AssertionError(f"positions route {what}: the card's blocks visited "
+                                     f"{seen} tiles, the rule leaves {want} live")
+            live = seen["tiles"][0] // h
+            source = "the card's tile counts (all heads), equal to ops.live_tiles' × H"
+            extra = {"tiles_counted_on_card": seen["tiles"]}
+        out[what] = {"tiles": f"{bq} x {bk}", "live_tiles": live,
+                     "every_tile": b * -(-sq // bq) * -(-sk // bk),
+                     "visited_pairs_per_head": sum(span(qt, bq, sq) * span(kt, bk, sk)
+                                                   for qt, kt in tiles),
+                     "tiles_from": source, **extra}
+    return out
 
 
 def kept_pairs_host(q_pos, k_pos, kv_mask, causal: bool, window) -> int:
@@ -4134,7 +4196,8 @@ def require_flash_launches(before: dict, route: str, positions: bool, what: str)
             raise AssertionError(f"{what}: {fn} launched {got}, expected {want}")
 
 
-def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad):
+def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad,
+                   as_index=False, nokey_do_zero=False):
     """One case of the flash kernels' positions route on the card.
 
     Forward and backward are held row by row (``FLASH_ROW``) to their plain
@@ -4146,8 +4209,15 @@ def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad
     1, Sq, Sk]`` (kv expanded to H heads) forward and backward as the
     library call; the bound is the kept pairs, counted on the host, × 4·D
     flops forward and × 10·D backward at the tensor-core bf16 rate (f32:
-    the f32 units' rate), or the bytes if larger. Returns the forward's and
-    the backward's rows."""
+    the f32 units' rate), or the bytes if larger. The tiles visited are
+    read back from the card and held to the rule (:func:`walk_counts`).
+    With ``nokey_do_zero`` the backward runs once more with dO zero on the
+    rows that keep no key, whose closed-form terms then vanish, so that its
+    dK and dV are held to the plain version by the walk alone. With ``as_index``
+    (positions 0..S−1, no key masked) the positions route's out, lse, dq,
+    dk and dv are also compared with the index route's on the same inputs,
+    bit for bit (``max|Δ|`` per tensor, reported). Returns the forward's
+    and the backward's rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fl
@@ -4161,6 +4231,7 @@ def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad
     out, lse = fl.flash_attention(q, k, v, causal, window, scale, True, True, pad=pad, **pos)
     grads = fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, scale, True, **pos)
     require_flash_launches(before, route, True, f"positions route, {what}")
+    seen = (fl.visited(fl.flash_attention), fl.visited(fl.flash_attention_bwd))
     want, want_lse = fl.flash_attention_plain(q, k, v, causal, window, scale, True, True,
                                               pad=pad, **pos)
     flash_row_check(out, want, f"positions route, {what}")
@@ -4176,6 +4247,19 @@ def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad
         flash_row_check(g, w, f"positions route backward {name}, {what}")
         bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
     del want, grads
+    walk_only_err = None
+    if nokey_do_zero:  # the walk's dK, dV without the no-key rows' terms
+        do0 = do.masked_fill(empty[..., None], 0)
+        got = fl.flash_attention_bwd(q, k, v, out, lse, do0, causal, window, scale, True,
+                                     **pos)
+        want = fl.flash_attention_bwd_plain(q, k, v, out, lse, do0, causal, window, scale,
+                                            True, **pos)
+        walk_only_err = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            flash_row_check(g, w, f"positions route backward {name}, dO zero on the rows "
+                                  f"that keep no key, {what}")
+            walk_only_err = max(walk_only_err, float((g.float() - w.float()).abs().max()))
+        del do0, got, want
     before = flash_counts()
     iout, ilse = fl.flash_attention(q, k, v, causal, window, scale, True, True)
     igrads = fl.flash_attention_bwd(q, k, v, iout, ilse, do, causal, window, scale, True)
@@ -4186,6 +4270,16 @@ def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad
     for name, g, w in zip(("dq", "dk", "dv"), igrads, fl.flash_attention_bwd_plain(
             q, k, v, iout, ilse, do, causal, window, scale, True)):
         flash_row_check(g, w, f"index route backward {name}, {what}")
+    versus_index = None
+    if as_index:  # the positions route's bits against the index route's
+        grads = fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, scale, True,
+                                       **pos)
+        versus_index = {name: float((a.float() - b.float()).abs().max())
+                        for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                                              (out, lse, *grads), (iout, ilse, *igrads))}
+        versus_index["bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip((out, lse, *grads), (iout, ilse, *igrads)))
+        del grads
     del igrads
 
     def fwd():
@@ -4234,75 +4328,159 @@ def positions_case(what, q, k, v, do, q_pos, k_pos, kv_mask, causal, window, pad
     b_bound, b_by = bound(b_bytes, pairs * h * 10 * d, rate)
     shape = (f"q {str(q.dtype)[6:]}[{b},{h},{sq},{d}], kv [{b},{hkv},{sk},{d}], "
              f"{'causal' if causal else 'not causal'}, window {window}, pad {pad} ({what})")
+    walk = walk_counts(*seen, q_pos, k_pos, kv_mask, h, sq, sk, causal, window, route)
     common = {"route": "cuda", "kernel_route": f"positions, {route}", "launches": 0,
               "launches_positions_phase": 1, "shape": shape, "kept_pairs_per_head": pairs,
-              "visited_pairs_per_head": b * sq * sk, "rows_keeping_no_key": int(empty.sum()),
+              "rows_keeping_no_key": int(empty.sum()),
               "library": "scaled_dot_product_attention(bool attn_mask [B,1,Sq,Sk], "
                          f"kv expanded to {h} heads), forward or backward"}
+    if versus_index is not None:
+        common["versus_index_route"] = versus_index
+    if walk_only_err is not None:
+        common["bwd_max_abs_err_nokey_do_zero"] = walk_only_err
     fwd_row = {
         "name": "flash_attention", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
         "semantics": "src/repro/models/transformer/attention.py:87 attention_chunked",
         "max_abs_err": fwd_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": f_bound, "bound_by": f_by, "library_ms": times["library_ms"],
-        "index_route_ms": times["index_ms"], "bound_share": f_bound / times["ms"], **common}
+        "index_route_ms": times["index_ms"], "bound_share": f_bound / times["ms"],
+        **walk["fwd"], **common}
     bwd_row = {
         "name": "flash_attention_bwd", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/transformer/attention.py:188",
         "max_abs_err": bwd_err, "ms": times["bwd_ms"], "plain_ms": times["plain_bwd_ms"],
         "bound_ms": b_bound, "bound_by": b_by, "library_ms": times["library_bwd_ms"],
         "index_route_ms": times["index_bwd_ms"], "bound_share": b_bound / times["bwd_ms"],
-        **common}
+        **walk["bwd"], **common}
     if "library_refused" in times:
         fwd_row["library_refused"] = bwd_row["library_refused"] = times["library_refused"]
     return [fwd_row, bwd_row]
 
 
-def positions_phase(seed, device, card):
-    """The flash kernels' positions route (the JAX package's whole
-    ``attention_chunked``: query and key positions, a key mask): (a) a
-    left-padded batch of ``POSITIONS_LENGTHS`` prompts in
-    ``POSITIONS_SLOTS`` slots, bf16 on the tensor cores, at h2o-danube's and
-    deepseek-moe's attention, the pad rows keeping no key; (b) random
-    positions with a window and 10 % of the keys masked, f32 on the SIMT
-    route, at a small shape whose JAX chunk pads. Each by
-    :func:`positions_case`; returns the ``kernels`` rows."""
-    t_phase = time.perf_counter()
+def positions_inputs(seed, device):
+    """The positions phase's cases in order, each ``(what, tensors,
+    options)``: ``tensors`` q, k, v, dO, q_pos, k_pos and kv_mask on the
+    card from ``seed``, ``options`` the rest of :func:`positions_case`'s
+    arguments. (a) a left-padded batch of ``POSITIONS_LENGTHS`` prompts in
+    ``POSITIONS_SLOTS`` slots, bf16 on the tensor cores, at h2o-danube's
+    and deepseek-moe's attention, the pad rows keeping no key (h2o's also
+    with dO zero on them); (b) positions 0..S−1 with no key masked at
+    h2o-danube's shape, against the index route's bits; (c) a batch whose
+    last row keeps no key at all (``POSITIONS_EMPTY_ROW``), bf16; (d)
+    random positions with a window and 10 % of the keys masked, f32 on the
+    SIMT route, at a small shape whose JAX chunk pads; (e) (c) in f32 on
+    the SIMT route. :func:`positions_phase` and :func:`positions_profile`
+    both run these."""
     gen = torch.Generator(device=device).manual_seed(seed + 26)
 
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dt)
 
-    rows = []
+    def qkvd(b, h, hkv, sq, sk, d, dt):
+        return tuple(rnd(shape, dt) for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                                  (b, hkv, sk, d), (b, h, sq, d)))
+
     b, s = len(POSITIONS_LENGTHS), POSITIONS_SLOTS
     pads = torch.tensor([s - n for n in POSITIONS_LENGTHS], dtype=torch.int32, device=device)
     pos = (torch.arange(s, dtype=torch.int32, device=device)[None] - pads[:, None]).contiguous()
     for arch, h, hkv, d, causal, window in POSITIONS_SHAPES:
-        dt = torch.bfloat16
-        q, k, v, do = (rnd(shape, dt) for shape in ((b, h, s, d), (b, hkv, s, d),
-                                                    (b, hkv, s, d), (b, h, s, d)))
-        rows += positions_case(f"{arch}'s attention, left-padded prompts of "
-                               f"{'/'.join(map(str, POSITIONS_LENGTHS))} tokens", q, k, v, do,
-                               pos, pos, pos >= 0, causal, window, 0)
-        del q, k, v, do
+        qkv = qkvd(b, h, hkv, s, s, d, torch.bfloat16)
+        yield (f"{arch}'s attention, left-padded prompts of "
+               f"{'/'.join(map(str, POSITIONS_LENGTHS))} tokens", (*qkv, pos, pos, pos >= 0),
+               dict(causal=causal, window=window, pad=0,
+                    nokey_do_zero=arch == "h2o-danube-1.8b"))
+        if arch == "h2o-danube-1.8b":  # 0..S-1, no mask: the index route's bits
+            ar = torch.arange(s, dtype=torch.int32, device=device).repeat(b, 1)
+            yield (f"{arch}'s attention, positions 0..S-1, no key masked",
+                   (*qkv, ar, ar, torch.ones_like(ar, dtype=torch.bool)),
+                   dict(causal=causal, window=window, pad=0, as_index=True))
+        del qkv
         torch.cuda.empty_cache()
+
+    def empty_row(dt):
+        b, h, hkv, s, d, pad = POSITIONS_EMPTY_ROW
+        qkv = qkvd(b, h, hkv, s, s, d, dt)
+        ar = torch.arange(s, dtype=torch.int32, device=device).repeat(b, 1)
+        ar[0] -= pad
+        kv_mask = ar >= 0
+        kv_mask[-1] = False
+        return (f"left-padded row and a row that keeps no key ({pad} pads, then every key "
+                f"masked), {str(dt)[6:]}", (*qkv, ar, ar.clone(), kv_mask),
+                dict(causal=True, window=None, pad=0))
+
+    yield empty_row(torch.bfloat16)
     b, h, hkv, sq, sk, d, window, chunk_kv = POSITIONS_SIMT
-    dt = torch.float32
-    q, k, v, do = (rnd(shape, dt) for shape in ((b, h, sq, d), (b, hkv, sk, d),
-                                                (b, hkv, sk, d), (b, h, sq, d)))
+    qkv = qkvd(b, h, hkv, sq, sk, d, torch.float32)
     q_pos = torch.randint(0, sk + 100, (b, sq), generator=gen, device=device,
                           dtype=torch.int32)
     k_pos = torch.randint(0, sk + 100, (b, sk), generator=gen, device=device,
                           dtype=torch.int32)
     kv_mask = torch.rand((b, sk), generator=gen, device=device) >= 0.1
-    rows += positions_case(f"random positions, window {window}, 10 % of keys masked", q, k,
-                           v, do, q_pos, k_pos, kv_mask, True, window,
-                           (-sk) % min(chunk_kv, sk))
+    yield (f"random positions, window {window}, 10 % of keys masked",
+           (*qkv, q_pos, k_pos, kv_mask),
+           dict(causal=True, window=window, pad=(-sk) % min(chunk_kv, sk)))
+    del qkv
+    yield empty_row(torch.float32)
+
+
+def positions_phase(seed, device, card):
+    """The flash kernels' positions route (the JAX package's whole
+    ``attention_chunked``: query and key positions, a key mask) on
+    :func:`positions_inputs`' cases, each by :func:`positions_case`;
+    returns the ``kernels`` rows."""
+    t_phase = time.perf_counter()
+    rows = []
+    for what, tensors, options in positions_inputs(seed, device):
+        rows += positions_case(what, *tensors, **options)
+        del tensors
     for row in rows:
         say("positions_case", card, **{k_: v_ for k_, v_ in row.items()
                                        if k_ not in ("route", "source", "replaces")})
     say("positions_phase", card, seconds=time.perf_counter() - t_phase)
     return rows
+
+
+def positions_profile(seed, device, card):
+    """``--positions-profile``: each launch's device time (``torch.profiler``,
+    CUPTI) in one forward and one backward of the positions route, and of
+    the index route on the same q, k, v, on each of :func:`positions_inputs`'
+    cases: where the time of the small launches (bounds, walks, column
+    sums, the no-key sums and dQ) goes beside the main kernels. Prints
+    ``positions_profile`` lines; no result line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    for what, (q, k, v, do, q_pos, k_pos, kv_mask), options in positions_inputs(seed, device):
+        scale = q.shape[3]**-0.5
+        causal, window = options["causal"], options["window"]
+        for case, pos_args in (("positions route", dict(q_pos=q_pos, k_pos=k_pos,
+                                                        kv_mask=kv_mask, pad=options["pad"])),
+                               ("index route", {})):
+            out, lse = fl.flash_attention(q, k, v, causal, window, scale, True, True,
+                                          **pos_args)
+            bwd_args = {n: t for n, t in pos_args.items() if n != "pad"}
+
+            def both():
+                fl.flash_attention(q, k, v, causal, window, scale, round_scores=True,
+                                   **pos_args)
+                fl.flash_attention_bwd(q, k, v, out, lse, do, causal, window, scale, True,
+                                       **bwd_args)
+
+            for _ in range(2):
+                both()
+            sync(device)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                both()
+                sync(device)
+            launches = [(e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+                         .split("(")[0].split("<")[0].split("::")[-1], e.device_time / 1e3)
+                        for e in prof.events() if getattr(e, "device_time", 0) > 0]
+            say("positions_profile", card, case=what, route=case, launches_ms=launches,
+                device_ms=sum(t for _, t in launches))
+            del out, lse
+    return 0
 
 
 def train_kernel_rows(launches, seed, device, card):
@@ -6301,6 +6479,8 @@ def main() -> int:
     if "--positions" in sys.argv[1:]:  # the flash positions route alone: no result line
         positions_phase(seed, device, card)
         return 0
+    if "--positions-profile" in sys.argv[1:]:  # its launches' device times: no result line
+        return positions_profile(seed, device, card)
     if "--row-gemm" in sys.argv[1:]:  # row blocks of the GNN products: no result line
         row_gemm_probe(device, card)
         return 0

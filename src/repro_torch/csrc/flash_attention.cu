@@ -112,19 +112,28 @@
 // [B, Sq], k_pos int32 [B, Sk] and kv_mask bool [B, Sk]) is the JAX
 // package's whole attention_chunked: key j is kept for query i iff
 // kv_mask[j], q_pos[i] >= k_pos[j] under causal and q_pos[i] - k_pos[j] <
-// window under a window (positions within +-2^30). The positions are data,
-// so both routes visit every key tile of every query tile, masking each
-// score from the tile's key positions, loaded once a tile into shared
-// memory (the tensor-core route: a bulk copy beside the K tile, from an
-// int32 [B, tiles * 128] array of key positions that a first launch
-// writes, a key the mask removes stored as MASKED). A masked score takes
-// JAX's finite mask value NEG_INF (-1e30), a key past Sk -inf, and the
-// running max starts at NEG_INF: so a row with a kept key is computed as on
-// the index route, and a row that keeps none sums every key's V with weight
-// 1, its sum of weights Sk plus the `pad` zero keys that JAX's last KV
-// chunk adds (pad * exp(NEG_INF - m), 0 in any other row), its lse NEG_INF:
-// out = sum_j v_j / (Sk + pad), as JAX gives. The index route's code and
-// results are unchanged (POS = false).
+// window under a window (positions within +-2^30). Small launches come
+// first: tile_bounds (csrc/positions.cuh) writes each 64-key tile's and
+// each 64-row query block's position bounds, on the tensor-core route
+// fwd_walk turns them into each query tile's ascending list of live key
+// tiles with both warpgroups' kinds (in global memory: the list is too long
+// for the shared memory that D = 128 leaves), and column_sums writes the
+// f32 sum of V over the Sk keys of each (batch, kv head). Both routes then
+// visit only the key tiles that the bounds leave live (tile_kind; the
+// tensor-core route's producer and consumers read the same list, each
+// entry a load issued a tile ahead; the SIMT route skips a dead tile in its
+// loop), and the tensor-core route runs an interior tile mask-free, as the
+// index route runs one; other live tiles mask each score from the tile's
+// key positions (a bulk copy beside the K tile on the tensor cores, from
+// the int32 key positions that tile_bounds folds with the mask as MASKED). A masked score takes JAX's finite mask
+// value NEG_INF (-1e30), a key past Sk -inf, and the running max starts at
+// NEG_INF: a row with a kept key is computed as on the index route (the
+// weight-1 terms it gathers before its first kept key are multiplied by
+// exp(NEG_INF - m) = 0 there, so the tiles skipped change none of its
+// bits), and a row whose max is still NEG_INF after its live tiles keeps no
+// key: it takes JAX's answer in closed form, out = vsum / (Sk + pad) (the
+// `pad` zero keys of JAX's last KV chunk), rounded as o is, and lse NEG_INF
+// exactly. The index route's code and results are unchanged (POS = false).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -166,7 +175,9 @@ __global__ void __launch_bounds__(THREADS)
                      int has_window, int64_t window, float scale,
                      int round_scores, const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos,
-                     const uint8_t* __restrict__ kv_mask, float pad) {
+                     const uint8_t* __restrict__ kv_mask, const int* __restrict__ kbnd,
+                     const int* __restrict__ qbnd, const float* __restrict__ vsum,
+                     float pad, int* __restrict__ visited) {
   extern __shared__ float smem[];
   const int ld = d + 1;     // padded row of Q and K
   const int ldv = 8 * NJ;   // V row, zero past D
@@ -206,8 +217,8 @@ __global__ void __launch_bounds__(THREADS)
     qp[i] = POS && row < sq ? q_pos[b * sq + row] : 0;
   }
 
-  // the live KV tiles of this query tile, as the TPU kernel's rule (every
-  // tile on the positions route)
+  // the live KV tiles of this query tile, as the TPU kernel's rule (on the
+  // positions route every tile whose bounds leave it live)
   const int64_t n_kt = (sk + BK - 1) / BK;
   int64_t kt_end = n_kt;
   if (causal && !POS) {
@@ -219,9 +230,16 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t lo = q_start - window + 1;  // first key any row keeps
     if (lo > 0) kt_begin = lo / BK;
   }
+  const int64_t nk = bound_tiles(sk), nq = bound_tiles(sq);
+  const Bounds qbd = POS ? query_bounds(qbnd, b, nq, blockIdx.y) : Bounds{0, 0, 0};
+  int seen = 0;  // the live tiles visited (POS)
 
   for (int64_t kt = kt_begin; kt < kt_end; ++kt) {
     const int64_t k_start = kt * BK;
+    if (POS && tile_kind(qbd, key_bounds(kbnd, b, nk, kt, kt + 1), causal, has_window,
+                         window) == TILE_DEAD)
+      continue;  // the same for every thread: no pair of it is kept
+    ++seen;
     __syncthreads();  // the previous tile is consumed (and Q is staged)
     for (int i = tid; i < BK * d; i += THREADS) {
       const int r = i / d, c = i - r * d;
@@ -320,15 +338,25 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
+  if (POS && tid == 0) atomicAdd(visited, seen);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int64_t row = q_start + r0 + i;
     if (row >= sq) continue;
-    if (POS) l[i] += pad * expf(NEG_INF - m[i]);  // JAX's pad keys: 1 each, no V
+    T* orow = o + (bh * sq + row) * d;
+    if (POS && m[i] == NEG_INF) {  // no key kept: JAX's mean of V, its lse
+      if (lse != nullptr && tx == 0) lse[bh * sq + row] = NEG_INF;
+      const float n = (float)sk + pad;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 8 * j;
+        if (c < d) orow[c] = narrow<T>(vsum[kvh * d + c] / n);
+      }
+      continue;
+    }
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     if (lse != nullptr && tx == 0)
       lse[bh * sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
-    T* orow = o + (bh * sq + row) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 8 * j;
@@ -343,7 +371,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int n_heads, int n_kv_heads, int64_t sq, int64_t sk, int d,
            int causal, int has_window, int64_t window, float scale,
            int round_scores, const int* q_pos, const int* k_pos,
-           const uint8_t* kv_mask, float pad, cudaStream_t stream) {
+           const uint8_t* kv_mask, const int* kb, const int* qb, const float* vsum,
+           float pad, int* visited, cudaStream_t stream) {
   const int ld = d + 1;
   const size_t smem =
       sizeof(float) * (size_t)(BQ * ld + BK * ld + BK * 8 * NJ + BQ * (BK + 1)) +
@@ -357,7 +386,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, n_heads,
       n_heads / n_kv_heads, sq, sk, d, causal, has_window, window, scale,
-      round_scores, q_pos, k_pos, kv_mask, pad);
+      round_scores, q_pos, k_pos, kv_mask, kb, qb, vsum, pad, visited);
   return (int)cudaGetLastError();
 }
 
@@ -366,16 +395,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int64_t batch, int n_heads, int n_kv_heads, int64_t sq,
              int64_t sk, int d, int causal, int has_window, int64_t window,
              float scale, int round_scores, const int* q_pos, const int* k_pos,
-             const uint8_t* kv_mask, float pad, cudaStream_t s) {
+             const uint8_t* kv_mask, const int* kb, const int* qb, const float* vsum,
+             float pad, int* visited, cudaStream_t s) {
   const int nj = (d + 7) / 8;
 #define FLASH_CASE(N)                                                          \
   return q_pos != nullptr                                                      \
              ? launch<T, N, true>(q, k, v, o, lse, batch, n_heads, n_kv_heads,  \
                                   sq, sk, d, causal, has_window, window, scale, \
-                                  round_scores, q_pos, k_pos, kv_mask, pad, s)  \
+                                  round_scores, q_pos, k_pos, kv_mask, kb, qb,  \
+                                  vsum, pad, visited, s)                        \
              : launch<T, N, false>(q, k, v, o, lse, batch, n_heads, n_kv_heads, \
                                    sq, sk, d, causal, has_window, window, scale, \
-                                   round_scores, q_pos, k_pos, kv_mask, pad, s)
+                                   round_scores, q_pos, k_pos, kv_mask, kb, qb, \
+                                   vsum, pad, visited, s)
   if (nj <= 1) FLASH_CASE(1);
   if (nj <= 2) FLASH_CASE(2);
   if (nj <= 4) FLASH_CASE(4);
@@ -469,22 +501,24 @@ __device__ __forceinline__ void pv_issue(float (&o)[DP / 2],
 // the window's edge (interior tiles skip the mask), updates the rows' max m and per-thread partial sum
 // l, leaves p = 2^(s - m) in s and the factor for the old accumulator in
 // corr. A row whose max is still -inf takes p = 0 and keeps l = 0. On the
-// positions route (POS) every tile is masked, from the tile's key
-// positions kp (shared memory) and the rows' positions qp: a masked score
-// is NEG2, a key past Sk -inf.
+// positions route (POS) a tile that the bounds do not prove interior is
+// masked, from the tile's key positions kp (shared memory) and the rows'
+// positions qp: a masked score is NEG2, a key past Sk -inf.
 template <bool POS>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2], int k0,
                                              int row0, int qa, int sk, int causal,
                                              int has_window, int window,
                                              float scale_log2, int round_scores,
-                                             int t, const int* kp, const int (&qp)[2]) {
+                                             int t, const int* kp, const int (&qp)[2],
+                                             bool interior) {
   if (round_scores) {
 #pragma unroll
     for (int i = 0; i < BK / 2; i += 2) round_bf16(sc[i], sc[i + 1]);
   }
-  const bool edge = POS || k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
-                    (has_window && (long long)qa + WG_ROWS - 1 - k0 >= window);
+  const bool edge = POS ? !interior
+                        : k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
+                              (has_window && (long long)qa + WG_ROWS - 1 - k0 >= window);
   // an interior tile under a scale >= 0 takes its max on the raw scores and
   // folds the scale into the exponent's FMA; other tiles scale and mask first
   const bool raw = !edge && scale_log2 >= 0.f;
@@ -558,7 +592,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  int n_heads, int n_rep, int sq,
                  int sk, int d, int causal, int has_window, int window,
                  float scale_log2, int round_scores, const int* __restrict__ q_pos,
-                 const int* __restrict__ keys, float pad) {
+                 const int* __restrict__ keys, const int* __restrict__ walk,
+                 const float* __restrict__ vsum, float pad) {
   constexpr int NC = DP / CHUNK;
   constexpr uint32_t TILE = NC * BOX_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -579,8 +614,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kvh = b * (n_heads / n_rep) + h / n_rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tiles first
 
-  // the live KV tiles of this query tile, as the TPU kernel's rule (every
-  // tile on the positions route)
+  // the live KV tiles of this query tile, as the TPU kernel's rule; on the
+  // positions route those of the list below
   const int n_kt = (sk + BK - 1) / BK;
   int kt_end = n_kt;
   if (causal && !POS) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
@@ -588,6 +623,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (has_window && !POS) {
     const long long lo = (long long)q0 - window + 1;  // first key any row keeps
     if (lo > 0) kt_begin = (int)(lo / BK);
+  }
+  // the positions route's walk: the key tiles whose bounds leave them live
+  // for either warpgroup's 64 rows, ascending, with each warpgroup's kind,
+  // as fwd_walk (csrc/positions.cuh) listed them for this query tile; every
+  // role reads the list alike (too long for shared memory in general)
+  const int* list = POS ? walk + ((long long)b * gridDim.y + q0 / BQ) * (1 + n_kt) : nullptr;
+  if (POS) {
+    kt_begin = 0;
+    kt_end = list[0];  // the number of live tiles
   }
 
   if (threadIdx.x == 0) {
@@ -606,9 +650,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (warp >= PRODUCER_WARP) {
     // ---- producer warpgroup: one thread issues the TMA loads ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (warp == PRODUCER_WARP && lane == 0) {
+    if (warp == PRODUCER_WARP && lane == 0 && (!POS || kt_end > 0)) {
       load_tile<NC>(q_s, &qmap, q0, bh, q_bar);
-      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+      for (int i = 0; i < kt_end - kt_begin; ++i) {
+        const int kt = POS ? walk_tile(list[1 + i]) : kt_begin + i;
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
         load_tile<NC>(k_s + s * TILE, &kmap, kt * BK, kvh, k_full(s),
@@ -645,11 +690,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     // The warpgroups take turns to issue (ping-pong), so one's softmax
     // overlaps the other's products; warpgroup 0 goes first, and the
     // last turn of warpgroup 1 is not passed on, as nobody waits for it.
-    mbar_wait(q_bar, 0);
     const int n_tiles = kt_end - kt_begin;
+    if (!POS || n_tiles > 0) mbar_wait(q_bar, 0);
     float sc[BK / 2] = {};
     uint32_t p[BK / 16][4];
     float corr[2];
+    // POS: the walk's entry of the latest score product's tile, and the next
+    // one's, loaded a tile ahead
+    int e = POS && n_tiles > 0 ? list[1] : 0;
+    int e_next = POS && n_tiles > 1 ? list[2] : 0;
     if (n_tiles > 0) {
       if (wg == 1) turn_pass(wg);
       mbar_wait(k_full(0), 0);
@@ -658,12 +707,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(sc);
-      softmax_tile<POS>(sc, m, l, corr, kt_begin * BK, row0, qa, sk, causal, has_window,
-                        window, scale_log2, round_scores, t, kp, qp);
+      softmax_tile<POS>(sc, m, l, corr, (POS ? walk_tile(e) : kt_begin) * BK, row0, qa, sk,
+                        causal, has_window, window, scale_log2, round_scores, t, kp, qp,
+                        walk_kind(e, wg) == TILE_INTERIOR);
       pack_p(sc, p);
     }
     for (int i = 0; i + 1 < n_tiles; ++i) {
       const int s = i % STAGES, s1 = (i + 1) % STAGES;
+      if (POS) {
+        e = e_next;
+        if (i + 2 < n_tiles) e_next = list[3 + i];
+      }
       mbar_wait(k_full(s1), ((i + 1) / STAGES) & 1);
       mbar_wait(v_full(s), (i / STAGES) & 1);
       turn_wait(wg);
@@ -672,9 +726,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_pass(wg);
       wgmma_wait<1>();  // S(i+1) is ready, P(i) V may still run
       fence_regs(sc);
-      softmax_tile<POS>(sc, m, l, corr, (kt_begin + i + 1) * BK, row0, qa, sk, causal,
-                        has_window, window, scale_log2, round_scores, t,
-                        kp + s1 * BK, qp);
+      softmax_tile<POS>(sc, m, l, corr, (POS ? walk_tile(e) : kt_begin + i + 1) * BK, row0,
+                        qa, sk, causal, has_window, window, scale_log2, round_scores, t,
+                        kp + s1 * BK, qp, walk_kind(e, wg) == TILE_INTERIOR);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(p);
@@ -698,18 +752,21 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(acc);
     }
 
+    bool none[2];  // no key kept (POS): JAX's mean of V, its lse exactly
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      if (POS) l[r] += pad * ex2(NEG2 - m[r]);  // JAX's pad keys: 1 each, no V
+      none[r] = POS && m[r] == NEG2;
       const int row = row0 + 8 * r;
       if (lse != nullptr && t == 0 && row < sq)  // m is in log2 units
         lse[(long long)bh * sq + row] =
-            POS && m[r] == NEG2 ? NEG_INF  // no key kept: JAX's lse, exactly
+            none[r] ? NEG_INF
             : l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
       l[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     }
+    const float n_mean = (float)sk + pad;
+    const float* vs = vsum + (long long)kvh * d;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * t;  // D % 8 == 0: col + 1 < D too
@@ -718,8 +775,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= sq) continue;
-        const __nv_bfloat162 v2 = __floats2bfloat162_rn(acc[4 * j + 2 * r] * l[r],
-                                                        acc[4 * j + 2 * r + 1] * l[r]);
+        const __nv_bfloat162 v2 =
+            none[r] ? __floats2bfloat162_rn(vs[col] / n_mean, vs[col + 1] / n_mean)
+                    : __floats2bfloat162_rn(acc[4 * j + 2 * r] * l[r],
+                                            acc[4 * j + 2 * r + 1] * l[r]);
         *reinterpret_cast<__nv_bfloat162*>(o + ((long long)bh * sq + row) * d + col) = v2;
       }
     }
@@ -799,26 +858,13 @@ constexpr size_t smem_bytes(int dp, int tiles, bool pos = false) {
          (pos ? 128 + STAGES * KPOS_BYTES : 8 * (1 + 3 * STAGES)) + 1024;
 }
 
-// keys[b][j] for j < tiles * BK: k_pos[b][j] where j < Sk and kv_mask
-// keeps key j, else MASKED
-__global__ void key_positions(const int* __restrict__ k_pos,
-                              const uint8_t* __restrict__ kv_mask,
-                              int* __restrict__ keys, long long n, long long sk,
-                              long long sk_pad) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long b = i / sk_pad, j = i - b * sk_pad;
-    keys[i] = j < sk ? key_position(k_pos, kv_mask, b, sk, j) : MASKED;
-  }
-}
-
 template <int DP, bool POS>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            long long batch,
            int n_heads, int n_kv_heads, long long sq, long long sk, int d,
            int causal, int has_window, long long window, float scale,
-           int round_scores, const int* q_pos, const int* k_pos,
-           const uint8_t* kv_mask, int* keys, float pad, cudaStream_t stream) {
+           int round_scores, const int* q_pos, const int* bounds, const int* keys,
+           int* walk, const float* vsum, float pad, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int rc = encode(&qm, q, batch * n_heads, sq, d, BK);
   if (rc == 0) rc = encode(&km, k, batch * n_kv_heads, sk, d, BK);
@@ -841,17 +887,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const long long lim = 1LL << 30;
   const int win = (int)(window > lim ? lim : (window < -lim ? -lim : window));
   if (POS) {
-    const long long sk_pad = (sk + BK - 1) / BK * BK;
-    key_positions<<<256, 256, 0, stream>>>(k_pos, kv_mask, keys, batch * sk_pad, sk,
-                                           sk_pad);
-    err = cudaGetLastError();
+    err = launch_walk(bounds, walk, false, batch, sq, sk, causal, has_window, win, stream);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)(batch * n_heads), (unsigned)((sq + BQ - 1) / BQ));
   flash_fwd_tc<DP, POS><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, n_heads, n_heads / n_kv_heads,
       (int)sq, (int)sk, d, causal, has_window, win, scale * 1.4426950408889634f,
-      round_scores, q_pos, keys, pad);
+      round_scores, q_pos, keys, walk, vsum, pad);
   return (int)cudaGetLastError();
 }
 
@@ -895,6 +938,29 @@ extern "C" int flash_attention_uses_tc(int dtype, int d) {
   return dtype == 1 && d >= 8 && d <= 128 && d % 8 == 0;
 }
 
+// vsum[bkv][c] = sum over j < Sk of v[bkv][j][c] in f32 (the positions
+// route's mean of a row that keeps no key): block (bkv, 32 columns), thread
+// (ty, tx) sums rows ty, ty + 32, ... of column tx in turn, then thread
+// (0, tx) adds the 32 partial sums in order: a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    column_sums(const T* __restrict__ v, float* __restrict__ vsum, long long sk, int d) {
+  __shared__ float part[32][33];
+  const long long bkv = blockIdx.x;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int c = blockIdx.y * 32 + tx;
+  float acc = 0.f;
+  if (c < d)
+    for (long long j = ty; j < sk; j += 32) acc += simt::widen(v[(bkv * sk + j) * d + c]);
+  part[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && c < d) {
+    float sum = 0.f;
+    for (int i = 0; i < 32; ++i) sum += part[i][tx];
+    vsum[bkv * d + c] = sum;
+  }
+}
+
 // Fills n floats with +inf (the lse of rows that keep no key).
 __global__ void fill_inf(float* x, long long n) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
@@ -908,9 +974,10 @@ __global__ void fill_inf(float* x, long long n) {
 // Sq <= 65535 * 64; on the tensor-core route besides Sq, Sk and B*H below
 // 2^31 and q, k, v 16-byte aligned. The positions route: q_pos int32
 // [B, Sq], k_pos int32 [B, Sk], kv_mask bool [B, Sk] (all three, or null
-// for the index route), `pad` the zero keys of JAX's last KV chunk, and on
-// the tensor-core route `keys`, int32 scratch [B, ceil(Sk / 128) * 128].
-// Returns 0 on success, else the cudaError_t.
+// for the index route), `pad` the zero keys of JAX's last KV chunk, and
+// the scratch of flash_attention_pos_scratch: `ints` int32 (the tile
+// bounds, the folded key positions) and `floats` f32 (the column sums of
+// V). Returns 0 on success, else the cudaError_t.
 extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       long long batch,
@@ -920,7 +987,8 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       long long window, float scale,
                                       int round_scores, const int* q_pos,
                                       const int* k_pos, const uint8_t* kv_mask,
-                                      int* keys, float pad, void* stream) {
+                                      int* ints, float* floats, float pad,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch * n_heads * sq == 0) return 0;
@@ -928,11 +996,38 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
       (sq + simt::BQ - 1) / simt::BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const bool pos = q_pos != nullptr;
-  if (pos && (k_pos == nullptr || kv_mask == nullptr || pad < 0.f ||
-              (flash_attention_uses_tc(dtype, d) && keys == nullptr)))
+  if (pos && (k_pos == nullptr || kv_mask == nullptr || pad < 0.f || ints == nullptr ||
+              floats == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (flash_attention_uses_tc(dtype, d)) {
+  const bool tc = flash_attention_uses_tc(dtype, d);
+  const int* kb = nullptr;
+  const int* qb = nullptr;
+  const int* keys = nullptr;
+  int* walk = nullptr;
+  int* visited = nullptr;
+  if (pos) {  // the tile bounds (the walk comes in tc::launch), then V's column sums
+    err = launch_tile_bounds(q_pos, k_pos, kv_mask, ints, tc, false, batch, sq, sk, s);
+    if (err != cudaSuccess) return (int)err;
+    kb = ints;
+    qb = kb + batch * bound_tiles(sk) * 3;
+    keys = ints + bounds_head(batch, sq, sk);
+    walk = ints + bounds_ints(batch, sq, sk, tc);
+    if (!tc) {  // the SIMT route's visit counts
+      visited = walk;
+      err = cudaMemsetAsync(visited, 0, VISITED_INTS * sizeof(int), s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((unsigned)(batch * n_kv_heads), (unsigned)((d + 31) / 32));
+    if (dtype == 0)
+      column_sums<float><<<grid, 1024, 0, s>>>(static_cast<const float*>(v), floats, sk, d);
+    else
+      column_sums<__nv_bfloat16><<<grid, 1024, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(v), floats, sk, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (tc) {
     const long long lim = 1LL << 31;
     if (sq >= lim || sk >= lim || batch * n_heads >= lim)
       return (int)cudaErrorInvalidValue;
@@ -949,26 +1044,43 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
     }
     TC_DISPATCH(d, pos ? tc::launch<DP, true>(q, k, v, o, lse, batch, n_heads,
                                               n_kv_heads, sq, sk, d, causal, has_window,
-                                              window, scale, round_scores, q_pos, k_pos,
-                                              kv_mask, keys, pad, s)
+                                              window, scale, round_scores, q_pos, ints,
+                                              keys, walk, floats, pad, s)
                        : tc::launch<DP, false>(q, k, v, o, lse, batch, n_heads,
                                                n_kv_heads, sq, sk, d, causal, has_window,
-                                               window, scale, round_scores, q_pos, k_pos,
-                                               kv_mask, keys, pad, s));
+                                               window, scale, round_scores, q_pos, ints,
+                                               keys, walk, floats, pad, s));
   }
   switch (dtype) {
     case 0:
       return simt::dispatch<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads, sq,
                                    sk, d, causal, has_window, window, scale,
-                                   round_scores, q_pos, k_pos, kv_mask, pad, s);
+                                   round_scores, q_pos, k_pos, kv_mask, kb, qb, floats,
+                                   pad, visited, s);
     case 1:
       return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, n_heads,
                                            n_kv_heads, sq, sk, d, causal,
                                            has_window, window, scale, round_scores,
-                                           q_pos, k_pos, kv_mask, pad, s);
+                                           q_pos, k_pos, kv_mask, kb, qb, floats, pad,
+                                           visited, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The positions route's scratch, in elements: int32 `ints` (the tile
+// bounds and, on the tensor-core route, the key positions and the walk;
+// positions.cuh's bounds_ints and fwd_walk_ints; on the SIMT route the
+// visit counts, VISITED_INTS) and f32 `floats` (V's column sums, [B, Hkv,
+// D]); `walk_at`, where in `ints` the walk (or the visit counts) begins.
+extern "C" void flash_attention_pos_scratch(long long batch, int n_kv_heads, long long sq,
+                                            long long sk, int d, int dtype,
+                                            long long* ints, long long* floats,
+                                            long long* walk_at) {
+  const bool tc = flash_attention_uses_tc(dtype, d);
+  *walk_at = bounds_ints(batch, sq, sk, tc);
+  *ints = *walk_at + (tc ? fwd_walk_ints(batch, sq, sk) : VISITED_INTS);
+  *floats = batch * n_kv_heads * d;
 }
 
 // The tensor-core route's two products on one tile, for checking its

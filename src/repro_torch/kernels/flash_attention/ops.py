@@ -52,9 +52,19 @@ index route. A row that keeps no key follows JAX's finite mask value
 ``pad`` counts the zero keys that pad JAX's last chunk (``(-Sk) mod
 min(chunk_kv, Sk)``), its lse is ``NEG_INF``, and the backward gives every
 masked pair of a row ``P = exp(NEG_INF - lse)``: 1 in such a row, 0 in any
-other. Both kernels visit every key tile on this route (the positions are
-data; no host reads them), in both routes by dtype and D, and count
-their launches in ``launches_pos`` too.
+other. The positions are data and no host reads them: a first launch of
+each kernel writes the position bounds of every 64-key tile and 64-row
+query block (:func:`tile_bounds`), and both kernels, on both routes by
+dtype and D, visit only the tiles that those bounds leave live
+(:func:`tile_kind`; :func:`live_tiles`, :func:`tile_needs_mask`,
+:func:`bwd_schedule` and :func:`walk_lists` state the walks), running
+interior tiles mask-free on the tensor cores; :func:`visited` reads back
+what a launch visited (the tensor cores' walk lists, the SIMT kernels'
+tile counts). A row that keeps no key takes its answer in closed form:
+the forward's mean of V from a column sum (:func:`column_sums_plain`), the
+backward's terms from sums over such rows and over the keys
+(:func:`nokey_sums_plain`, :func:`nokey_grads_plain`). Both count their
+launches in ``launches_pos`` too.
 """
 
 from __future__ import annotations
@@ -75,6 +85,15 @@ TC_BLOCK_Q, TC_BLOCK_K = 128, 128
 BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
 #: the JAX package's finite mask value (``attention.NEG_INF``)
 NEG_INF = -1e30
+#: the positions route's bound tiles: 64 keys, 64 query rows
+#: (``csrc/positions.cuh`` ``BND``); a larger tile is the union of these
+BOUND_TILE = 64
+#: ``tile_kind``'s answers (``csrc/positions.cuh``)
+TILE_DEAD, TILE_EDGE, TILE_INTERIOR = 0, 1, 2
+#: a walk entry's tile index bits, then two 2-bit kinds (``WALK_SHIFT``)
+WALK_SHIFT = 24
+#: the SIMT route's visit counts at the end of the int32 scratch
+VISITED_INTS = 2
 
 
 def route(dtype, d: int) -> str:
@@ -93,12 +112,100 @@ def bwd_route(dtype, d: int) -> str:
     return "tc" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
 
 
+def _bound_tiles(s: int) -> int:
+    """Bound tiles of a batch row: ``ceil(S / 128) · 2`` (positions.cuh)."""
+    return -(-s // (2 * BOUND_TILE)) * 2
+
+
+def tile_bounds(q_pos, k_pos, kv_mask):
+    """The bounds that ``tile_bounds`` (``csrc/positions.cuh``) writes, as
+    int64 host tensors: ``kb [B, nk, 3]``, each 64-key tile's min and max
+    *kept* key position (lo > hi where it keeps none) and whether every
+    key of it is kept and below Sk; ``qb [B, nq, 2]``, each 64-row query
+    block's min and max position over rows below Sq (lo > hi: no row)."""
+    q_pos, k_pos, kv_mask = (t.cpu() for t in (q_pos, k_pos, kv_mask))
+    b, sq = q_pos.shape
+    sk = k_pos.shape[1]
+    big, small = 2**31 - 1, -(2**31)
+    nk, nq = _bound_tiles(sk), _bound_tiles(sq)
+    kpad = torch.full((b, nk * BOUND_TILE), small, dtype=torch.int64)
+    kept = torch.zeros((b, nk * BOUND_TILE), dtype=torch.bool)
+    kpad[:, :sk] = k_pos.long()
+    kept[:, :sk] = kv_mask
+    kept = kept.view(b, nk, BOUND_TILE)
+    kpad = kpad.view(b, nk, BOUND_TILE)
+    kb = torch.stack([torch.where(kept, kpad, big).amin(-1),
+                      torch.where(kept, kpad, small).amax(-1),
+                      kept.all(-1).long()], -1)
+    qpad = torch.full((b, nq * BOUND_TILE), big, dtype=torch.int64)
+    qpad[:, :sq] = q_pos.long()
+    qlo = qpad.view(b, nq, BOUND_TILE).amin(-1)
+    qpad[:, sq:] = small
+    qb = torch.stack([qlo, qpad.view(b, nq, BOUND_TILE).amax(-1)], -1)
+    return kb, qb
+
+
+def _union(kb, b: int, t0: int, t1: int):
+    """Key tiles ``[t0, t1)`` of batch row ``b`` (``kb`` as lists) as one
+    tile's bounds."""
+    e = kb[b][t0:t1]
+    return min(x[0] for x in e), max(x[1] for x in e), min(x[2] for x in e)
+
+
+def tile_kind(q, k, causal: bool, window) -> int:
+    """``TILE_DEAD``, ``TILE_EDGE`` or ``TILE_INTERIOR``: the key tile of
+    bounds ``k = (lo, hi, full)`` for the query block ``q = (lo, hi)``, the
+    rule of ``csrc/positions.cuh``. Dead: it keeps no key, or under causal
+    its lowest key is above the block's highest query, or under a window
+    the block's lowest query is ``window`` or more past its highest key —
+    no pair of it is kept. Interior: every key of it is kept and below Sk,
+    and every query of the block keeps each of them."""
+    (qlo, qhi), (klo, khi, full) = q[:2], k
+    if klo > khi or qlo > qhi:
+        return TILE_DEAD
+    if causal and klo > qhi:
+        return TILE_DEAD
+    if window is not None and qlo - khi >= window:
+        return TILE_DEAD
+    inner = (full and (not causal or khi <= qlo)
+             and (window is None or qhi - klo < window))
+    return TILE_INTERIOR if inner else TILE_EDGE
+
+
+def _kinds(bounds, b: int, qt: int, kt: int, bq: int, bk: int, causal, window):
+    """The kind of key tile ``kt`` (``bk`` keys) for each 64-row block of
+    query tile ``qt`` (``bq`` rows) of batch row ``b``; ``bounds`` are
+    :func:`tile_bounds`' as lists."""
+    kb, qb = bounds
+    nb = bk // BOUND_TILE
+    k = _union(kb, b, kt * nb, (kt + 1) * nb)
+    blocks = range(qt * bq // BOUND_TILE, (qt + 1) * bq // BOUND_TILE)
+    return [tile_kind(qb[b][i], k, causal, window) for i in blocks]
+
+
+def _live_table(positions, sq: int, sk: int, bq: int, bk: int, causal, window):
+    """``live[b][qt][kt]``: whether the positions route visits key tile
+    ``kt`` (``bk`` keys) for query tile ``qt`` (``bq`` rows) of batch row
+    ``b``: live for any 64-row block of it."""
+    bounds = tuple(t.tolist() for t in tile_bounds(*positions))
+    return [[[any(kind != TILE_DEAD for kind in _kinds(bounds, b, qt, kt, bq, bk, causal,
+                                                       window))
+              for kt in range(-(-sk // bk))] for qt in range(-(-sq // bq))]
+            for b in range(positions[0].shape[0])]
+
+
 def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
-               bk: int = TC_BLOCK_K):
+               bk: int = TC_BLOCK_K, positions=None):
     """``[(q_tile, kt_begin, kt_end)]``: the key tiles each query tile
     visits on the index route, by the TPU kernel's skip rule as a loop
-    range, the formula of both CUDA kernels (the positions route visits
-    every key tile)."""
+    range, the formula of both CUDA kernels. With ``positions = (q_pos,
+    k_pos, kv_mask)`` the positions route's walk, ``[(b, q_tile, [kt,
+    ...])]``: the key tiles of ``bk`` keys that :func:`tile_kind` leaves
+    live for any 64-row block of the ``bq``-row query tile, ascending."""
+    if positions is not None:
+        table = _live_table(positions, sq, sk, bq, bk, causal, window)
+        return [(b, qt, [kt for kt, on in enumerate(row) if on])
+                for b, rows in enumerate(table) for qt, row in enumerate(rows)]
     n_kt = -(-sk // bk)
     out = []
     for qt in range(-(-sq // bq)):
@@ -112,10 +219,17 @@ def live_tiles(sq: int, sk: int, causal: bool, window, bq: int = TC_BLOCK_Q,
 
 
 def tile_needs_mask(q_lo: int, rows: int, k0: int, sk: int, causal: bool, window,
-                    bk: int = TC_BLOCK_K) -> bool:
+                    bk: int = TC_BLOCK_K, positions=None, b: int = 0) -> bool:
     """Whether the tensor-core kernel masks key tile ``[k0, k0 + bk)`` for
     query rows ``[q_lo, q_lo + rows)`` (one warpgroup's): the tile straddles
-    Sk, the causal diagonal or the window's edge. Interior tiles skip it."""
+    Sk, the causal diagonal or the window's edge. Interior tiles skip it.
+    With ``positions = (q_pos, k_pos, kv_mask)``: unless the bounds of
+    batch row ``b`` prove the tile interior for those 64 rows
+    (:func:`tile_kind`)."""
+    if positions is not None:
+        bounds = tuple(t.tolist() for t in tile_bounds(*positions))
+        return _kinds(bounds, b, q_lo // rows, k0 // bk, rows, bk, causal,
+                      window)[0] != TILE_INTERIOR
     return (k0 + bk > sk or (causal and k0 + bk - 1 > q_lo)
             or (window is not None and q_lo + rows - 1 - k0 >= window))
 
@@ -147,7 +261,7 @@ def bwd_query_tiles(kt: int, sq: int, causal: bool, window, bq: int = BWD_BLOCK_
 
 
 def bwd_schedule(batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
-                 causal: bool, window, positions: bool = False):
+                 causal: bool, window, positions=None):
     """The tensor-core backward's walk, as its blocks run it: a list in
     launch order (``blockIdx.y`` = key tile slowest, ``blockIdx.x`` = batch
     · kv head) of ``(block, kt, steps)``, each step ``(bh, qt, before)``:
@@ -155,23 +269,106 @@ def bwd_schedule(batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
     next (the group's heads in turn, each over its live query tiles in
     order) and the number of key tiles whose dQ adds into that tile must
     come first — the value the block waits for on the tile's counter
-    (``before == 0``: it stores instead of adding). On the positions route
-    every key tile meets every query tile."""
+    (``before == 0``: it stores instead of adding). With ``positions =
+    (q_pos, k_pos, kv_mask)`` the positions route's: the live tiles are
+    those :func:`tile_kind` leaves live (64 query rows against 128 keys),
+    and ``before`` counts the live key tiles below ``kt``."""
     n_rep = n_heads // n_kv_heads
+    table = (None if positions is None else
+             _live_table(positions, sq, sk, BWD_BLOCK_Q, BWD_BLOCK_K, causal, window))
     out = []
     for kt in range(-(-sk // BWD_BLOCK_K)):
-        qb, qe = ((0, -(-sq // BWD_BLOCK_Q)) if positions
-                  else bwd_query_tiles(kt, sq, causal, window))
         for bkv in range(batch * n_kv_heads):
             b, g = divmod(bkv, n_kv_heads)
+            if table is None:
+                tiles = range(*bwd_query_tiles(kt, sq, causal, window))
+            else:
+                tiles = [qt for qt, row in enumerate(table[b]) if row[kt]]
             steps = []
             for hr in range(n_rep):
                 bh = b * n_heads + g * n_rep + hr
-                for qt in range(qb, qe):
-                    first = 0 if positions else bwd_key_tiles(qt, sk, causal, window)[0]
-                    steps.append((bh, qt, kt - first))
+                for qt in tiles:
+                    before = (kt - bwd_key_tiles(qt, sk, causal, window)[0]
+                              if table is None else sum(table[b][qt][:kt]))
+                    steps.append((bh, qt, before))
             out.append((kt * batch * n_kv_heads + bkv, kt, steps))
     return out
+
+
+def walk_lists(positions, sq: int, sk: int, causal: bool, window, bwd: bool = False):
+    """The tensor-core route's walk lists as ``fwd_walk`` / ``bwd_walk``
+    (``csrc/positions.cuh``) write them, from ``positions = (q_pos, k_pos,
+    kv_mask)``, in their order. Forward: ``(b, qt, kt, kind_0, kind_1)``
+    for each live 128-key tile ``kt`` of each 128-row query tile ``qt``,
+    ``kind_h`` the tile's kind for the query tile's 64-row half ``h``.
+    Backward: ``(b, kt, qt, kind_0, kind_1, rank)`` for each live 64-row
+    query tile ``qt`` of each 128-key tile ``kt``, ``kind_h`` that of the
+    key tile's 64-key half ``h``, ``rank`` the live key tiles below ``kt``
+    for ``qt``."""
+    bounds = tuple(t.tolist() for t in tile_bounds(*positions))
+    n_b = positions[0].shape[0]
+    n_kt = -(-sk // BWD_BLOCK_K)
+    out = []
+    if not bwd:
+        for b in range(n_b):
+            for qt in range(-(-sq // TC_BLOCK_Q)):
+                for kt in range(n_kt):
+                    kinds = _kinds(bounds, b, qt, kt, TC_BLOCK_Q, TC_BLOCK_K, causal, window)
+                    if any(kind != TILE_DEAD for kind in kinds):
+                        out.append((b, qt, kt, *kinds))
+        return out
+    table = _live_table(positions, sq, sk, BWD_BLOCK_Q, BWD_BLOCK_K, causal, window)
+    for b in range(n_b):
+        for kt in range(n_kt):
+            for qt, row in enumerate(table[b]):
+                if row[kt]:
+                    halves = [_kinds(bounds, b, qt, 2 * kt + i, BOUND_TILE, BOUND_TILE, causal,
+                                     window)[0] for i in range(2)]
+                    out.append((b, kt, qt, *halves, sum(row[:kt])))
+    return out
+
+
+def read_walk(ints, at: int, batch: int, sq: int, sk: int, bwd: bool = False):
+    """The walk lists that the tensor-core route's kernels followed, read
+    from their int32 scratch (``ints``, the walk ``at`` elements in), in
+    :func:`walk_lists`' form."""
+    mask = (1 << WALK_SHIFT) - 1
+
+    def entry(e):
+        return e & mask, (e >> WALK_SHIFT) & 3, (e >> (WALK_SHIFT + 2)) & 3
+
+    if bwd:
+        n_kt, n_qt, width = -(-sk // BWD_BLOCK_K), -(-sq // BWD_BLOCK_Q), 2
+    else:
+        n_kt, n_qt, width = -(-sq // TC_BLOCK_Q), -(-sk // TC_BLOCK_K), 1
+    size = batch * n_kt * (1 + width * n_qt)
+    lists = ints[at:at + size].cpu().view(batch, n_kt, 1 + width * n_qt).tolist()
+    out = []
+    for b in range(batch):
+        for t in range(n_kt):
+            row = lists[b][t]
+            for i in range(row[0]):
+                tile, k0, k1 = entry(row[1 + width * i])
+                out.append((b, t, tile, k0, k1, *row[2 + width * i:1 + width * (i + 1)]))
+    return out
+
+
+def visited(fn):
+    """What the latest positions-route launch of ``fn`` (:func:`flash_attention`
+    or :func:`flash_attention_bwd`) on the card visited, read back from its
+    int32 scratch: on the tensor-core route ``{"walk": ...}``, the lists its
+    kernels followed (:func:`read_walk`); on the SIMT route ``{"tiles":
+    [n, ...]}``, the 64 × 64 tiles its blocks counted as they visited them
+    (the forward's, then the backward's dK/dV and dQ kernels'). None before
+    any such launch."""
+    w = fn.last_walk
+    if w is None:
+        return None
+    if w["tc"]:
+        return {"walk": read_walk(w["ints"], w["at"], w["batch"], w["sq"], w["sk"],
+                                  bwd=fn is flash_attention_bwd)}
+    tiles = w["ints"][-VISITED_INTS:].tolist()
+    return {"tiles": tiles if fn is flash_attention_bwd else tiles[:1]}
 
 
 def keep_mask(q_pos, k_pos, causal: bool, window, kv_mask=None) -> torch.Tensor:
@@ -280,6 +477,59 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, window=None,
     return dq, dk, dv
 
 
+def column_sums_plain(v):
+    """f32 ``[B, Hkv, D]``: the sum of V over its Sk keys, which the
+    positions route's forward divides by ``Sk + pad`` for a row that keeps
+    no key (``column_sums`` in ``csrc/flash_attention.cu``)."""
+    return v.float().sum(dim=2)
+
+
+def nokey_sums_plain(q, k, v, out, lse, dout):
+    """The backward's sums for the rows that keep no key (lse ``NEG_INF``),
+    per (batch, kv head), in float32 (``gram_kernel`` and ``sum_chunks`` in
+    ``csrc/flash_attention_bwd.cu``), over the no-key rows ``i`` of the
+    group's heads and the keys ``j < Sk``: ``sigma = Σ dO_i``, ``N = Σ q_i
+    dO_iᵀ`` ``[D, D]``, ``rho = Σ delta_i q_i``, ``A = Σ k_j v_jᵀ``,
+    ``kappa = Σ k_j``, and ``count``, the no-key rows."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    w = (lse == NEG_INF).float().reshape(b, hkv, -1)
+
+    def rows(t):
+        return t.float().reshape(b, hkv, -1, d)
+
+    qf, do = rows(q), rows(dout)
+    delta = (do * rows(out)).sum(-1)
+    kf, vf = k.float(), v.float()
+    return {"sigma": (w[..., None] * do).sum(2),
+            "N": torch.einsum("bgr,bgrc,bgre->bgce", w, qf, do),
+            "rho": ((w * delta)[..., None] * qf).sum(2),
+            "A": torch.einsum("bgjc,bgje->bgce", kf, vf), "kappa": kf.sum(2),
+            "count": w.sum(-1).long()}
+
+
+def nokey_grads_plain(q, k, v, out, lse, dout, scale, sums=None):
+    """The closed-form backward of the rows that keep no key, float32
+    ``(dq, dk, dv)`` to add to the tile walk's (in which those rows take
+    P = 0): JAX gives such a row P = 1 on every key ``j < Sk`` (its pad
+    keys are zero and add nothing), so ``dV_j += sigma``, ``dK_j += scale ·
+    (N v_j − rho)`` and ``dQ_i = scale · (A dO_i − delta_i kappa)`` on the
+    no-key rows, with :func:`nokey_sums_plain`'s sums."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    t = nokey_sums_plain(q, k, v, out, lse, dout) if sums is None else sums
+    none = (lse == NEG_INF)[..., None]
+    g = lambda x: x.repeat_interleave(h // hkv, dim=1)  # noqa: E731
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    dq = torch.where(none, scale * (torch.einsum("bhce,bhie->bhic", g(t["A"]), do)
+                                    - delta * g(t["kappa"])[:, :, None]), 0.0)
+    dk = scale * (torch.einsum("bgce,bgje->bgjc", t["N"], v.float())
+                  - t["rho"][:, :, None])
+    dv = t["sigma"][:, :, None].expand(b, hkv, k.shape[2], d)
+    return dq, dk, dv
+
+
 @functools.cache
 def _entry():
     """The C entry point of the kernel's library, typed."""
@@ -289,11 +539,49 @@ def _entry():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_float,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch(lib: str, entry: str, *args):
+    """Element counts ``(ints, floats)`` and the walk's offset in the ints,
+    from a library's scratch entry."""
+    fn = getattr(build.library(lib), entry)
+    out = [ctypes.c_longlong() for _ in range(3)]
+    fn.restype = None
+    fn(*args, *map(ctypes.byref, out))
+    return tuple(x.value for x in out)
+
+
+def pos_scratch(q, k, bwd: bool = False):
+    """The positions route's int32 and f32 scratch on q's device, sized by
+    the C entry (``flash_attention_pos_scratch`` or
+    ``flash_attention_bwd_pos_scratch``): the tile bounds, the walk, and
+    the column sums of V (forward) or the no-key sums and counts
+    (backward); and where in the int32 scratch the walk begins."""
+    b, _, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    c = ctypes.c_longlong
+    if bwd:
+        n_int, n_float, at = _scratch("flash_attention_bwd",
+                                      "flash_attention_bwd_pos_scratch", c(b),
+                                      ctypes.c_int(hkv), c(sq), c(sk), ctypes.c_int(d))
+    else:
+        n_int, n_float, at = _scratch("flash_attention", "flash_attention_pos_scratch",
+                                      c(b), ctypes.c_int(hkv), c(sq), c(sk),
+                                      ctypes.c_int(d), ctypes.c_int(_DTYPE_CODE[q.dtype]))
+    return (torch.empty(n_int, dtype=torch.int32, device=q.device),
+            torch.empty(n_float, dtype=torch.float32, device=q.device), at)
+
+
+def _keep_walk(fn, ints, at: int, q, k, tc: bool):
+    """Keeps the int32 scratch of ``fn``'s latest positions launch, which
+    :func:`visited` reads back."""
+    fn.last_walk = {"ints": ints, "at": at, "batch": q.shape[0], "heads": q.shape[1],
+                    "sq": q.shape[2], "sk": k.shape[2], "tc": tc}
 
 
 @functools.cache
@@ -304,7 +592,7 @@ def _bwd_entry():
         ctypes.c_int, *[ctypes.c_void_p] * 12, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 3, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -415,8 +703,9 @@ def _check_positions(q, k, q_pos, k_pos, kv_mask, pad) -> bool:
 
 def _pair_flops(q, k, causal, window, per_pair: int, positions: bool = False) -> int:
     """``per_pair · D`` flops for every kept (query, key) pair of every head;
-    on the positions route, whose kept pairs are data, every pair (each of
-    them is visited; the fake route reads no values)."""
+    on the positions route, whose kept pairs are data that the fake route
+    never reads, every pair: the upper bound of what the kernels visit (the
+    live tiles, :func:`live_tiles`, are the data's too)."""
     b, h, sq, d = q.shape
     pairs = (sq * k.shape[2] if positions
              else fake.kept_pairs(sq, k.shape[2], causal, window))
@@ -446,20 +735,19 @@ def flash_attention(q, k, v, causal=True, window=None, scale=1.0, return_lse=Fal
                     fake.nbytes(q, k, v, out, lse, q_pos, k_pos, kv_mask),
                     _pair_flops(q, k, causal, window, 4, positions))
         return _count_fwd(q, out, lse, return_lse, positions)
-    keys = None  # the tensor-core route's key positions, a tile's keys a bulk copy
-    if positions and route(q.dtype, d) == "tc":
-        keys = torch.empty(b * -(-k.shape[2] // TC_BLOCK_K) * TC_BLOCK_K,
-                           dtype=torch.int32, device=q.device)
+    ints, floats, at = pos_scratch(q, k) if positions else (None, None, 0)
     rc = _entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), _ptr(lse), b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
         0 if window is None else int(window), float(scale), int(bool(round_scores)),
-        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask), _ptr(keys), float(pad),
+        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask), _ptr(ints), _ptr(floats), float(pad),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    if positions:
+        _keep_walk(flash_attention, ints, at, q, k, route(q.dtype, d) == "tc")
     return _count_fwd(q, out, lse, return_lse, positions)
 
 
@@ -477,6 +765,7 @@ flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
 flash_attention.launches_pos = 0
+flash_attention.last_walk = None
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale=1.0,
@@ -525,6 +814,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
         counters = torch.empty(n_counters, dtype=torch.int32, device=q.device)
     else:
         rows = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # delta
+    ints, floats, at = pos_scratch(q, k, bwd=True) if positions else (None, None, 0)
     rc = _bwd_entry()(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
@@ -533,11 +823,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=None, scale
         dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
         _DTYPE_CODE[q.dtype], int(bool(causal)), int(window is not None),
         0 if window is None else int(window), float(scale), int(bool(round_scores)),
-        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask),
+        _ptr(q_pos), _ptr(k_pos), _ptr(kv_mask), _ptr(ints), _ptr(floats),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    if positions:
+        _keep_walk(flash_attention_bwd, ints, at, q, k, tc)
     return _count_bwd(tc, dq, dk, dv, positions)
 
 
@@ -555,3 +847,4 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_tc = 0
 flash_attention_bwd.launches_simt = 0
 flash_attention_bwd.launches_pos = 0
+flash_attention_bwd.last_walk = None

@@ -12,6 +12,12 @@ Rows that keep no key follow JAX's finite mask value (−1e30): the mean of
 V over the ``Sk`` keys and the zero keys that pad JAX's last KV chunk
 (``chunk_kv`` that pads and one that does not), and in the backward a
 probability of 1 for every key.
+
+The kernels' walk is held here through its mirrors in the wrapper: the
+tile rule against every pair (``keep_mask``), its walk on positions
+0..S−1 against the index route's, the tensor-core backward's schedule of
+ordered dQ adds, and the live-tile walk with the closed-form terms of
+the rows that keep no key against JAX.
 """
 
 from __future__ import annotations
@@ -233,21 +239,305 @@ def test_positions_route_takes_positions_and_mask_together():
                                       kv_mask=torch.empty((1, 8), dtype=torch.bool))
 
 
-@pytest.mark.parametrize("sq,sk", [(200, 300), (64, 129)])
-def test_bwd_schedule_positions_route(sq, sk):
-    """On the positions route the tensor-core backward's blocks meet every
-    query tile, and each query tile's dQ adds come from key tiles 0, 1, …
-    in turn (a block waits for ``kt`` adds before its own)."""
-    sched = flash_ops.bwd_schedule(2, 4, 2, sq, sk, True, 16, positions=True)
-    n_qt, n_kt = -(-sq // flash_ops.BWD_BLOCK_Q), -(-sk // flash_ops.BWD_BLOCK_K)
+def _tile_positions(kind, b, sq, sk, seed=0):
+    """``(q_pos, k_pos, kv_mask)`` torch tensors for the tile-rule tests:
+    ``left_padded`` (prompts right-aligned, random pads, 10 % of the
+    remaining keys masked), ``random`` (positions over the whole range, 10 %
+    masked) and ``arange`` (0..S−1, no key masked); in the first two the
+    last batch row keeps no key at all."""
+    rng = np.random.default_rng(seed)
+    if kind == "arange":
+        qp = np.tile(np.arange(sq, dtype=np.int32), (b, 1))
+        kp = np.tile(np.arange(sk, dtype=np.int32), (b, 1))
+        return tuple(map(torch.from_numpy, (qp, kp, np.ones((b, sk), bool))))
+    if kind == "left_padded":
+        pads = rng.integers(0, sk, (b, 1))
+        kp = (np.arange(sk)[None] - pads).astype(np.int32)
+        qp = (np.arange(sq)[None] + sk - sq - pads).astype(np.int32)
+        mask = (kp >= 0) & (rng.random((b, sk)) >= 0.1)
+    else:
+        qp = rng.integers(0, sk + 40, (b, sq)).astype(np.int32)
+        kp = rng.integers(0, sk + 40, (b, sk)).astype(np.int32)
+        mask = rng.random((b, sk)) >= 0.1
+    mask[-1] = False
+    return tuple(map(torch.from_numpy, (qp, kp, mask)))
+
+
+#: (positions, b, sq, sk, causal, window): Sq and Sk off the multiples of
+#: 64 and 128, causal with and without a window, neither, a window alone
+TILE_CASES = [
+    ("left_padded", 3, 300, 333, True, None),
+    ("left_padded", 3, 300, 333, True, 90),
+    ("left_padded", 2, 200, 457, False, None),
+    ("random", 3, 190, 270, True, 60),
+    ("random", 2, 257, 129, False, 40),
+    ("random", 2, 129, 300, False, None),
+]
+
+
+@pytest.mark.parametrize("kind,b,sq,sk,causal,window", TILE_CASES)
+@pytest.mark.parametrize("bq,bk", [(64, 64), (128, 128), (64, 128)])
+def test_tile_rule_against_every_pair(kind, b, sq, sk, causal, window, bq, bk):
+    """The positions route's tile rule (``tile_bounds``, ``tile_kind``,
+    the walks of ``live_tiles`` and ``tile_needs_mask``) against
+    ``keep_mask`` pair by pair, at each kernel's tiles (the SIMT routes'
+    64 × 64, the tensor-core forward's 128 × 128 with its two warpgroups'
+    64-row halves, the tensor-core backward's 64 × 128): a tile the walk
+    skips keeps no pair, and a tile it runs mask-free keeps every pair of
+    its rows below Sq (and holds no key past Sk). Every key tile of a
+    batch row that keeps no key is skipped."""
+    positions = _tile_positions(kind, b, sq, sk, seed=sq + sk + bq)
+    keep = flash_ops.keep_mask(positions[0], positions[1], causal, window, positions[2])
+    walk = flash_ops.live_tiles(sq, sk, causal, window, bq, bk, positions=positions)
+    assert len(walk) == b * -(-sq // bq)
+    visited = 0
+    for bi, qt, kts in walk:
+        rows = keep[bi, qt * bq:(qt + 1) * bq]
+        assert kts == sorted(kts)
+        for kt in range(-(-sk // bk)):
+            tile = rows[:, kt * bk:(kt + 1) * bk]
+            if kt not in kts:
+                assert not bool(tile.any()), (bi, qt, kt)
+                continue
+            visited += tile.numel()
+            for half in range(bq // 64):  # a warpgroup's (or the block's) 64 rows
+                q_lo = qt * bq + 64 * half
+                if q_lo >= sq:
+                    continue
+                if not flash_ops.tile_needs_mask(q_lo, 64, kt * bk, sk, causal, window, bk,
+                                                 positions=positions, b=bi):
+                    assert kt * bk + bk <= sk
+                    assert bool(keep[bi, q_lo:q_lo + 64, kt * bk:(kt + 1) * bk].all())
+        if bi == b - 1:
+            assert kts == []  # the last row keeps no key
+    assert visited >= int(keep.sum())
+
+
+@pytest.mark.parametrize("sq,sk,hkv", [(64, 64, 1), (300, 333, 8)])
+def test_tile_rule_is_the_index_route_on_arange(sq, sk, hkv):
+    """With positions 0..S−1 and no key masked the positions route walks
+    the index route's tiles and runs the same tiles mask-free, on every
+    kernel's tiles, and its backward schedule is the index route's."""
+    positions = _tile_positions("arange", 2, sq, sk)
+    for causal, window in ((True, None), (True, 70), (False, 100), (False, None)):
+        for bq, bk in ((64, 64), (128, 128), (64, 128)):
+            index = flash_ops.live_tiles(sq, sk, causal, window, bq, bk)
+            walk = flash_ops.live_tiles(sq, sk, causal, window, bq, bk, positions=positions)
+            for (qt, begin, end), (_, qt2, kts) in zip(index, walk[:len(index)]):
+                assert qt == qt2 and kts == list(range(begin, end))
+        for q_lo in range(0, sq - 63, 64):
+            for k0 in range(0, sk, 128):
+                assert (flash_ops.tile_needs_mask(q_lo, 64, k0, sk, causal, window)
+                        == flash_ops.tile_needs_mask(q_lo, 64, k0, sk, causal, window,
+                                                     positions=positions))
+        assert (flash_ops.bwd_schedule(2, 8, hkv, sq, sk, causal, window)
+                == flash_ops.bwd_schedule(2, 8, hkv, sq, sk, causal, window,
+                                          positions=positions))
+
+
+@pytest.mark.parametrize("kind,sq,sk,causal,window", [
+    ("left_padded", 200, 300, True, None),
+    ("left_padded", 333, 257, True, 80),
+    ("random", 64, 129, True, 16),
+    ("random", 190, 400, False, 50),
+])
+def test_bwd_schedule_positions_route(kind, sq, sk, causal, window):
+    """The positions route's tensor-core backward schedule: each (head,
+    query tile) gets its dQ adds from exactly its live key tiles (64 rows
+    against 128 keys), in ascending key order and in launch order; each
+    step's ``before`` counts the live key tiles below its own, the first
+    stores; and every add a step waits for comes from a block launched
+    before it (no step waits on a later key tile)."""
+    b, h, hkv = 3, 4, 2
+    positions = _tile_positions(kind, b, sq, sk, seed=sq * sk)
+    sched = flash_ops.bwd_schedule(b, h, hkv, sq, sk, causal, window, positions=positions)
+    live = {(bi, qt): kts for bi, qt, kts in flash_ops.live_tiles(
+        sq, sk, causal, window, flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K,
+        positions=positions)}
     seen = {}
-    for _, kt, steps in sched:
-        assert sorted({qt for _, qt, _ in steps}) == list(range(n_qt))
+    for block, kt, steps in sched:
         for bh, qt, before in steps:
-            assert before == kt
-            seen.setdefault((bh, qt), []).append(kt)
-    assert len(seen) == 2 * 4 * n_qt
-    assert all(v == list(range(n_kt)) for v in seen.values())
+            adds = seen.setdefault((bh, qt), [])
+            assert before == len(adds)  # every live key tile below kt came first
+            assert all(k_ < kt for k_ in adds)
+            adds.append(kt)
+    for bi in range(b):
+        for hh in range(h):
+            for qt in range(-(-sq // flash_ops.BWD_BLOCK_Q)):
+                assert seen.get((bi * h + hh, qt), []) == live[(bi, qt)]
+    assert [block for block, _, _ in sched] == list(range(len(sched)))
+
+
+def _pack_walk(lists, batch, n_rows, n_cols, width, at):
+    """An int32 scratch holding ``lists`` (``walk_lists``' form) as
+    ``fwd_walk`` (``width`` 1) or ``bwd_walk`` (``width`` 2) lay them out
+    in ``csrc/positions.cuh``, ``at`` elements in, the rest of it junk."""
+    walk = torch.full((batch, n_rows, 1 + width * n_cols), -7, dtype=torch.int32)
+    walk[:, :, 0] = 0
+    for b, t, tile, k0, k1, *rank in lists:
+        n = int(walk[b, t, 0])
+        walk[b, t, 1 + width * n] = tile | k0 << flash_ops.WALK_SHIFT | k1 << (
+            flash_ops.WALK_SHIFT + 2)
+        if rank:
+            walk[b, t, 2 + width * n] = rank[0]
+        walk[b, t, 0] = n + 1
+    return torch.cat([torch.full((at,), 99, dtype=torch.int32), walk.flatten(),
+                      torch.full((5,), -3, dtype=torch.int32)])
+
+
+@pytest.mark.parametrize("kind,b,sq,sk,causal,window", TILE_CASES)
+def test_walk_lists_are_the_rule(kind, b, sq, sk, causal, window):
+    """The tensor-core walk lists that the smoke holds the card's against
+    (``walk_lists``) are the rule's walks: the forward's live 128-key tiles
+    of each 128-row query tile, ascending, each warpgroup half mask-free iff
+    ``tile_needs_mask`` says so; the backward's live 64-row query tiles of
+    each 128-key tile with ``bwd_schedule``'s ranks, each 64-key half
+    interior only where it keeps every pair. ``read_walk`` reads them back
+    from the kernels' layout."""
+    positions = _tile_positions(kind, b, sq, sk, seed=3 * sq + sk)
+    keep = flash_ops.keep_mask(positions[0], positions[1], causal, window, positions[2])
+    fwd = flash_ops.walk_lists(positions, sq, sk, causal, window)
+    live = flash_ops.live_tiles(sq, sk, causal, window, 128, 128, positions=positions)
+    assert [(bi, qt, kt) for bi, qt, kt, *_ in fwd] == [
+        (bi, qt, kt) for bi, qt, kts in live for kt in kts]
+    for bi, qt, kt, *kinds in fwd:
+        for half, kind_ in enumerate(kinds):
+            q_lo = qt * 128 + 64 * half
+            if q_lo < sq:
+                assert (kind_ == flash_ops.TILE_INTERIOR) == (not flash_ops.tile_needs_mask(
+                    q_lo, 64, kt * 128, sk, causal, window, 128, positions=positions, b=bi))
+    bwd = flash_ops.walk_lists(positions, sq, sk, causal, window, bwd=True)
+    sched = flash_ops.bwd_schedule(b, 1, 1, sq, sk, causal, window, positions=positions)
+    by_row = sorted(sched, key=lambda e: (e[0] % b, e[1]))  # block = kt · B + b
+    assert [(bi, kt, qt, rank) for bi, kt, qt, _, _, rank in bwd] == [
+        (block % b, kt, qt, before) for block, kt, steps in by_row for _, qt, before in steps]
+    for bi, kt, qt, *kinds, _ in bwd:
+        for half, kind_ in enumerate(kinds):
+            k0 = kt * 128 + 64 * half
+            tile = keep[bi, qt * 64:(qt + 1) * 64, k0:k0 + 64]
+            if kind_ == flash_ops.TILE_DEAD:
+                assert not bool(tile.any())
+            if kind_ == flash_ops.TILE_INTERIOR:
+                assert k0 + 64 <= sk and bool(tile.all())
+    for lists, rows, cols, width, flag in (
+            (fwd, -(-sq // 128), -(-sk // 128), 1, False),
+            (bwd, -(-sk // 128), -(-sq // 64), 2, True)):
+        ints = _pack_walk(lists, b, rows, cols, width, at=37)
+        assert flash_ops.read_walk(ints, 37, b, sq, sk, bwd=flag) == lists
+
+
+def _walk(q, k, v, dout, lse, positions, causal, window, scale, pad):
+    """The positions route's tile walk as the kernels take it, in float32
+    at their SIMT tiles (64 × 64): each query tile visits only its live key
+    tiles (``live_tiles``) with an online softmax from ``NEG_INF`` (a
+    masked score ``NEG_INF``, a key past Sk ``-inf``); a row whose max is
+    still ``NEG_INF`` takes ``column_sums_plain / (Sk + pad)``. The
+    backward walk gives a masked pair and every pair of a row that keeps
+    no key P = 0, then adds ``nokey_grads_plain``. Returns out, dq, dk, dv."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    keep = flash_ops.keep_mask(*positions[:2], causal, window, positions[2])
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    out = torch.zeros_like(qf)
+    vsum = flash_ops.column_sums_plain(v)
+    walk = flash_ops.live_tiles(sq, sk, causal, window, 64, 64, positions=positions)
+    for bi, qt, kts in walk:
+        rows = slice(qt * 64, min(sq, (qt + 1) * 64))
+        for hh in range(h):
+            g = hh // rep
+            m = torch.full((rows.stop - rows.start,), flash_ops.NEG_INF)
+            l, acc = torch.zeros_like(m), torch.zeros((m.numel(), d))
+            for kt in kts:
+                cols = slice(kt * 64, min(sk, (kt + 1) * 64))
+                s_ = scale * qf[bi, hh, rows] @ kf[bi, g, cols].T
+                s_ = torch.where(keep[bi, rows, cols], s_, flash_ops.NEG_INF)
+                m_new = torch.maximum(m, s_.max(-1).values)
+                p = torch.exp(s_ - m_new[:, None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[:, None] + p @ vf[bi, g, cols]
+                m = m_new
+            none = (m == flash_ops.NEG_INF)[:, None]
+            out[bi, hh, rows] = torch.where(none, vsum[bi, g] / (sk + pad),
+                                            acc / l.clamp_min(1e-30)[:, None])
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    delta = (do * out).sum(-1)
+    for bi, qt, kts in walk:
+        rows = slice(qt * 64, min(sq, (qt + 1) * 64))
+        for hh in range(h):
+            g = hh // rep
+            for kt in kts:
+                cols = slice(kt * 64, min(sk, (kt + 1) * 64))
+                s_ = scale * qf[bi, hh, rows] @ kf[bi, g, cols].T
+                p = torch.where(keep[bi, rows, cols],
+                                torch.exp(s_ - lse[bi, hh, rows][:, None]), 0.0)
+                ds = p * (do[bi, hh, rows] @ vf[bi, g, cols].T
+                          - delta[bi, hh, rows][:, None]) * scale
+                dv[bi, g, cols] += p.T @ do[bi, hh, rows]
+                dq[bi, hh, rows] += ds @ kf[bi, g, cols]
+                dk[bi, g, cols] += ds.T @ qf[bi, hh, rows]
+    extra = flash_ops.nokey_grads_plain(q, k, v, out.to(q.dtype), lse, dout, scale)
+    return out, dq + extra[0], dk + extra[1], dv + extra[2]
+
+
+#: (positions, b, sq, sk, h, hkv, d, causal, window, chunk_kv, dtype); each
+#: case has rows that keep no key
+WALK_CASES = [
+    ("left_padded", 4, 12, 12, 4, 2, 8, True, None, 5, "float32"),
+    ("left_padded", 3, 70, 150, 2, 1, 16, True, 40, 64, "float32"),
+    ("random", 2, 90, 140, 4, 2, 8, True, 30, 64, "float32"),
+    ("random", 3, 7, 13, 2, 1, 8, False, 6, 5, "float32"),
+    ("left_padded", 4, 12, 12, 4, 2, 16, True, None, 5, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("kind,b,sq,sk,h,hkv,d,causal,window,chunk_kv,dtype", WALK_CASES)
+def test_tile_walk_and_closed_form_match_jax(kind, b, sq, sk, h, hkv, d, causal, window,
+                                             chunk_kv, dtype):
+    """The kernels' design in plain PyTorch: the live-tile walk (no-key rows
+    at P = 0) plus the closed-form terms of the rows that keep no key (the
+    forward's column sum; sigma, N, rho, A, kappa) gives JAX's
+    ``attention_chunked`` forward and ``jax.grad``, and equals the plain
+    versions (``flash_attention_plain``, ``flash_attention_bwd_plain``),
+    which visit every pair."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + sq + sk + d)
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, h, d))]
+    if kind == "left_padded" and sq == sk:
+        qp, kp, mask = _positions(kind, rng, b, sq, sk)
+    else:
+        qp, kp, mask = (t.numpy() for t in _tile_positions(kind, b, sq, sk, seed=d))
+    jq, jk, jv = (jnp.asarray(x, JNP[dtype]) for x in arrays[:3])
+    cot = arrays[3]
+
+    def jfn(q, k, v):
+        return jattn.attention_chunked(q, k, v, jnp.asarray(qp), jnp.asarray(kp), causal,
+                                       window, 1024, chunk_kv, jnp.asarray(mask))
+
+    want_out = jfn(jq, jk, jv)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v).astype(jnp.float32) * cot),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv, tdo = (torch.tensor(x, dtype=TORCH[dtype]).transpose(1, 2).contiguous()
+                       for x in arrays)
+    positions = tuple(map(torch.from_numpy, (qp, kp, mask)))
+    pad = (-sk) % min(chunk_kv, sk)
+    scale = d**-0.5
+    _, lse = flash_ops.flash_attention_plain(tq, tk, tv, causal, window, scale, True,
+                                             q_pos=positions[0], k_pos=positions[1],
+                                             kv_mask=positions[2], pad=pad)
+    none = lse == flash_ops.NEG_INF
+    assert bool(none.any()) and not bool(none.all())
+    out, dq, dk, dv = _walk(tq, tk, tv, tdo, lse, positions, causal, window, scale, pad)
+    _close(out.transpose(1, 2), want_out, dtype, "output")
+    for name, g, w in zip("qkv", (dq, dk, dv), want):
+        _close(g.transpose(1, 2), w, dtype, f"d{name}")
+    plain = flash_ops.flash_attention_bwd_plain(
+        tq, tk, tv, out.to(tq.dtype), lse, tdo, causal, window, scale, q_pos=positions[0],
+        k_pos=positions[1], kv_mask=positions[2])
+    for name, g, w in zip("qkv", (dq, dk, dv), plain):
+        np.testing.assert_allclose(g.numpy(), w.float().numpy(), err_msg=f"d{name}",
+                                   **TOL[dtype])
 
 
 def test_supervised_run_restores_the_sigterm_handler(tmp_path):
